@@ -1,0 +1,44 @@
+"""arrowspace-tpu on PyTorch: the spectral similarity-search engine of
+``pyarrowspace_tpu`` ported to PyTorch and CUDA for NVIDIA Hopper.
+
+Public API (the same names as the JAX package):
+
+    ArrowSpaceBuilder.build(graph_params, items, device=None)
+    ArrowSpace.{nitems, nfeatures, get_item, lambdas, search, search_batch}
+    GraphLaplacian.{nnodes, shape, graph_params}
+    set_debug, get_phase_timings
+
+The exact k-NN scan of the build (K1) and the blended top-k scan of
+exact search (K2) are hand-written CUDA kernels (``csrc/``) built with
+nvcc at first use; on CPU tensors both run their plain PyTorch versions.
+This package imports torch and numpy, never jax.
+"""
+
+import torch
+
+# A float32 product in TF32 keeps ~3 decimal digits; distances and scores
+# must stay in full float32 to agree with the reference.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .builder import ArrowSpaceBuilder  # noqa: E402
+from .core.laplacian import GraphLaplacian  # noqa: E402
+from .core.params import GraphParams, TauMode  # noqa: E402
+from .core.space import ArrowItem, ArrowSpace  # noqa: E402
+from .graph.build import BuildConfig  # noqa: E402
+from .utils.debug import get_phase_timings, set_debug  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ArrowSpaceBuilder",
+    "ArrowSpace",
+    "ArrowItem",
+    "GraphLaplacian",
+    "GraphParams",
+    "TauMode",
+    "BuildConfig",
+    "set_debug",
+    "get_phase_timings",
+    "__version__",
+]

@@ -1,0 +1,120 @@
+"""ArrowSpaceBuilder — the only way to construct ArrowSpace/GraphLaplacian.
+
+Static-method API parity with the reference binding
+(reference src/lib.rs:265-377):
+
+  ArrowSpaceBuilder.build(graph_params, items) -> (ArrowSpace, GraphLaplacian)
+
+plus the engine's fluent configuration API.  ``build`` takes an optional
+``device``: by default the device of a tensor input, else CUDA when a card
+is present, else CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+from .core.laplacian import GraphLaplacian
+from .core.params import DEFAULT_GRAPH_PARAMS, GraphParams, TauMode, \
+    parse_graph_params
+from .core.space import ArrowSpace
+from .graph.build import BuildConfig, DEFAULT_BUILD_CONFIG, build_standard
+from .utils.debug import dbg_println
+
+
+class ArrowSpaceBuilder:
+    """Fluent builder + the reference static entry point."""
+
+    def __init__(self):
+        self._params: GraphParams = DEFAULT_GRAPH_PARAMS
+        self._config: BuildConfig = DEFAULT_BUILD_CONFIG
+        self._sampling_rate: Optional[float] = None
+
+    # -- fluent engine API (reference builder::ArrowSpaceBuilder) -------------
+    @staticmethod
+    def new() -> "ArrowSpaceBuilder":
+        return ArrowSpaceBuilder()
+
+    def with_lambda_graph(self, eps: float, k: int, topk: int, p: float,
+                          sigma: Optional[float]) -> "ArrowSpaceBuilder":
+        self._params = dataclasses.replace(
+            self._params, eps=float(eps), k=int(k), topk=int(topk),
+            p=float(p), sigma=None if sigma is None else float(sigma))
+        return self
+
+    def with_dims_reduction(self, enabled: bool,
+                            eps: Optional[float] = None
+                            ) -> "ArrowSpaceBuilder":
+        self._params = dataclasses.replace(
+            self._params, dims_reduction=bool(enabled),
+            reduction_eps=None if eps is None else float(eps))
+        return self
+
+    def with_seed(self, seed: int) -> "ArrowSpaceBuilder":
+        self._params = dataclasses.replace(self._params, seed=int(seed))
+        return self
+
+    def with_sparsity_check(self, enabled: bool) -> "ArrowSpaceBuilder":
+        self._params = dataclasses.replace(self._params,
+                                           sparsity_check=bool(enabled))
+        return self
+
+    def with_normalisation(self, enabled: bool) -> "ArrowSpaceBuilder":
+        self._params = dataclasses.replace(self._params,
+                                           normalise=bool(enabled))
+        return self
+
+    def with_synthesis(self, mode: TauMode,
+                       tau_fixed: Optional[float] = None
+                       ) -> "ArrowSpaceBuilder":
+        self._params = dataclasses.replace(
+            self._params, synthesis=mode,
+            tau_fixed=None if tau_fixed is None else float(tau_fixed))
+        return self
+
+    def with_inline_sampling(self, rate: Optional[float]
+                             ) -> "ArrowSpaceBuilder":
+        """Sampling keep-rate for the reduction stage (None keeps the
+        engine default of 0.6)."""
+        self._sampling_rate = None if rate is None else float(rate)
+        return self
+
+    def with_build_config(self, config: BuildConfig) -> "ArrowSpaceBuilder":
+        self._config = config
+        return self
+
+    def build_rows(self, rows) -> tuple[ArrowSpace, GraphLaplacian]:
+        """Fluent terminal: build from configured params."""
+        config = self._config
+        if self._sampling_rate is not None:
+            config = dataclasses.replace(config,
+                                         sampling_rate=self._sampling_rate)
+        return build_standard(rows, self._params, config)
+
+    # -- reference static API --------------------------------------------------
+    @staticmethod
+    def build(graph_params: Optional[Mapping[str, Any]], items, device=None
+              ) -> tuple[ArrowSpace, GraphLaplacian]:
+        """Standard build (parity: reference src/lib.rs:270-300).
+
+        The binding always sets: lambda graph from the dict, dims-reduction
+        on with the graph eps, seed 42, sparsity check off
+        (reference src/lib.rs:278-286).
+        """
+        dbg_println("Convert pyarray2 and Vec<Vec>")
+        gp = parse_graph_params(graph_params)
+        if gp is None:
+            gp = DEFAULT_GRAPH_PARAMS
+        gp = dataclasses.replace(
+            gp, dims_reduction=True,
+            reduction_eps=gp.eps, seed=42, sparsity_check=False)
+        dbg_println("Building from rows")
+        return build_standard(items, gp, device=device)
+
+    @staticmethod
+    def build_energy(items, energy_params=None, graph_params=None):
+        """Energy-only build: not ported yet (ROADMAP.md Slice C item 15)."""
+        raise NotImplementedError(
+            "build_energy is not ported yet: ROADMAP.md Slice C item 15 "
+            "(energy)")

@@ -1,0 +1,178 @@
+// K2: fused cosine + lambda-proximity scan with a running top-k.
+//
+// Replaces the TPU kernel pyarrowspace_tpu/ops/pallas/scan_topk.py
+// `_scan_kernel` (driven by `_scan_pallas`, entered through
+// `lambda_search_pallas`).  For every query q it keeps the k largest
+//   score(q, i) = tau * (qn_q . xu_i) + (1 - tau) / (1 + |lam_i - lamq_q|)
+// over the corpus, ties to the smallest id, with corpus ids >= n masked
+// to -3e38; rows come out descending by score.
+//
+// What bounds it on the H100: every query block of 64 reads the whole
+// corpus once (4,096 queries over 313,841 x 384 fp32: 64 passes of 482 MB),
+// and the products are Q x N x F x 2 = 0.99 TFLOP a batch of 4,096 in
+// fp32 outside the tensor cores.
+//
+// The simple design.  Launch 1: one block per (64-query block, corpus
+// split); the splits are contiguous ranges of 64-item tiles, and the
+// caller picks their number so that the grid holds at least about two
+// blocks per SM even for a single query.  A block runs the tiled fp32
+// product of tile_common.cuh over its split's tiles in ascending order,
+// blends, masks, and merges into running lists in shared memory, then
+// writes its partial lists [S, Q, k].  Launch 2: one warp per query merges
+// the S partial lists in split order with the same insertion rule, so the
+// result is the exact top-k in (score desc, id asc) order.
+
+#include <cuda_runtime.h>
+
+#include "tile_common.cuh"
+
+namespace {
+
+constexpr float NEG_INF = -3.0e38f;
+
+__global__ void __launch_bounds__(tile::THREADS)
+    scan_kernel(const float* __restrict__ xu, const float* __restrict__ lam,
+                int n, int f, const float* __restrict__ qn,
+                const float* __restrict__ lamq, int q, float tau, int k,
+                int tiles_per_split, float* __restrict__ part_s,
+                int* __restrict__ part_i) {
+  using namespace tile;
+  extern __shared__ float smem[];
+  auto As = reinterpret_cast<float(*)[PAD]>(smem);
+  auto Bs = reinterpret_cast<float(*)[PAD]>(smem + SLAB * PAD);
+  auto Ss = reinterpret_cast<float(*)[PAD]>(smem + 2 * SLAB * PAD);
+  float* run_s = smem + TILE_FLOATS;                        // [TILE][k]
+  int* run_i = reinterpret_cast<int*>(run_s + TILE * k);    // [TILE][k]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * TILE;
+  const int split = blockIdx.y;
+  const int c_begin = split * tiles_per_split * TILE;
+  const int c_stop = min(n, c_begin + tiles_per_split * TILE);
+
+  for (int e = tid; e < TILE * k; e += THREADS) {
+    run_s[e] = NEG_INF;
+    run_i[e] = -1;
+  }
+  float lq[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    lq[i] = qi < q ? lamq[qi] : 0.0f;
+  }
+  const float one_minus_tau = 1.0f - tau;
+  __syncthreads();
+
+  for (int c0 = c_begin; c0 < c_stop; c0 += TILE) {
+    float acc[4][4];
+    tile_product(qn, q0, q, xu, c0, n, f, As, Bs, acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + tx + 16 * j;
+      const float lc = col < n ? lam[col] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float prox =
+            __fdiv_rn(1.0f, __fadd_rn(1.0f, fabsf(__fsub_rn(lc, lq[i]))));
+        float s = __fadd_rn(__fmul_rn(tau, acc[i][j]),
+                            __fmul_rn(one_minus_tau, prox));
+        if (col >= n) s = NEG_INF;
+        Ss[ty + 16 * i][tx + 16 * j] = s;
+      }
+    }
+    __syncthreads();
+    for (int rr = warp; rr < TILE && q0 + rr < q; rr += WARPS)
+      merge_row<Max>(Ss[rr], c0, run_s + rr * k, run_i + rr * k, k, lane);
+    __syncthreads();
+  }
+
+  for (int e = tid; e < TILE * k; e += THREADS) {
+    const int qi = q0 + e / k;
+    if (qi < q) {
+      const size_t o = ((size_t)split * q + qi) * k + (e % k);
+      part_s[o] = run_s[e];
+      part_i[o] = run_i[e];
+    }
+  }
+}
+
+// One warp per query: merge the S partial lists in split order.
+__global__ void __launch_bounds__(tile::THREADS)
+    merge_kernel(const float* __restrict__ part_s,
+                 const int* __restrict__ part_i, int q, int k, int splits,
+                 float* __restrict__ out_s, int* __restrict__ out_i) {
+  using namespace tile;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* run_s = smem + warp * k;
+  int* run_i = reinterpret_cast<int*>(smem + WARPS * k) + warp * k;
+  const int qi = blockIdx.x * WARPS + warp;
+  if (qi >= q) return;   // whole warp leaves together
+
+  for (int j = lane; j < k; j += 32) {
+    run_s[j] = NEG_INF;
+    run_i[j] = -1;
+  }
+  __syncwarp();
+  for (int s = 0; s < splits; ++s) {
+    const size_t base = ((size_t)s * q + qi) * k;
+    // Each partial list is sorted; once an entry fails to improve, no
+    // later entry of the same list can.
+    for (int j = 0; j < k; ++j) {
+      const float v = part_s[base + j];
+      if (!Max::better(v, run_s[k - 1])) break;
+      offer<Max>(run_s, run_i, k, v, part_i[base + j], lane);
+    }
+  }
+  for (int j = lane; j < k; j += 32) {
+    out_s[(size_t)qi * k + j] = run_s[j];
+    out_i[(size_t)qi * k + j] = run_i[j];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Queries qn [q, f] (unit rows) with lambdas lamq [q] against the corpus
+// xu [n, f] with lambdas lam [n] -> out_s / out_i [q, k].  part_s / part_i
+// are scratch of [splits, q, k].  Runs on the given device and stream.
+// Returns the CUDA error code (0 on success).
+int scan_topk_launch(const float* xu, const float* lam, int n, int f,
+                     const float* qn, const float* lamq, int q, float tau,
+                     int k, int splits, float* part_s, int* part_i,
+                     float* out_s, int* out_i, int device, void* stream) {
+  if (n <= 0 || f <= 0 || q <= 0 || k <= 0 || k > tile::MAX_K || k > n ||
+      splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n + tile::TILE - 1) / tile::TILE;
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem =
+      (size_t)tile::TILE_FLOATS * sizeof(float) +
+      (size_t)tile::TILE * k * (sizeof(float) + sizeof(int));
+  err = cudaFuncSetAttribute(
+      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  scan_kernel<<<grid, tile::THREADS, smem, st>>>(
+      xu, lam, n, f, qn, lamq, q, tau, k, tiles_per_split, part_s, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem2 = (size_t)tile::WARPS * k * (sizeof(float) + sizeof(int));
+  merge_kernel<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2,
+                 st>>>(part_s, part_i, q, k, splits, out_s, out_i);
+  return (int)cudaGetLastError();
+}
+
+const char* scan_topk_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

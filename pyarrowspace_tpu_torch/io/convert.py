@@ -1,0 +1,60 @@
+"""Carry a built index's state across into this package.
+
+``state_from_numpy`` turns the arrays of an index (for instance pulled out
+of a JAX-built ArrowSpace/GraphLaplacian with ``np.asarray``) into this
+package's (ArrowSpace, GraphLaplacian) on a chosen device, so both
+implementations can serve from identical state.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..core.laplacian import GraphLaplacian
+from ..core.params import GraphParams
+from ..core.space import ArrowSpace
+
+STATE_KEYS = ("data", "data_unit", "lambdas", "e_raw", "lap_f", "w_f",
+              "tau_star", "knn_dist", "knn_idx", "nbr_idx", "nbr_w",
+              "degrees", "centroids", "assignments")
+_INT_KEYS = ("knn_idx", "nbr_idx", "assignments")
+_OPTIONAL_KEYS = ("knn_dist", "knn_idx", "centroids", "assignments")
+
+
+def state_from_numpy(arrays: Mapping[str, Optional[np.ndarray]],
+                     params: GraphParams, device="cpu"
+                     ) -> tuple[ArrowSpace, GraphLaplacian]:
+    """(ArrowSpace, GraphLaplacian) from the arrays of STATE_KEYS of an
+    index built with the default BuildConfig.  Float arrays keep their
+    dtype on CPU and become float32 on CUDA (the dtype policy of the
+    build); index arrays become int32.  Optional keys (k-NN candidates,
+    reduction artifacts) may be missing or None."""
+    dev = torch.device(device)
+    missing = [key for key in STATE_KEYS
+               if key not in _OPTIONAL_KEYS and arrays.get(key) is None]
+    if missing:
+        raise ValueError(f"state arrays missing: {missing}")
+    data_dtype = (torch.float64 if dev.type == "cpu"
+                  and np.asarray(arrays["data"]).dtype == np.float64
+                  else torch.float32)
+
+    def tensor(key):
+        a = arrays.get(key)
+        if a is None:
+            return None
+        dtype = torch.int32 if key in _INT_KEYS else data_dtype
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    t = {key: tensor(key) for key in STATE_KEYS}
+    aspace = ArrowSpace._from_build(
+        data=t["data"], data_unit=t["data_unit"], lambdas=t["lambdas"],
+        e_raw=t["e_raw"], lap_f=t["lap_f"], w_f=t["w_f"],
+        tau_star=t["tau_star"].reshape(()), params=params,
+        centroids=t["centroids"], assignments=t["assignments"],
+        knn_dist=t["knn_dist"], knn_idx=t["knn_idx"])
+    gl = GraphLaplacian._from_ell(t["nbr_idx"], t["nbr_w"], t["degrees"],
+                                  params)
+    return aspace, gl
