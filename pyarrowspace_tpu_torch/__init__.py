@@ -8,10 +8,12 @@ Public API (the same names as the JAX package):
     GraphLaplacian.{nnodes, shape, graph_params}
     set_debug, get_phase_timings
 
-The exact k-NN scan of the build (K1) and the blended top-k scan of
-exact search (K2) are hand-written CUDA kernels (``csrc/``) built with
-nvcc at first use; on CPU tensors both run their plain PyTorch versions.
-This package imports torch and numpy, never jax.
+The exact k-NN scan of the build (K1), the blended top-k scan of exact
+search (K2) and the four kernels of subtile serving (K3 subtile max, K4b
+top-S select, K5 gather and score, K4a pool cut) are hand-written CUDA
+kernels (``csrc/``) built with nvcc at first use; on CPU tensors each
+runs its plain PyTorch version.  This package imports torch and numpy,
+never jax.
 """
 
 import torch

@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -25,7 +27,8 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                    # guards the two dicts
+_NAME_LOCKS: dict[str, threading.Lock] = {}  # one build at a time per name
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -50,8 +53,11 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiling it first if no
-    library for this exact source exists yet."""
+    library for this exact source exists yet.  Loads of different names
+    compile concurrently."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib
@@ -67,8 +73,22 @@ def load(name: str) -> ctypes.CDLL:
                                    f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        _LOADED[name] = lib
+        with _LOCK:
+            _LOADED[name] = lib
         return lib
+
+
+def load_all(names) -> dict[str, float]:
+    """Load every ``csrc/<name>.cu`` of ``names``, one nvcc each, all
+    started together; returns the seconds each load took."""
+    def timed(name):
+        t0 = time.perf_counter()
+        load(name)
+        return time.perf_counter() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -2,11 +2,12 @@
 the stored feature-space spectral state used to score queries.
 
 API parity with the reference's `PyArrowSpace` wrapper (reference
-src/lib.rs:64-263) for the exact-search path: builder-only construction;
-`nitems`, `nfeatures`, `get_item(idx) -> (np.ndarray float64, float)`,
+src/lib.rs:64-263) for the search paths ported so far: builder-only
+construction; `nitems`, `nfeatures`,
+`get_item(idx) -> (np.ndarray float64, float)`,
 `lambdas() -> np.ndarray`, `search(query, gl, tau)` returning a list of
-(index, score) by descending score, and `search_batch(mode="exact")`.
-State lives as torch tensors on the build's device.
+(index, score) by descending score, and `search_batch` in modes "exact",
+"subtile" and "auto".  State lives as torch tensors on the build's device.
 """
 
 from __future__ import annotations
@@ -21,15 +22,18 @@ from .params import GraphParams
 from ..ops import search as search_ops
 from ..ops.cuda import scan_topk
 from ..ops.distance import unit_normalize
+from ..ops.subtile_scan import build_subtile_state
 from ..utils.debug import dbg_println
 
 _BUILDER_TOKEN = object()
 
+# mode="auto" serves an index of at least this many items with "subtile",
+# a smaller one with "exact" (the reference's rule).
+AUTO_SUBTILE_MIN_ITEMS = 131_072
+
 # search_batch modes of the reference that this package does not run yet,
 # with the ROADMAP.md item that ports each.
 _PENDING_MODES = {
-    "auto": "Slice B item 9 (subtile serving and the auto crossover)",
-    "subtile": "Slice B item 9 (subtile serving)",
     "ivf": "Slice C item 13 (gather IVF)",
     "ivf_block": "Slice B item 11 (blocked IVF and certified serving)",
     "certified": "Slice B item 11 (blocked IVF and certified serving)",
@@ -72,6 +76,8 @@ class ArrowSpace:
         self._assignments: Optional[torch.Tensor] = kwargs.get("assignments")
         self._knn_dist: Optional[torch.Tensor] = kwargs.get("knn_dist")
         self._knn_idx: Optional[torch.Tensor] = kwargs.get("knn_idx")
+        # Padded serving layout of mode="subtile", made at its first use.
+        self._subtile: Optional[dict] = None
 
     @classmethod
     def _from_build(cls, **kwargs) -> "ArrowSpace":
@@ -166,17 +172,25 @@ class ArrowSpace:
         (indices [Q, topk] np.int32, scores [Q, topk]).
 
         mode "exact" scans the full corpus: query-lambda synthesis, then
-        the blended scan with a running top-k (kernel K2 on CUDA).  The
+        the blended scan with a running top-k (kernel K2 on CUDA).
+        mode "subtile" routes through the subtile maxima (kernels K3, K4b,
+        K5 and K4a on CUDA; ops/subtile_scan.py) over a padded bf16 copy
+        of the corpus made at its first use, and rescores a 2 x topk pool
+        in float32.  mode "auto" is "subtile" for an index of
+        AUTO_SUBTILE_MIN_ITEMS items or more, else "exact".  The
         reference's other modes are not ported yet and raise
         NotImplementedError naming their ROADMAP item."""
         if mode in _PENDING_MODES:
             raise NotImplementedError(
                 f"search_batch(mode={mode!r}) is not ported yet: ROADMAP.md "
                 f"{_PENDING_MODES[mode]}")
-        if mode != "exact":
+        if mode not in ("auto", "exact", "subtile"):
             raise ValueError(f"unknown search mode {mode!r}; expected "
                              "'auto', 'exact', 'int8', 'subtile', 'ivf', "
                              "'ivf_block', or 'certified'")
+        if mode == "auto":
+            mode = ("subtile" if self.nitems >= AUTO_SUBTILE_MIN_ITEMS
+                    else "exact")
         q = self._as_queries(queries)
         if q.dim() != 2 or q.shape[1] != self.nfeatures:
             raise ValueError(
@@ -184,6 +198,19 @@ class ArrowSpace:
                 f"{tuple(q.shape)}")
         topk = gl.params.topk if topk is None else int(topk)
         topk = min(topk, self.nitems)
+        if mode == "subtile":
+            f32 = torch.float32
+            if self._subtile is None:
+                self._subtile = build_subtile_state(
+                    self._data_unit.to(f32), self._lambdas.to(f32))
+            st = self._subtile
+            idx, vals = search_ops.fused_query_pipeline_subtile(
+                st["xu_scan"], st["xu_f32"], st["lambdas"], st["n_real"],
+                self._lap_f.to(f32), self._w_f.to(f32),
+                self._tau_star.to(f32), q.to(f32), float(tau), topk=topk,
+                rayleigh_normalized=self._rayleigh_normalized,
+                tau_mix=self._tau_mix)
+            return idx.cpu().numpy(), vals.cpu().numpy()
         tau_arg = (float(tau) if self.device.type == "cuda"
                    else torch.as_tensor(tau, dtype=self._data.dtype))
         idx, vals = search_ops.fused_query_pipeline(

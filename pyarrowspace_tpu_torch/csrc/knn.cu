@@ -20,8 +20,9 @@
 // and 4 x 4 accumulators a thread (tile_common.cuh), the mask epilogue into
 // a shared 64 x 64 tile, then one warp per row offers the improving
 // candidates to the row's running list in shared memory.  The result is
-// exact in fp32, and d(i, j) == d(j, i) bitwise.  wgmma, TMA and
-// pipelining are later work.
+// exact in fp32, and d(i, j) == d(j, i) bitwise.  k <= 256: the lists
+// are templates on words per lane (2, 4, 8) and the launcher takes the
+// narrowest that holds k.  wgmma, TMA and pipelining are later work.
 
 #include <cuda_runtime.h>
 
@@ -31,6 +32,7 @@ namespace {
 
 constexpr float INF_DIST = 2.0f;
 
+template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     knn_kernel(const float* __restrict__ xu, int n, int f, int row_start,
                int row_count, float eps, int k, float* __restrict__ out_d,
@@ -72,7 +74,8 @@ __global__ void __launch_bounds__(tile::THREADS)
     }
     __syncthreads();
     for (int rr = warp; rr < TILE && r0 + rr < r_end; rr += WARPS)
-      merge_row<Min>(Ds[rr], c0, run_d + rr * k, run_i + rr * k, k, lane);
+      merge_row<Min, W>(Ds[rr], c0, run_d + rr * k, run_i + rr * k, k,
+                        lane);
     __syncthreads();
   }
 
@@ -97,19 +100,25 @@ extern "C" {
 int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                float eps, int k, float* out_d, int* out_i, int device,
                void* stream) {
-  if (n <= 0 || f <= 0 || row_count <= 0 || k <= 0 || k > tile::MAX_K ||
-      row_start < 0 || row_start + row_count > n)
+  const int words = tile::list_words(k);
+  if (n <= 0 || f <= 0 || row_count <= 0 || words == 0 || row_start < 0 ||
+      row_start + row_count > n)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  // At k = 256 the lists take 128 KB: above the 48 KB a launch gets
+  // without opting in.
   const size_t smem =
       (size_t)tile::TILE_FLOATS * sizeof(float) +
       (size_t)tile::TILE * k * (sizeof(float) + sizeof(int));
+  auto kernel = &knn_kernel<8>;
+  if (words == 2) kernel = &knn_kernel<2>;
+  if (words == 4) kernel = &knn_kernel<4>;
   err = cudaFuncSetAttribute(
-      knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (row_count + tile::TILE - 1) / tile::TILE;
-  knn_kernel<<<blocks, tile::THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, tile::THREADS, smem, (cudaStream_t)stream>>>(
       xu, n, f, row_start, row_count, eps, k, out_d, out_i);
   return (int)cudaGetLastError();
 }

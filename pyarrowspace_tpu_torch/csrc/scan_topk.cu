@@ -20,7 +20,9 @@
 // blends, masks, and merges into running lists in shared memory, then
 // writes its partial lists [S, Q, k].  Launch 2: one warp per query merges
 // the S partial lists in split order with the same insertion rule, so the
-// result is the exact top-k in (score desc, id asc) order.
+// result is the exact top-k in (score desc, id asc) order.  k <= 256: the
+// lists are templates on words per lane (2, 4, 8) and the launcher takes
+// the narrowest that holds k.
 
 #include <cuda_runtime.h>
 
@@ -30,6 +32,7 @@ namespace {
 
 constexpr float NEG_INF = -3.0e38f;
 
+template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     scan_kernel(const float* __restrict__ xu, const float* __restrict__ lam,
                 int n, int f, const float* __restrict__ qn,
@@ -74,17 +77,15 @@ __global__ void __launch_bounds__(tile::THREADS)
       const float lc = col < n ? lam[col] : 0.0f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float prox =
-            __fdiv_rn(1.0f, __fadd_rn(1.0f, fabsf(__fsub_rn(lc, lq[i]))));
-        float s = __fadd_rn(__fmul_rn(tau, acc[i][j]),
-                            __fmul_rn(one_minus_tau, prox));
+        float s = blend(tau, one_minus_tau, acc[i][j], lc, lq[i]);
         if (col >= n) s = NEG_INF;
         Ss[ty + 16 * i][tx + 16 * j] = s;
       }
     }
     __syncthreads();
     for (int rr = warp; rr < TILE && q0 + rr < q; rr += WARPS)
-      merge_row<Max>(Ss[rr], c0, run_s + rr * k, run_i + rr * k, k, lane);
+      merge_row<Max, W>(Ss[rr], c0, run_s + rr * k, run_i + rr * k, k,
+                        lane);
     __syncthreads();
   }
 
@@ -99,6 +100,7 @@ __global__ void __launch_bounds__(tile::THREADS)
 }
 
 // One warp per query: merge the S partial lists in split order.
+template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     merge_kernel(const float* __restrict__ part_s,
                  const int* __restrict__ part_i, int q, int k, int splits,
@@ -122,8 +124,8 @@ __global__ void __launch_bounds__(tile::THREADS)
     // later entry of the same list can.
     for (int j = 0; j < k; ++j) {
       const float v = part_s[base + j];
-      if (!Max::better(v, run_s[k - 1])) break;
-      offer<Max>(run_s, run_i, k, v, part_i[base + j], lane);
+      if (!(v > run_s[k - 1])) break;
+      offer<Max, W>(run_s, run_i, k, v, part_i[base + j], lane);
     }
   }
   for (int j = lane; j < k; j += 32) {
@@ -144,8 +146,8 @@ int scan_topk_launch(const float* xu, const float* lam, int n, int f,
                      const float* qn, const float* lamq, int q, float tau,
                      int k, int splits, float* part_s, int* part_i,
                      float* out_s, int* out_i, int device, void* stream) {
-  if (n <= 0 || f <= 0 || q <= 0 || k <= 0 || k > tile::MAX_K || k > n ||
-      splits <= 0)
+  const int words = tile::list_words(k);
+  if (n <= 0 || f <= 0 || q <= 0 || words == 0 || k > n || splits <= 0)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + tile::TILE - 1) / tile::TILE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
@@ -153,21 +155,32 @@ int scan_topk_launch(const float* xu, const float* lam, int n, int f,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  // At k = 256 the lists take 128 KB (161 KB with the tiles): above the
+  // 48 KB a launch gets without opting in.
   const size_t smem =
       (size_t)tile::TILE_FLOATS * sizeof(float) +
       (size_t)tile::TILE * k * (sizeof(float) + sizeof(int));
+  auto scan = &scan_kernel<8>;
+  auto merge = &merge_kernel<8>;
+  if (words == 2) {
+    scan = &scan_kernel<2>;
+    merge = &merge_kernel<2>;
+  } else if (words == 4) {
+    scan = &scan_kernel<4>;
+    merge = &merge_kernel<4>;
+  }
   err = cudaFuncSetAttribute(
-      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
   cudaStream_t st = (cudaStream_t)stream;
-  scan_kernel<<<grid, tile::THREADS, smem, st>>>(
+  scan<<<grid, tile::THREADS, smem, st>>>(
       xu, lam, n, f, qn, lamq, q, tau, k, tiles_per_split, part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = (size_t)tile::WARPS * k * (sizeof(float) + sizeof(int));
-  merge_kernel<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2,
-                 st>>>(part_s, part_i, q, k, splits, out_s, out_i);
+  merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
+      part_s, part_i, q, k, splits, out_s, out_i);
   return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,8 @@ import torch
 from ... import _build
 
 INF_DIST = 2.0
-MAX_K = 64
+# The kernel's running lists hold at most 256 entries (32 lanes x 8 words).
+MAX_K = 256
 
 # Kernel launches since import (or since the caller last reset it).
 LAUNCHES = 0

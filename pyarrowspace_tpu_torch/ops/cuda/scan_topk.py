@@ -18,7 +18,8 @@ import torch
 
 from ... import _build
 
-MAX_K = 64
+# The kernel's running lists hold at most 256 entries (32 lanes x 8 words).
+MAX_K = 256
 _Q_BLOCK = 64      # queries per block of the kernel
 _TILE = 64         # corpus items per tile of the kernel
 

@@ -1,5 +1,5 @@
-"""Query-time lambda-aware ranking (port of the exact-search part of
-pyarrowspace_tpu/ops/search.py).
+"""Query-time lambda-aware ranking (port of the exact and subtile serving
+parts of pyarrowspace_tpu/ops/search.py).
 
   score(q, i) = tau * cos(q, x_i) + (1 - tau) / (1 + |lambda_i - lambda_q|)
 
@@ -15,6 +15,7 @@ import torch
 from .cuda import scan_topk
 from .distance import unit_normalize
 from .rayleigh import dispersion_batch, rayleigh_batch
+from .subtile_scan import subtile_search
 from ..spectral.taumode import synthesize
 
 
@@ -66,3 +67,24 @@ def fused_query_pipeline(xu: torch.Tensor, lambdas: torch.Tensor,
                           tau_mix=tau_mix)
     return scan_topk.lambda_search(xu, lambdas, unit_normalize(q_batch),
                                    lam_q, tau, topk)
+
+
+def fused_query_pipeline_subtile(xu_scan: torch.Tensor, xu_f32: torch.Tensor,
+                                 lambdas_pad: torch.Tensor, n_real: int,
+                                 lap_f: torch.Tensor, w_f: torch.Tensor,
+                                 tau_star: torch.Tensor,
+                                 q_batch: torch.Tensor, tau, *, topk: int,
+                                 rayleigh_normalized: bool, tau_mix: float):
+    """The subtile serving step: query lambda synthesis, then the
+    subtile-max routed scan (ops/subtile_scan.py: kernels K3, K4b, K5 and
+    K4a on CUDA).  The state comes from build_subtile_state; selection is
+    exact in the scan dtype by the block-max bound, and a pool of 2 x topk
+    is rescored in float32, so the rescore can promote items past
+    scan-dtype near-ties.  Returns (idx [Q, topk] int32, vals [Q, topk])."""
+    lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
+                          rayleigh_normalized=rayleigh_normalized,
+                          tau_mix=tau_mix)
+    qn = unit_normalize(q_batch.to(torch.float32))
+    return subtile_search(xu_scan, xu_f32, lambdas_pad, qn,
+                          lam_q.to(torch.float32), tau, n_real, topk=topk,
+                          pool_m=2 * topk)
