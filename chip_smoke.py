@@ -45,13 +45,37 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      mode="subtile" and mode="exact" timed over 2 batches each, their
      top-15 overlap on 1,024 queries at least 0.99, K3's time and the
      peak device memory;
+  8. blocked-IVF and certified serving on phase 3's index: enable_ivf()
+     (the build's own clustering), then search_batch(mode="ivf_block") and
+     mode="certified" (n_probe 8) over phase 3's 8 batches, each after a
+     warm-up, with the counts reset before each: K6 (csrc/ivf_scan.cu)
+     must have run, and every certified query's ids must equal phase 3's
+     exact ids outside near-ties of 1e-5.  The base certification rate
+     and the widened and escalated queries are counted (the corpus is
+     isotropic, so few queries certify; the results are exact anyway); K6
+     against its plain version on the routed first batch, timed in turns;
+  9. certified serving at 1,000,000 x 768, batches of 16,384, on a mixture
+     corpus made on the card (4,096 centres, rows centre + 0.35 N(0, 1),
+     queries a unit corpus row + 0.25 / sqrt(768) N(0, 1), as
+     benchmarks/bench_serving.py makes them): enable_ivf(n_clusters=4096)
+     clusters it, then mode="certified" over float32 and over bfloat16
+     slabs and serving_stream(depth=4) over 4 batches (each batch equal to
+     search_batch(mode="certified")); certified == exact (K2) on 1,024
+     queries; the bf16 scan's scores within tau * (res_eps + 2F 2^-24) +
+     1e-5 of float32 scores; K6 against its plain version; the clustering
+     time, K, cap, slab GiB, base certification rate, QPS and peak device
+     memory;
   4. reference parity on the card in float32: the README quickstart scores
      to 1e-6 and the four tests/data_test0.py orderings.
 
+Phases 1, 2 and 6 also hold the wide lists (k 1,024) of K1, K2, K4b and
+K4a against their plain versions and time them beside the narrow ones.
+
 The line before the last is a JSON object with each kernel's launches on
-its main path (phase 3 for K1 and K2, phase 5's subtile run for the
-others), its largest difference from the plain version, and both times;
-the last line is {"ok": true, "device": {...}}.
+its main path (phase 3 for K1 and K2, phase 5's subtile run for K3, K4a,
+K4b and K5, phase 8's certified run for K6), its largest difference from
+the plain version, and both times; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -71,10 +95,12 @@ TOL = 1e-5            # kernel vs plain version: summation order differs
 Q_BATCH, N_BATCHES, TAU = 4096, 8, 0.62
 K1_CHECK_ROWS, K1_TIME_ROWS = 2048, 16_384
 K1_WIDE, K2_WIDE, K2_WIDE_QUERIES = 100, 200, 1024
+K_WIDEST = 1024       # lists past 256: kept in place in device memory
 MIN_OVERLAP = 0.99
 N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
+N_PROBE, MIX_CLUSTERS, MIX_NOISE, Q_NOISE = 8, 4096, 0.35, 0.25
 KERNEL_SOURCES = ("knn", "scan_topk", "subtile_max", "extract_topm",
-                  "gather_score")
+                  "gather_score", "ivf_scan")
 README_ITEMS = np.array([[0.1, 0.2, 0.3], [0.0, 0.5, 0.1], [0.9, 0.1, 0.0]])
 README_GP = {"eps": 1.0, "k": 6, "topk": 3, "p": 2.0, "sigma": 1.0}
 README_QUERY = np.array([0.05, 0.2, 0.25])
@@ -104,21 +130,24 @@ def _in_turns(plain, kernel, torch) -> tuple[float, float]:
 
 
 def _reset_launches() -> None:
-    from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score, knn,
-                                                 scan_topk, subtile_max)
-    for mod in (knn, scan_topk, subtile_max, gather_score):
+    from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
+                                                 ivf_scan, knn, scan_topk,
+                                                 subtile_max)
+    for mod in (knn, scan_topk, subtile_max, gather_score, ivf_scan):
         mod.LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
 
 
 def _launches() -> dict:
-    from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score, knn,
-                                                 scan_topk, subtile_max)
+    from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
+                                                 ivf_scan, knn, scan_topk,
+                                                 subtile_max)
     return {"knn": knn.LAUNCHES, "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
             "extract_ids": extract.IDS_LAUNCHES,
             "extract_pool": extract.POOL_LAUNCHES,
-            "gather_score": gather_score.LAUNCHES}
+            "gather_score": gather_score.LAUNCHES,
+            "ivf_scan": ivf_scan.LAUNCHES}
 
 
 def _overlap(ids_a: np.ndarray, ids_b: np.ndarray) -> float:
@@ -290,8 +319,39 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
           f"(S={s_keep}); K5 max_abs_err {err5:.3e}; K4a ids identical "
           f"{pool_same} (m={m_pool}); block max bitwise equal {bitwise} on "
           f"{n_checked} selected subtiles")
+    # The wide lists (m > 256), in place in device memory: K4b and K4a at
+    # m 1,024 over the K3 maxima (K4a with a random permutation as ids).
+    gen = torch.Generator(device=sub.device)
+    gen.manual_seed(3)
+    cand = torch.argsort(torch.rand(sub.shape, generator=gen,
+                                    device=sub.device), dim=1)
+    cand = cand.to(torch.int32)
+    wide_same = {
+        "extract_ids": torch.equal(extract.extract_ids(sub, K_WIDEST),
+                                   extract.extract_ids_plain(sub, K_WIDEST)),
+        "extract_pool": torch.equal(
+            extract.extract_pool(sub, cand, K_WIDEST),
+            extract.extract_pool_plain(sub, cand, K_WIDEST))}
+    wide_times = {
+        "extract_ids": _in_turns(
+            lambda: extract.extract_ids_plain(sub, K_WIDEST),
+            lambda: extract.extract_ids(sub, K_WIDEST), torch),
+        "extract_pool": _in_turns(
+            lambda: extract.extract_pool_plain(sub, cand, K_WIDEST),
+            lambda: extract.extract_pool(sub, cand, K_WIDEST), torch)}
+    narrow = {"extract_ids": _events_ms(
+                  lambda: extract.extract_ids(sub, s_keep), torch),
+              "extract_pool": _events_ms(
+                  lambda: extract.extract_pool(sub, cand, m_pool), torch)}
+    for name, (k_ms, p_ms) in wide_times.items():
+        results.setdefault("wide", {})[name] = dict(
+            k=K_WIDEST, ms=k_ms, plain_ms=p_ms, narrow_ms=narrow[name])
+        print(f"phase 6: {name} at m={K_WIDEST} on {tuple(sub.shape)}: ids "
+              f"identical {wide_same[name]}; kernel {k_ms:.3f} ms (narrow "
+              f"{narrow[name]:.3f} ms), plain {p_ms:.3f} ms {card}")
     if not (err3 <= TOL and sentinels and sel_same and err5 <= TOL
-            and pool_same and bitwise and n_checked == q * s_keep):
+            and pool_same and bitwise and n_checked == q * s_keep
+            and all(wide_same.values())):
         raise AssertionError("subtile kernels disagree with their plain "
                              "versions or the block-max check failed")
 
@@ -367,6 +427,299 @@ def _phase_north_star(torch, dev, card, results) -> None:
     if not ok or overlap < MIN_OVERLAP:
         raise AssertionError(f"1M serving check failed: results ok {ok}, "
                              f"overlap {overlap}")
+
+
+class _CertifiedCounts:
+    """Counts what certified serving did with its queries: those refused at
+    the base n_probe, those a widening round certified, and those
+    escalated to the exact scan.  It wraps the two splice functions of
+    ops/ivf_scan.py, which core/space.py calls through the module, for the
+    duration of a with block."""
+
+    def __init__(self):
+        from pyarrowspace_tpu_torch.ops import ivf_scan as tis
+        self._mod = tis
+        self.queries = self.widened = self.escalated = 0
+
+    def __enter__(self):
+        tis = self._mod
+        self._orig = (tis.widen_refusals, tis.escalate_uncertified)
+        widen, escalate = self._orig
+
+        def counted_widen(idx, vals, cert, run, topk, n_probe, n_max):
+            out = widen(idx, vals, cert, run, topk, n_probe, n_max)
+            self.widened += int(out[2].sum() - np.asarray(cert).sum())
+            return out
+
+        def counted_escalate(idx, vals, cert, run, topk):
+            cert = np.asarray(cert)
+            self.queries += cert.size
+            self.escalated += (cert.size if idx.shape[1] < topk
+                               else int((~cert).sum()))
+            return escalate(idx, vals, cert, run, topk)
+
+        tis.widen_refusals, tis.escalate_uncertified = (counted_widen,
+                                                        counted_escalate)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.widen_refusals, self._mod.escalate_uncertified = self._orig
+
+    def summary(self) -> dict:
+        refused = self.widened + self.escalated
+        return {"queries": self.queries,
+                "base_cert_rate": 1.0 - refused / max(1, self.queries),
+                "widened": self.widened, "escalated": self.escalated}
+
+
+def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
+    """K6 against its plain version on the routed batch qb (the routing of
+    the certified path: bound-ordered, blocks of 16), timed in turns.
+    Returns (max_abs_err, kernel ms, plain ms)."""
+    from pyarrowspace_tpu_torch.ops import ivf_scan as tis
+    from pyarrowspace_tpu_torch.ops import search as search_ops
+    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    f32 = torch.float32
+    q32 = qb.to(f32)
+    lamq = search_ops.query_lambdas(
+        q32, aspace._lap_f.to(f32), aspace._w_f.to(f32),
+        aspace._tau_star.to(f32),
+        rayleigh_normalized=aspace._rayleigh_normalized,
+        tau_mix=aspace._tau_mix).to(f32)
+    r = tis.route(ivf, unit_normalize(q32), lamq, tis._f32(TAU), qb=16,
+                  n_probe=N_PROBE, use_bound=True)
+    args = (ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad, r.lamq_pad,
+            r.probe_tbl, TAU)
+    kw = dict(k=k, q_block=16, cap=ivf.cap)
+    s_k, i_k = k6.ivf_scan(*args, **kw)
+    s_p, i_p = k6.ivf_scan_plain(*args, **kw)
+    s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
+    s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+    err = max_abs_err(s_k, s_p)
+    bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
+    k_ms, p_ms = _in_turns(lambda: k6.ivf_scan_plain(*args, **kw),
+                           lambda: k6.ivf_scan(*args, **kw), torch)
+    print(f"{label}: K6 vs plain on {r.qn_pad.shape[0]} routed queries x "
+          f"{N_PROBE} probes x cap {ivf.cap} x F {ivf.slabs.shape[1]} "
+          f"{ivf.slabs.dtype}, k {k}: max_abs_err {err:.3e}, disagreeing "
+          f"queries {len(bad)}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+          f"{card}")
+    if bad or err > TOL:
+        raise AssertionError(f"K6 disagrees with its plain version: queries "
+                             f"{bad[:10]}, err {err}")
+    return err, k_ms, p_ms
+
+
+def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
+                     results) -> None:
+    """Phase 8: blocked-IVF and certified serving on the phase-3 index,
+    against phase 3's exact results."""
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    topk = GP["topk"]
+    t0 = time.perf_counter()
+    aspace.enable_ivf()
+    ivf = aspace._ensure_ivf_blocked()
+    torch.cuda.synchronize()
+    print(f"phase 8: enable_ivf + slabs in {time.perf_counter() - t0:.3f} s: "
+          f"K {ivf.n_clusters} (the build's clustering), cap {ivf.cap}, slab "
+          f"rows {ivf.slabs.shape[0]} ({ivf.slabs.numel() * 4 / 2 ** 30:.3f} "
+          f"GiB float32) {card}")
+    got, qps = {}, {}
+    for mode in ("ivf_block", "certified"):
+        aspace.search_batch(batches[-1], gl, TAU, mode=mode, n_probe=N_PROBE)
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _CertifiedCounts() as counts:
+            t0 = time.perf_counter()
+            got[mode] = [aspace.search_batch(b, gl, TAU, mode=mode,
+                                             n_probe=N_PROBE)
+                         for b in batches]
+            qps[mode] = Q_BATCH * N_BATCHES / (time.perf_counter() - t0)
+        launches = _launches()
+        print(f"phase 8: search_batch {mode} n_probe {N_PROBE}: "
+              f"{qps[mode]:.1f} QPS over {N_BATCHES} x {Q_BATCH} queries "
+              f"(exact {results['exact_qps']:.1f}); launches {launches} "
+              f"{card}")
+        if mode == "certified":
+            results["launches_certified"] = launches
+            summary = counts.summary()
+            print(f"phase 8: certified: {summary}")
+    exact_ids = np.concatenate([o[0] for o in outs_exact])
+    overlap = _overlap(np.concatenate([o[0] for o in got["ivf_block"]]),
+                       exact_ids)
+    bad = sum(len(topk_disagreements(o[1], o[0], e[1], e[0], TOL))
+              for o, e in zip(got["certified"], outs_exact))
+    print(f"phase 8: ivf_block top-{topk} overlap with exact {overlap:.6f}; "
+          f"certified queries differing from exact beyond near-ties of "
+          f"{TOL:g}: {bad} of {N_BATCHES * Q_BATCH}")
+    err, k_ms, p_ms = _k6_against_plain(torch, ivf, aspace, batches[0], topk,
+                                        "phase 8", card)
+    results["ivf_scan"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    results["certified_313k"] = dict(qps=qps, overlap=overlap, **summary)
+    checks = {
+        "K6 launched on the certified path":
+            results["launches_certified"]["ivf_scan"] > 0,
+        "certified == exact outside near-ties": bad == 0,
+        "result shapes": all(o[0].shape == (Q_BATCH, topk)
+                             and np.all(np.isfinite(o[1]))
+                             for outs in got.values() for o in outs),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"certified checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _phase_certified_1m(torch, dev, card, results) -> None:
+    """Phase 9: certified serving at 1,000,000 x 768, batches of 16,384, on
+    a mixture corpus made on the card, over float32 and bfloat16 slabs,
+    and the serving stream."""
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch.graph.feature import build_feature_laplacian
+    from pyarrowspace_tpu_torch.ops import ivf_scan as tis
+    from pyarrowspace_tpu_torch.ops import search as search_ops
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    from pyarrowspace_tpu_torch.ops.rayleigh import (dispersion_batch,
+                                                     rayleigh_batch)
+    from pyarrowspace_tpu_torch.spectral.taumode import (
+        TAU_MIX, derive_tau_star, synthesize)
+    topk = GP["topk"]
+    f32 = torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    centres = torch.randn((MIX_CLUSTERS, F1M), generator=gen, device=dev)
+    mix = torch.randint(0, MIX_CLUSTERS, (N1M,), generator=gen, device=dev)
+    x = centres[mix] + MIX_NOISE * torch.randn((N1M, F1M), generator=gen,
+                                               device=dev)
+    del centres, mix
+    xu = unit_normalize(x)
+    w_f, lap_f, _ = build_feature_laplacian(x[:65536], k_f=15)
+    e = rayleigh_batch(x, lap_f, normalized=False)
+    tau_star = derive_tau_star(e, pt.TauMode.MEDIAN)
+    lams = synthesize(e, dispersion_batch(x, w_f, e), tau_star, TAU_MIX)
+    del x
+    params = pt.GraphParams(eps=GP["eps"], k=GP["k"], topk=topk, p=GP["p"],
+                            sigma=GP["sigma"])
+    aspace = pt.ArrowSpace._from_build(
+        data=xu, data_unit=xu, lambdas=lams, e_raw=e, lap_f=lap_f, w_f=w_f,
+        tau_star=tau_star, params=params)
+    queries = []
+    for _ in range(4):
+        rows = torch.randint(0, N1M, (Q1M,), generator=gen, device=dev)
+        queries.append(xu[rows] + (Q_NOISE / F1M ** 0.5) * torch.randn(
+            (Q1M, F1M), generator=gen, device=dev))
+    torch.cuda.synchronize()
+    print(f"phase 9: mixture serving state {N1M}x{F1M} ({MIX_CLUSTERS} "
+          f"centres) made in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    aspace.enable_ivf(n_clusters=MIX_CLUSTERS)
+    torch.cuda.synchronize()
+    t_cluster = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf = aspace._ensure_ivf_blocked()
+    torch.cuda.synchronize()
+    t_slabs = time.perf_counter() - t0
+    sizes = torch.bincount(aspace._assignments.long())
+    out = {"cluster_s": t_cluster, "k": ivf.n_clusters, "cap": ivf.cap,
+           "max_cluster": int(sizes.max())}
+    print(f"phase 9: enable_ivf(n_clusters={MIX_CLUSTERS}) in "
+          f"{t_cluster:.3f} s: K {ivf.n_clusters} after tightening, largest "
+          f"cluster {out['max_cluster']}, planned cap "
+          f"{aspace._ivf_cap_plan}, cap {ivf.cap} {card}")
+    err, k_ms, p_ms = _k6_against_plain(torch, ivf, aspace, queries[0], topk,
+                                        "phase 9", card)
+    out["k6"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    results["ivf_scan"]["max_abs_err"] = max(results["ivf_scan"][
+        "max_abs_err"], err)
+    ok = True
+    for name, dtype in (("f32", f32), ("bf16", torch.bfloat16)):
+        if dtype != f32:
+            aspace.enable_ivf(slab_dtype=dtype)
+            t0 = time.perf_counter()
+            ivf = aspace._ensure_ivf_blocked()
+            torch.cuda.synchronize()
+            t_slabs = time.perf_counter() - t0
+        gib = ivf.slabs.numel() * ivf.slabs.element_size() / 2 ** 30
+        aspace.search_batch(queries[3], None, TAU, topk=topk,
+                            mode="certified", n_probe=N_PROBE)
+        torch.cuda.synchronize()
+        with _CertifiedCounts() as counts:
+            t0 = time.perf_counter()
+            got = [aspace.search_batch(b, None, TAU, topk=topk,
+                                       mode="certified", n_probe=N_PROBE)
+                   for b in queries]
+            qps = 4 * Q1M / (time.perf_counter() - t0)
+        exact = aspace.search_batch(queries[0][:Q1M_CHECK], None, TAU,
+                                    topk=topk, mode="exact")
+        bad = topk_disagreements(got[0][1][:Q1M_CHECK], got[0][0][:Q1M_CHECK],
+                                 exact[1], exact[0], TOL)
+        row = dict(qps=qps, slab_gib=gib, slab_build_s=t_slabs,
+                   differing=len(bad), **counts.summary())
+        print(f"phase 9: certified {name} slabs ({gib:.3f} GiB, built in "
+              f"{t_slabs:.3f} s): {qps:.1f} QPS over 4 x {Q1M} queries, "
+              f"n_probe {N_PROBE}; {counts.summary()}; queries of "
+              f"{Q1M_CHECK} differing from exact beyond near-ties "
+              f"{len(bad)} {card}")
+        ok &= not bad and all(i.shape == (Q1M, topk) and i.min() >= 0
+                              and np.all(np.isfinite(v)) for i, v in got)
+        if name == "f32":
+            stream = aspace.serving_stream(None, TAU, topk=topk,
+                                           n_probe=N_PROBE, depth=4)
+            t0 = time.perf_counter()
+            for b in queries:
+                stream.submit(b)
+            streamed = stream.finish()
+            row["stream_qps"] = 4 * Q1M / (time.perf_counter() - t0)
+            changed = bool(stream.escalated_at) or stream.degraded
+            same = all(
+                (np.array_equal(si, gi) and np.array_equal(sv, gv))
+                if not changed else
+                not topk_disagreements(sv, si, gv, gi, TOL)
+                for (si, sv, _r), (gi, gv) in zip(streamed, got))
+            print(f"phase 9: serving_stream depth 4: "
+                  f"{row['stream_qps']:.1f} QPS, base rates "
+                  f"{[round(r, 6) for r in stream.base_cert_rates]}, "
+                  f"escalated at {stream.escalated_at}, degraded "
+                  f"{stream.degraded}; each batch equal to search_batch("
+                  f"mode='certified'): {same} {card}")
+            ok &= same
+        else:
+            # The rescored certificate's bound: K6's bf16 scan scores
+            # against float32 scores of the same items.
+            qs = queries[0][:256]
+            kid, kscore = tis.blocked_ivf_search_fused(
+                ivf, qs, aspace._lap_f, aspace._w_f, aspace._tau_star, TAU,
+                topk, n_probe=N_PROBE, tau_mix=TAU_MIX)
+            lamq = search_ops.query_lambdas(
+                qs, aspace._lap_f, aspace._w_f, aspace._tau_star,
+                rayleigh_normalized=False, tau_mix=TAU_MIX).to(f32)
+            safe = torch.clamp_min(kid, 0).long()
+            true = TAU * torch.einsum("qkf,qf->qk", xu[safe],
+                                      unit_normalize(qs))
+            true = true + (1.0 - TAU) / (1.0 + torch.abs(lams[safe]
+                                                         - lamq[:, None]))
+            dev_max = float(torch.where(kid >= 0, (kscore - true).abs(),
+                                        0.0).max())
+            res_max = float(tis._res_eps_vector(ivf).max())
+            bound = TAU * (res_max + 2.0 * F1M * 2.0 ** -24) + 1e-5
+            row.update(scan_dev=dev_max, scan_bound=bound)
+            print(f"phase 9: bf16 scan error: max |bf16 scan - f32| "
+                  f"{dev_max:.3e} vs bound {bound:.3e} (res_eps max "
+                  f"{res_max:.3e}) -> {'HOLDS' if dev_max <= bound else 'VIOLATED'}")
+            ok &= dev_max <= bound
+        out[name] = row
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    results["certified_1m"] = out
+    print(f"phase 9: peak device memory {out['peak_gib']:.3f} GiB {card}")
+    del aspace, ivf, queries, xu
+    if not ok:
+        raise AssertionError("1M certified serving checks failed")
 
 
 def main() -> int:
@@ -464,14 +817,35 @@ def main() -> int:
         err_w = max_abs_err(dw.cpu().numpy(), dwp.cpu().numpy())
         print(f"phase 1: K1 at k={K1_WIDE} vs plain on {K1_CHECK_ROWS} rows: "
               f"max_abs_err {err_w:.3e}, disagreeing rows {len(bad_w)}")
-        results["knn"]["max_abs_err"] = max(err, err_w)
+        # The wide list (k > 256), in place in the output rows.
+        dx, ix = knn.knn_scan(xu, K_WIDEST, eps, 0, K1_CHECK_ROWS)
+        dxp, ixp = knn.knn_plain(xu, K_WIDEST, eps,
+                                 rows=slice(0, K1_CHECK_ROWS))
+        bad_x = topk_disagreements(dx.cpu().numpy(), ix.cpu().numpy(),
+                                   dxp.cpu().numpy(), ixp.cpu().numpy(), TOL)
+        err_x = max_abs_err(dx.cpu().numpy(), dxp.cpu().numpy())
+        wide_ms, wide_plain_ms = _in_turns(
+            lambda: knn.knn_plain(xu, K_WIDEST, eps,
+                                  rows=slice(0, K1_CHECK_ROWS)),
+            lambda: knn.knn_scan(xu, K_WIDEST, eps, 0, K1_CHECK_ROWS), torch)
+        narrow_ms = _events_ms(
+            lambda: knn.knn_scan(xu, k, eps, 0, K1_CHECK_ROWS), torch)
+        results["wide"] = {"knn": dict(k=K_WIDEST, ms=wide_ms,
+                                       plain_ms=wide_plain_ms,
+                                       narrow_ms=narrow_ms)}
+        print(f"phase 1: K1 at k={K_WIDEST} vs plain on {K1_CHECK_ROWS} "
+              f"rows: max_abs_err {err_x:.3e}, disagreeing rows "
+              f"{len(bad_x)}; kernel {wide_ms:.3f} ms (k={k}: "
+              f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms {card}")
+        results["knn"]["max_abs_err"] = max(err, err_w, err_x)
         if bad or err > TOL or not sym or r.size < 10_000 or bad_w \
-                or err_w > TOL:
+                or err_w > TOL or bad_x or err_x > TOL:
             raise AssertionError(f"K1 check failed: rows {bad[:10]}, "
                                  f"err {err}, symmetric {sym}, "
                                  f"pairs {r.size}, k={K1_WIDE} rows "
-                                 f"{bad_w[:10]} err {err_w}")
-        del d, i, dp, ip, dw, iw, dwp, iwp
+                                 f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
+                                 f"rows {bad_x[:10]} err {err_x}")
+        del d, i, dp, ip, dw, iw, dwp, iwp, dx, ix, dxp, ixp
     except Exception:
         traceback.print_exc()
         failed.append("phase 1 (K1 vs plain)")
@@ -585,14 +959,35 @@ def main() -> int:
         s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
         bad_w = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
         err_w = max_abs_err(s_k, s_p)
-        results["scan_topk"]["max_abs_err"] = max(err, err_w)
         print(f"phase 2: K2 at k={K2_WIDE} vs plain on {K2_WIDE_QUERIES} "
               f"queries: max_abs_err {err_w:.3e}, disagreeing queries "
               f"{len(bad_w)}")
-        if bad or err > TOL or bad_w or err_w > TOL:
+        i_k, s_k = scan_topk.lambda_search(xs, lams, qw, lw, TAU, K_WIDEST)
+        i_p, s_p = scan_topk.scan_plain(xs, lams, qw, lw, TAU, K_WIDEST)
+        s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
+        s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+        bad_x = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
+        err_x = max_abs_err(s_k, s_p)
+        wide_ms, wide_plain_ms = _in_turns(
+            lambda: scan_topk.scan_plain(xs, lams, qw, lw, TAU, K_WIDEST),
+            lambda: scan_topk.lambda_search(xs, lams, qw, lw, TAU, K_WIDEST),
+            torch)
+        narrow_ms = _events_ms(
+            lambda: scan_topk.lambda_search(xs, lams, qw, lw, TAU, topk),
+            torch)
+        results.setdefault("wide", {})["scan_topk"] = dict(
+            k=K_WIDEST, ms=wide_ms, plain_ms=wide_plain_ms,
+            narrow_ms=narrow_ms)
+        print(f"phase 2: K2 at k={K_WIDEST} vs plain on {K2_WIDE_QUERIES} "
+              f"queries: max_abs_err {err_x:.3e}, disagreeing queries "
+              f"{len(bad_x)}; kernel {wide_ms:.3f} ms (k={topk}: "
+              f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms {card}")
+        results["scan_topk"]["max_abs_err"] = max(err, err_w, err_x)
+        if bad or err > TOL or bad_w or err_w > TOL or bad_x or err_x > TOL:
             raise AssertionError(f"K2 check failed: queries {bad[:10]}, "
                                  f"err {err}, k={K2_WIDE} queries "
-                                 f"{bad_w[:10]} err {err_w}")
+                                 f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
+                                 f"queries {bad_x[:10]} err {err_x}")
     except Exception:
         traceback.print_exc()
         failed.append("phase 2 (K2 vs plain)")
@@ -606,7 +1001,12 @@ def main() -> int:
              lambda: _phase_subtile_kernels(torch, aspace, batches, card,
                                             results)),
             ("phase 7 (1M x 768 serving)",
-             lambda: _phase_north_star(torch, dev, card, results))):
+             lambda: _phase_north_star(torch, dev, card, results)),
+            ("phase 8 (certified serving)",
+             lambda: _phase_certified(torch, aspace, gl, batches, outs,
+                                      card, results)),
+            ("phase 9 (1M x 768 certified serving)",
+             lambda: _phase_certified_1m(torch, dev, card, results))):
         try:
             if aspace is None:
                 raise RuntimeError("no index: phase 3 failed")
@@ -636,7 +1036,8 @@ def main() -> int:
         failed.append("phase 4 (reference parity)")
 
     print(f"chip_smoke: total {time.perf_counter() - t_start:.3f} s")
-    if failed or "launches" not in results or "launches_subtile" not in results:
+    if failed or not all(key in results for key in (
+            "launches", "launches_subtile", "launches_certified")):
         print(f"chip_smoke: FAILED {failed}", file=sys.stderr)
         return 1
     pallas = "pyarrowspace_tpu/ops/pallas/"
@@ -651,6 +1052,7 @@ def main() -> int:
          "launches_subtile"),
         ("gather_score", "gather_score.cu", "subtile_scan.py:131",
          "launches_subtile"),
+        ("ivf_scan", "ivf_scan.cu", "ivf_scan.py:231", "launches_certified"),
     )
     kernels = [
         {"name": name, "route": "cuda",

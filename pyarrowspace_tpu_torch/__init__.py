@@ -4,16 +4,17 @@
 Public API (the same names as the JAX package):
 
     ArrowSpaceBuilder.build(graph_params, items, device=None)
-    ArrowSpace.{nitems, nfeatures, get_item, lambdas, search, search_batch}
+    ArrowSpace.{nitems, nfeatures, get_item, lambdas, search, search_batch,
+                enable_ivf, serving_stream}
     GraphLaplacian.{nnodes, shape, graph_params}
     set_debug, get_phase_timings
 
 The exact k-NN scan of the build (K1), the blended top-k scan of exact
-search (K2) and the four kernels of subtile serving (K3 subtile max, K4b
-top-S select, K5 gather and score, K4a pool cut) are hand-written CUDA
-kernels (``csrc/``) built with nvcc at first use; on CPU tensors each
-runs its plain PyTorch version.  This package imports torch and numpy,
-never jax.
+search (K2), the four kernels of subtile serving (K3 subtile max, K4b
+top-S select, K5 gather and score, K4a pool cut) and the probe scan of
+blocked-IVF and certified serving (K6) are hand-written CUDA kernels
+(``csrc/``) built with nvcc at first use; on CPU tensors each runs its
+plain PyTorch version.  This package imports torch and numpy, never jax.
 """
 
 import torch

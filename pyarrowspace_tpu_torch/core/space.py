@@ -6,8 +6,9 @@ src/lib.rs:64-263) for the search paths ported so far: builder-only
 construction; `nitems`, `nfeatures`,
 `get_item(idx) -> (np.ndarray float64, float)`,
 `lambdas() -> np.ndarray`, `search(query, gl, tau)` returning a list of
-(index, score) by descending score, and `search_batch` in modes "exact",
-"subtile" and "auto".  State lives as torch tensors on the build's device.
+(index, score) by descending score, `search_batch` in modes "exact",
+"subtile", "auto", "ivf_block" and "certified", `enable_ivf` and
+`serving_stream`.  State lives as torch tensors on the build's device.
 """
 
 from __future__ import annotations
@@ -19,11 +20,16 @@ import torch
 
 from .laplacian import GraphLaplacian
 from .params import GraphParams
+from ..ops import ivf_scan as ivf_ops
 from ..ops import search as search_ops
 from ..ops.cuda import scan_topk
 from ..ops.distance import unit_normalize
+from ..ops.ivf import IVFIndex, build_ivf
 from ..ops.subtile_scan import build_subtile_state
 from ..utils.debug import dbg_println
+from ..utils.logging import get_logger
+
+log = get_logger("serving")
 
 _BUILDER_TOKEN = object()
 
@@ -31,14 +37,20 @@ _BUILDER_TOKEN = object()
 # a smaller one with "exact" (the reference's rule).
 AUTO_SUBTILE_MIN_ITEMS = 131_072
 
+# Certified serving: below this base certification rate, widening is
+# skipped and refusals escalate straight to the exact scan (re-probing a
+# nearly fully refused batch through doubled probe lists costs more than
+# the scan it tries to avoid).
+_WIDEN_MIN_CERT_RATE = 0.25
+
 # search_batch modes of the reference that this package does not run yet,
 # with the ROADMAP.md item that ports each.
 _PENDING_MODES = {
     "ivf": "Slice C item 13 (gather IVF)",
-    "ivf_block": "Slice B item 11 (blocked IVF and certified serving)",
-    "certified": "Slice B item 11 (blocked IVF and certified serving)",
     "int8": "Slice C item 12 (int8 scan + rescore)",
 }
+_MODES = ("auto", "exact", "int8", "subtile", "ivf", "ivf_block",
+          "certified")
 
 
 class ArrowItem:
@@ -78,6 +90,15 @@ class ArrowSpace:
         self._knn_idx: Optional[torch.Tensor] = kwargs.get("knn_idx")
         # Padded serving layout of mode="subtile", made at its first use.
         self._subtile: Optional[dict] = None
+        # Blocked-IVF serving state (enable_ivf, _ensure_ivf_blocked): the
+        # postings, the slab layout, its capacity factor and planned cap
+        # (with the cluster count it was planned for), and the slab dtype.
+        self._ivf: Optional[IVFIndex] = None
+        self._ivf_blocked: Optional[ivf_ops.BlockedIVF] = None
+        self._ivf_cap_factor: Optional[float] = None
+        self._ivf_cap_plan: Optional[int] = None
+        self._ivf_plan_k: Optional[int] = None
+        self._ivf_slab_choice: Optional[torch.dtype] = None
 
     @classmethod
     def _from_build(cls, **kwargs) -> "ArrowSpace":
@@ -166,8 +187,259 @@ class ArrowSpace:
         return [(int(i), float(s)) for i, s in zip(idx.tolist(),
                                                    vals.tolist())]
 
+    # -- blocked IVF and certified serving -------------------------------------
+    def enable_ivf(self, n_clusters: Optional[int] = None,
+                   capacity_factor: Optional[float] = None, slab_dtype=None,
+                   slab_capacity_factor: Optional[float] = None) -> IVFIndex:
+        """Build the IVF routing state of mode="ivf_block"/"certified".
+
+        Reuses the build's reduction clustering when it has one and
+        n_clusters is None; otherwise clusters now (reduce_corpus with
+        reseeding at keep_rate 1.0, then lloyd_tighten in unit space to a
+        covering radius of 0.75 and at most the planned slab cap members
+        a cluster, so the slab layout is spill-free).
+
+        slab_dtype (torch.float32, torch.bfloat16, torch.float16) sets the
+        slab precision: bf16 halves the probe bytes, approximate for
+        ivf_block and still exact for certified serving (the rescored
+        certificate).  slab_capacity_factor sizes the [K * cap, F] slabs;
+        when None it follows min(2.0, capacity_factor) for an explicit
+        capacity_factor (default 3.0, the postings' factor), else keeps
+        the current factor, default 2.0.
+
+        Unlike the reference, a new slab factor always reaches the layout:
+        when the clustering is kept, the planned cap is re-planned for the
+        new factor and the clustering re-tightened to it, so a leaner
+        factor gives a smaller cap and the layout stays spill-free (the
+        reference keeps the old plan as a floor, ROADMAP.md §3)."""
+        from ..reduction import pipeline as rp
+
+        if slab_capacity_factor is not None:
+            slab_cf = float(slab_capacity_factor)
+        elif capacity_factor is not None:
+            slab_cf = min(2.0, float(capacity_factor))
+        else:
+            slab_cf = float(self._ivf_cap_factor or 2.0)
+        if capacity_factor is None:
+            capacity_factor = 3.0
+        factor_changed = slab_cf != self._ivf_cap_factor
+        if factor_changed:
+            self._ivf_blocked = None   # slab layout follows the factor
+        self._ivf_cap_factor = slab_cf
+        if slab_dtype is not None:
+            if slab_dtype != self._ivf_slab_choice:
+                self._ivf_blocked = None
+            self._ivf_slab_choice = slab_dtype
+
+        if self._centroids is None or n_clusters is not None:
+            red = rp.reduce_corpus(self._data, seed=self._params.seed,
+                                   keep_rate=1.0, k_clusters=n_clusters,
+                                   reseed_empty=True)
+            cents_u = unit_normalize(red.centroids.to(self._data.dtype))
+            self._ivf_plan_k = int(cents_u.shape[0])
+            self._ivf_cap_plan = rp.planned_slab_cap(
+                self.nitems, self._ivf_plan_k, capacity_factor=slab_cf)
+            self._centroids, self._assignments = rp.lloyd_tighten(
+                self._data_unit, cents_u, max_size=self._ivf_cap_plan)
+            self._ivf_blocked = None   # slab layout follows the clustering
+        elif factor_changed and self._ivf_cap_plan is not None:
+            self._ivf_cap_plan = rp.planned_slab_cap(
+                self.nitems, self._ivf_plan_k, capacity_factor=slab_cf)
+            self._centroids, self._assignments = rp.lloyd_tighten(
+                self._data_unit, self._centroids,
+                max_size=self._ivf_cap_plan)
+        self._ivf = build_ivf(self._centroids, self._assignments,
+                              self.nitems, capacity_factor)
+        return self._ivf
+
+    def _ensure_ivf_blocked(self) -> ivf_ops.BlockedIVF:
+        """The cluster-contiguous slab index of mode="ivf_block" /
+        "certified", built at first use and rebuilt when the slab dtype
+        changed."""
+        if self._ivf is None:
+            self.enable_ivf()
+        want = self._ivf_slab_choice or torch.float32
+        if (self._ivf_blocked is not None
+                and self._ivf_blocked.slabs.dtype != want):
+            self._ivf_blocked = None
+        if self._ivf_blocked is None:
+            self._ivf_blocked = ivf_ops.build_blocked_ivf(
+                self._data_unit, self._lambdas, self._centroids,
+                self._assignments,
+                capacity_factor=self._ivf_cap_factor or 2.0,
+                min_cap=self._ivf_cap_plan,
+                slab_dtype=None if want == torch.float32 else want)
+        return self._ivf_blocked
+
+    def _ivf_block_dispatch(self, q: torch.Tensor, tau: float, topk: int,
+                            n_probe: int, certify: bool, m_pool,
+                            q_block=None, pack_out: bool = False):
+        """Query lambdas + routing + scan (+ certificate), on the device;
+        pack_out (certify only) returns one packed tensor."""
+        ivf = self._ensure_ivf_blocked()
+        kw = {}
+        if certify and ivf.slabs.dtype != torch.float32:
+            kw = dict(rescore_corpus=self._data_unit.to(torch.float32),
+                      rescore_lambdas=self._lambdas.to(torch.float32))
+        return ivf_ops.blocked_ivf_search_fused(
+            ivf, q, self._lap_f, self._w_f, self._tau_star, tau, topk,
+            n_probe=n_probe, q_block=q_block,
+            rayleigh_normalized=self._rayleigh_normalized,
+            tau_mix=self._tau_mix, certify=certify, m_pool=m_pool,
+            pack_out=pack_out and certify, **kw)
+
+    def _certified_finalize(self, queries: torch.Tensor, out, gl, tau,
+                            topk_eff: int, n_probe: int, n_widen: int,
+                            base_m: int, q_block=None):
+        """Widen, then escalate, a certified ivf_block result to exact
+        results (shared by search_batch(mode="certified") and
+        serving_stream).  Returns (idx, vals, base_cert_rate).
+
+        Refusals first re-probe at doubled n_probe (at most n_widen
+        rounds, m_pool doubling with the probe list), still certified;
+        what no round certifies escalates to mode="exact" (never "auto":
+        certified serving's contract is float32-exact).  Below a base rate
+        of _WIDEN_MIN_CERT_RATE widening is skipped."""
+        if isinstance(out, tuple):   # search_batch(mode="ivf_block")'s
+            idx, vals, cert = out
+        else:                        # a packed dispatch (serving_stream)
+            idx, vals, cert = ivf_ops.unpack_certified(out, topk_eff)
+        rate0 = float(cert.mean()) if cert.size else 1.0
+
+        def take(sel):
+            return queries[torch.as_tensor(sel, device=queries.device)]
+
+        if rate0 >= _WIDEN_MIN_CERT_RATE:
+            ivf = self._ivf_blocked
+            n_probe_max = min(ivf.n_clusters,
+                              self.nitems // max(1, 2 * ivf.cap),
+                              n_probe << n_widen)
+            idx, vals, cert = ivf_ops.widen_refusals(
+                idx, vals, cert,
+                lambda sel, np2: self.search_batch(
+                    take(sel), gl, tau, topk=topk_eff, mode="ivf_block",
+                    n_probe=np2, certify=True,
+                    m_pool=base_m * max(1, np2 // n_probe), q_block=q_block),
+                topk_eff, n_probe, n_probe_max)
+        idx, vals = ivf_ops.escalate_uncertified(
+            idx, vals, cert,
+            lambda sel: self.search_batch(take(sel), gl, tau, topk=topk_eff,
+                                          mode="exact"),
+            topk_eff)
+        return idx, vals, rate0
+
+    def _warn_volatile_nprobe(self, n_probe: int) -> None:
+        """Certified serving with a shallow probe list at large N is
+        throughput-volatile (results stay exact): a bad clustering or batch
+        mix refuses most queries and every batch widens."""
+        if n_probe <= 4 and self.nitems >= 262_144:
+            log.warning(
+                "certified serving with n_probe=%d at N=%d is throughput-"
+                "volatile (a collapsed certificate widens every batch); "
+                "deploy n_probe>=8", n_probe, self.nitems)
+
+    def serving_stream(self, gl: GraphLaplacian, tau: float,
+                       topk: Optional[int] = None, n_probe: int = 8,
+                       n_widen: int = 2, m_pool: Optional[int] = None,
+                       depth: int = 4, cert_floor: float = 0.35,
+                       floor_patience: int = 2,
+                       fallback_mode: Optional[str] = "auto",
+                       q_block: Optional[int] = None,
+                       probe_escalations: int = 2):
+        """Pipelined certified serving for batch streams: a
+        serving.CertifiedStream whose submit(queries) keeps up to `depth`
+        certified dispatches in flight.  Each batch's packed result starts
+        its copy to pinned host memory at dispatch, and finalize waits on
+        that copy's CUDA event.  Per-batch results equal
+        search_batch(mode="certified"); finish() returns
+        [(idx, vals, base_cert_rate)] in submission order.
+
+        On certificate collapse (base rate under cert_floor for
+        floor_patience batches dispatched at the current setting) the
+        stream doubles n_probe for later batches, up to probe_escalations
+        times, then reroutes later batches to fallback_mode: "exact",
+        "auto" (subtile at AUTO_SUBTILE_MIN_ITEMS items or more, else
+        exact) or None (keep certifying)."""
+        from ..serving import CertifiedStream
+
+        topk_eff = min(gl.params.topk if topk is None else int(topk),
+                       self.nitems)
+        base_m = (m_pool if m_pool is not None
+                  else max(4 * topk_eff, topk_eff + 6))
+        self._warn_volatile_nprobe(n_probe)
+        self._ensure_ivf_blocked()
+        # Dispatch knobs the escalation hook bumps; each in-flight batch is
+        # finalized with the values it was dispatched with.
+        state = {"n_probe": int(n_probe), "m": int(base_m),
+                 "rungs": max(0, int(probe_escalations))}
+
+        def dispatch(queries):
+            q = self._as_queries(queries)
+            if q.dim() != 2 or q.shape[1] != self.nfeatures:
+                raise ValueError(f"queries must be [Q, {self.nfeatures}], "
+                                 f"got {tuple(q.shape)}")
+            np_cur, m_cur = state["n_probe"], state["m"]
+            out = self._ivf_block_dispatch(q, float(tau), topk_eff, np_cur,
+                                           True, m_cur, q_block=q_block,
+                                           pack_out=True)
+            done = None
+            if out.is_cuda:
+                out = out.to("cpu", non_blocking=True)   # pinned
+                done = torch.cuda.Event()
+                done.record()
+            return q, out, done, np_cur, m_cur
+
+        def finalize(_queries, boxed):
+            q, out, done, np_used, m_used = boxed
+            if done is not None:
+                done.synchronize()
+            return self._certified_finalize(q, out, gl, tau, topk_eff,
+                                            np_used, n_widen, m_used,
+                                            q_block=q_block)
+
+        def on_collapse() -> bool:
+            ivf = self._ivf_blocked
+            np_max = min(ivf.n_clusters,
+                         max(1, self.nitems // max(1, 2 * ivf.cap)))
+            np_cur = state["n_probe"]
+            if state["rungs"] <= 0 or np_cur >= np_max:
+                return False
+            state["rungs"] -= 1
+            state["n_probe"] = min(2 * np_cur, np_max)
+            state["m"] = base_m * max(1, state["n_probe"] // int(n_probe))
+            log.warning(
+                "certification collapsed at n_probe=%d: escalating the "
+                "probe list to n_probe=%d (%d rung(s) left) before any "
+                "fallback", np_cur, state["n_probe"], state["rungs"])
+            return True
+
+        fb = fb_fin = None
+        if fallback_mode is not None:
+            if fallback_mode not in ("auto", "exact"):
+                raise ValueError("fallback_mode must be 'auto', 'exact', "
+                                 f"or None, got {fallback_mode!r}")
+            eff_mode = ("subtile" if fallback_mode == "auto"
+                        and self.nitems >= AUTO_SUBTILE_MIN_ITEMS
+                        else "exact")
+
+            def fb(queries):
+                return self.search_batch(queries, gl, tau, topk=topk_eff,
+                                         mode=eff_mode)
+
+            def fb_fin(_queries, out):
+                return out
+
+        return CertifiedStream(dispatch, finalize, fallback=fb,
+                               finalize_fallback=fb_fin, depth=depth,
+                               cert_floor=cert_floor,
+                               floor_patience=floor_patience,
+                               on_collapse=on_collapse)
+
     def search_batch(self, queries, gl: GraphLaplacian, tau: float,
-                     topk: Optional[int] = None, mode: str = "exact"):
+                     topk: Optional[int] = None, mode: str = "exact",
+                     n_probe: int = 8, certify: bool = False,
+                     n_widen: int = 2, m_pool: Optional[int] = None,
+                     q_block: Optional[int] = None):
         """Batched lambda-aware search: queries [Q, F] ->
         (indices [Q, topk] np.int32, scores [Q, topk]).
 
@@ -177,17 +449,45 @@ class ArrowSpace:
         K5 and K4a on CUDA; ops/subtile_scan.py) over a padded bf16 copy
         of the corpus made at its first use, and rescores a 2 x topk pool
         in float32.  mode "auto" is "subtile" for an index of
-        AUTO_SUBTILE_MIN_ITEMS items or more, else "exact".  The
-        reference's other modes are not ported yet and raise
-        NotImplementedError naming their ROADMAP item."""
+        AUTO_SUBTILE_MIN_ITEMS items or more, else "exact".
+
+        mode "ivf_block" routes query blocks of q_block (default 16; 8 for
+        certified serving at n_probe < 8) to n_probe cluster slabs each
+        and scans them (kernel K6 on CUDA; ops/ivf_scan.py), approximate;
+        certify=True (ivf_block only) adds a per-query bool [Q]: True
+        means the served top-k provably equals the exact blended-scan
+        top-k.  mode "certified" serves the EXACT top-k for every query:
+        ivf_block with certificates, refusals re-probed at doubled n_probe
+        (up to n_widen rounds, m_pool doubling with it over reduced-
+        precision slabs) and the rest escalated to mode "exact".
+        enable_ivf() runs on demand.  The reference's other modes are not
+        ported yet and raise NotImplementedError naming their ROADMAP
+        item."""
+        if certify and mode != "ivf_block":
+            raise ValueError("certify=True requires mode='ivf_block'")
         if mode in _PENDING_MODES:
             raise NotImplementedError(
                 f"search_batch(mode={mode!r}) is not ported yet: ROADMAP.md "
                 f"{_PENDING_MODES[mode]}")
-        if mode not in ("auto", "exact", "subtile"):
+        if mode not in _MODES:
             raise ValueError(f"unknown search mode {mode!r}; expected "
                              "'auto', 'exact', 'int8', 'subtile', 'ivf', "
                              "'ivf_block', or 'certified'")
+        if mode == "certified":
+            self._warn_volatile_nprobe(n_probe)
+            q = self._as_queries(queries)
+            topk_eff = min(gl.params.topk if topk is None else int(topk),
+                           self.nitems)
+            base_m = (m_pool if m_pool is not None
+                      else max(4 * topk_eff, topk_eff + 6))
+            out = self.search_batch(q, gl, tau, topk=topk_eff,
+                                    mode="ivf_block", n_probe=n_probe,
+                                    certify=True, m_pool=base_m,
+                                    q_block=q_block)
+            idx, vals, _ = self._certified_finalize(
+                q, out, gl, tau, topk_eff, n_probe, n_widen, base_m,
+                q_block=q_block)
+            return idx, vals
         if mode == "auto":
             mode = ("subtile" if self.nitems >= AUTO_SUBTILE_MIN_ITEMS
                     else "exact")
@@ -211,6 +511,13 @@ class ArrowSpace:
                 rayleigh_normalized=self._rayleigh_normalized,
                 tau_mix=self._tau_mix)
             return idx.cpu().numpy(), vals.cpu().numpy()
+        if mode == "ivf_block":
+            out = self._ivf_block_dispatch(q, float(tau), topk, n_probe,
+                                           certify, m_pool, q_block=q_block,
+                                           pack_out=certify)
+            if certify:
+                return ivf_ops.unpack_certified(out, topk)
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
         tau_arg = (float(tau) if self.device.type == "cuda"
                    else torch.as_tensor(tau, dtype=self._data.dtype))
         idx, vals = search_ops.fused_query_pipeline(

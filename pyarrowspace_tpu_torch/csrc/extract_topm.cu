@@ -17,7 +17,10 @@
 //
 // The simple design: one warp per row, with the row's running list in
 // shared memory (tile_common.cuh's insertion, 2, 4 or 8 words a lane for
-// m <= 256).  The warp reads its row 128 values at a time (4 coalesced
+// m <= 256), or for 256 < m <= 4096 in place in the output row (the ids)
+// and a scratch row (the values), shifted there (offer_wide: the subtile
+// select at topk 1,024 keeps m 1,024 subtiles and a pool of 2,048).  The
+// warp reads its row 128 values at a time (4 coalesced
 // loads a lane in flight), keeps the values strictly better than the
 // list's current mth by ballot, and offers them one by one.  K4b offers
 // ids in ascending order with the Max order (ties to the earlier, smaller
@@ -39,14 +42,15 @@ template <class Order, int W, bool kIota>
 __global__ void __launch_bounds__(tile::THREADS)
     extract_kernel(const float* __restrict__ score,
                    const int* __restrict__ cand, int rows, int len, int m,
-                   int* __restrict__ out) {
+                   float* scratch, int* out) {
   using namespace tile;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* vals = smem + warp * m;
-  int* ids = reinterpret_cast<int*>(smem + WARPS * m) + warp * m;
   const int r = blockIdx.x * WARPS + warp;
   if (r >= rows) return;   // whole warp leaves together
+  float* vals = W == 0 ? scratch + (size_t)r * m : smem + warp * m;
+  int* ids = W == 0 ? out + (size_t)r * m
+                    : reinterpret_cast<int*>(smem + WARPS * m) + warp * m;
 
   for (int j = lane; j < m; j += 32) {
     vals[j] = -CUDART_INF_F;
@@ -78,24 +82,29 @@ __global__ void __launch_bounds__(tile::THREADS)
       }
     }
   }
-  for (int j = lane; j < m; j += 32) out[(size_t)r * m + j] = ids[j];
+  if (W != 0)
+    for (int j = lane; j < m; j += 32) out[(size_t)r * m + j] = ids[j];
 }
 
 template <class Order, bool kIota>
 int launch(const float* score, const int* cand, int rows, int len, int m,
-           int* out, cudaStream_t st) {
+           float* scratch, int* out, cudaStream_t st) {
   const int words = tile::list_words(m);
-  auto kernel = &extract_kernel<Order, 8, kIota>;
+  auto kernel = &extract_kernel<Order, 0, kIota>;
   if (words == 2) kernel = &extract_kernel<Order, 2, kIota>;
   if (words == 4) kernel = &extract_kernel<Order, 4, kIota>;
-  const size_t smem = (size_t)tile::WARPS * m * (sizeof(float) + sizeof(int));
+  if (words == 8) kernel = &extract_kernel<Order, 8, kIota>;
+  const size_t smem =
+      words == 0 ? 0 : (size_t)tile::WARPS * m * (sizeof(float) + sizeof(int));
   kernel<<<(rows + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem, st>>>(
-      score, cand, rows, len, m, out);
+      score, cand, rows, len, m, scratch, out);
   return (int)cudaGetLastError();
 }
 
-int check(int rows, int len, int m, int device) {
-  if (rows <= 0 || len <= 0 || m > len || tile::list_words(m) == 0)
+int check(int rows, int len, int m, const float* scratch, int device) {
+  const int words = tile::list_words(m);
+  if (rows <= 0 || len <= 0 || m > len || words < 0 ||
+      (words == 0 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   return (int)cudaSetDevice(device);
 }
@@ -105,24 +114,26 @@ int check(int rows, int len, int m, int device) {
 extern "C" {
 
 // K4b: out [rows, m] = per row of score [rows, len], the columns of the m
-// largest values, ties to the smaller column.  Returns the CUDA error
-// code (0 on success).
+// largest values, ties to the smaller column.  scratch is [rows, m] floats
+// for m > 256 (may be null otherwise).  Returns the CUDA error code (0 on
+// success).
 int extract_ids_launch(const float* score, int rows, int len, int m,
-                       int* out, int device, void* stream) {
-  const int err = check(rows, len, m, device);
+                       float* scratch, int* out, int device, void* stream) {
+  const int err = check(rows, len, m, scratch, device);
   if (err != 0) return err;
-  return launch<tile::Max, true>(score, nullptr, rows, len, m, out,
+  return launch<tile::Max, true>(score, nullptr, rows, len, m, scratch, out,
                                  (cudaStream_t)stream);
 }
 
 // K4a: out [rows, m] = per row of score / cand [rows, len] (ids distinct
 // within a row), the ids of the m largest values, ties to the smaller id.
-// Returns the CUDA error code (0 on success).
+// scratch as for K4b.  Returns the CUDA error code (0 on success).
 int extract_pool_launch(const float* score, const int* cand, int rows,
-                        int len, int m, int* out, int device, void* stream) {
-  const int err = check(rows, len, m, device);
+                        int len, int m, float* scratch, int* out, int device,
+                        void* stream) {
+  const int err = check(rows, len, m, scratch, device);
   if (err != 0) return err;
-  return launch<tile::MaxLex, false>(score, cand, rows, len, m, out,
+  return launch<tile::MaxLex, false>(score, cand, rows, len, m, scratch, out,
                                      (cudaStream_t)stream);
 }
 

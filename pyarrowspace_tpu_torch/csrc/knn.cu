@@ -19,10 +19,13 @@
 // Per tile: a shared-memory tiled fp32 product with feature slabs of 32
 // and 4 x 4 accumulators a thread (tile_common.cuh), the mask epilogue into
 // a shared 64 x 64 tile, then one warp per row offers the improving
-// candidates to the row's running list in shared memory.  The result is
-// exact in fp32, and d(i, j) == d(j, i) bitwise.  k <= 256: the lists
-// are templates on words per lane (2, 4, 8) and the launcher takes the
-// narrowest that holds k.  wgmma, TMA and pipelining are later work.
+// candidates to the row's running list.  The result is exact in fp32, and
+// d(i, j) == d(j, i) bitwise.  Lists of k <= 256 live in shared memory, as
+// templates on words per lane (2, 4, 8; the launcher takes the narrowest
+// that holds k); lists of 256 < k <= 4096 would take 64 x k x 8 bytes of
+// shared memory (512 KB at k 1,024), so they are kept in place in the
+// output rows and shifted there (tile_common.cuh offer_wide).  wgmma, TMA
+// and pipelining are later work.
 
 #include <cuda_runtime.h>
 
@@ -35,23 +38,28 @@ constexpr float INF_DIST = 2.0f;
 template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     knn_kernel(const float* __restrict__ xu, int n, int f, int row_start,
-               int row_count, float eps, int k, float* __restrict__ out_d,
-               int* __restrict__ out_i) {
+               int row_count, float eps, int k, float* out_d, int* out_i) {
   using namespace tile;
   extern __shared__ float smem[];
   auto As = reinterpret_cast<float(*)[PAD]>(smem);
   auto Bs = reinterpret_cast<float(*)[PAD]>(smem + SLAB * PAD);
   auto Ds = reinterpret_cast<float(*)[PAD]>(smem + 2 * SLAB * PAD);
-  float* run_d = smem + TILE_FLOATS;                        // [TILE][k]
-  int* run_i = reinterpret_cast<int*>(run_d + TILE * k);    // [TILE][k]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
   const int r0 = row_start + blockIdx.x * TILE;
   const int r_end = row_start + row_count;
+  const int n_rows = min(TILE, r_end - r0);
 
-  for (int e = tid; e < TILE * k; e += THREADS) {
+  // The block's lists [n_rows][k]: in shared memory, or the output rows.
+  float* run_d = smem + TILE_FLOATS;
+  int* run_i = reinterpret_cast<int*>(run_d + TILE * k);
+  if (W == 0) {
+    run_d = out_d + (size_t)(r0 - row_start) * k;
+    run_i = out_i + (size_t)(r0 - row_start) * k;
+  }
+  for (int e = tid; e < n_rows * k; e += THREADS) {
     run_d[e] = INF_DIST;
     run_i[e] = -1;
   }
@@ -79,12 +87,12 @@ __global__ void __launch_bounds__(tile::THREADS)
     __syncthreads();
   }
 
-  for (int e = tid; e < TILE * k; e += THREADS) {
-    const int row = r0 + e / k;
-    if (row < r_end) {
-      const size_t o = (size_t)(row - row_start) * k + (e % k);
-      out_d[o] = run_d[e];
-      out_i[o] = run_i[e];
+  if (W != 0) {
+    float* o_d = out_d + (size_t)(r0 - row_start) * k;
+    int* o_i = out_i + (size_t)(r0 - row_start) * k;
+    for (int e = tid; e < n_rows * k; e += THREADS) {
+      o_d[e] = run_d[e];
+      o_i[e] = run_i[e];
     }
   }
 }
@@ -101,19 +109,20 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                float eps, int k, float* out_d, int* out_i, int device,
                void* stream) {
   const int words = tile::list_words(k);
-  if (n <= 0 || f <= 0 || row_count <= 0 || words == 0 || row_start < 0 ||
+  if (n <= 0 || f <= 0 || row_count <= 0 || words < 0 || row_start < 0 ||
       row_start + row_count > n)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   // At k = 256 the lists take 128 KB: above the 48 KB a launch gets
-  // without opting in.
+  // without opting in.  Wide lists take no shared memory.
   const size_t smem =
       (size_t)tile::TILE_FLOATS * sizeof(float) +
-      (size_t)tile::TILE * k * (sizeof(float) + sizeof(int));
-  auto kernel = &knn_kernel<8>;
+      (words == 0 ? 0 : (size_t)tile::TILE * k * (sizeof(float) + sizeof(int)));
+  auto kernel = &knn_kernel<0>;
   if (words == 2) kernel = &knn_kernel<2>;
   if (words == 4) kernel = &knn_kernel<4>;
+  if (words == 8) kernel = &knn_kernel<8>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -20,9 +20,12 @@
 // blends, masks, and merges into running lists in shared memory, then
 // writes its partial lists [S, Q, k].  Launch 2: one warp per query merges
 // the S partial lists in split order with the same insertion rule, so the
-// result is the exact top-k in (score desc, id asc) order.  k <= 256: the
-// lists are templates on words per lane (2, 4, 8) and the launcher takes
-// the narrowest that holds k.
+// result is the exact top-k in (score desc, id asc) order.  Lists of
+// k <= 256 live in shared memory, as templates on words per lane (2, 4, 8;
+// the launcher takes the narrowest that holds k; at k 256 they take 161 KB
+// with the tiles).  Lists of 256 < k <= 4096 stay in place in the partial
+// lists (launch 1) and in the output rows (launch 2), shifted there
+// (tile_common.cuh offer_wide).
 
 #include <cuda_runtime.h>
 
@@ -37,15 +40,12 @@ __global__ void __launch_bounds__(tile::THREADS)
     scan_kernel(const float* __restrict__ xu, const float* __restrict__ lam,
                 int n, int f, const float* __restrict__ qn,
                 const float* __restrict__ lamq, int q, float tau, int k,
-                int tiles_per_split, float* __restrict__ part_s,
-                int* __restrict__ part_i) {
+                int tiles_per_split, float* part_s, int* part_i) {
   using namespace tile;
   extern __shared__ float smem[];
   auto As = reinterpret_cast<float(*)[PAD]>(smem);
   auto Bs = reinterpret_cast<float(*)[PAD]>(smem + SLAB * PAD);
   auto Ss = reinterpret_cast<float(*)[PAD]>(smem + 2 * SLAB * PAD);
-  float* run_s = smem + TILE_FLOATS;                        // [TILE][k]
-  int* run_i = reinterpret_cast<int*>(run_s + TILE * k);    // [TILE][k]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -54,8 +54,16 @@ __global__ void __launch_bounds__(tile::THREADS)
   const int split = blockIdx.y;
   const int c_begin = split * tiles_per_split * TILE;
   const int c_stop = min(n, c_begin + tiles_per_split * TILE);
+  const int n_rows = min(TILE, q - q0);
 
-  for (int e = tid; e < TILE * k; e += THREADS) {
+  // The block's lists [n_rows][k]: in shared memory, or its partial lists.
+  float* run_s = smem + TILE_FLOATS;
+  int* run_i = reinterpret_cast<int*>(run_s + TILE * k);
+  if (W == 0) {
+    run_s = part_s + ((size_t)split * q + q0) * k;
+    run_i = part_i + ((size_t)split * q + q0) * k;
+  }
+  for (int e = tid; e < n_rows * k; e += THREADS) {
     run_s[e] = NEG_INF;
     run_i[e] = -1;
   }
@@ -89,29 +97,31 @@ __global__ void __launch_bounds__(tile::THREADS)
     __syncthreads();
   }
 
-  for (int e = tid; e < TILE * k; e += THREADS) {
-    const int qi = q0 + e / k;
-    if (qi < q) {
-      const size_t o = ((size_t)split * q + qi) * k + (e % k);
-      part_s[o] = run_s[e];
-      part_i[o] = run_i[e];
+  if (W != 0) {
+    float* o_s = part_s + ((size_t)split * q + q0) * k;
+    int* o_i = part_i + ((size_t)split * q + q0) * k;
+    for (int e = tid; e < n_rows * k; e += THREADS) {
+      o_s[e] = run_s[e];
+      o_i[e] = run_i[e];
     }
   }
 }
 
-// One warp per query: merge the S partial lists in split order.
+// One warp per query: merge the S partial lists in split order (a wide
+// list in place in the output row).
 template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     merge_kernel(const float* __restrict__ part_s,
                  const int* __restrict__ part_i, int q, int k, int splits,
-                 float* __restrict__ out_s, int* __restrict__ out_i) {
+                 float* out_s, int* out_i) {
   using namespace tile;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* run_s = smem + warp * k;
-  int* run_i = reinterpret_cast<int*>(smem + WARPS * k) + warp * k;
   const int qi = blockIdx.x * WARPS + warp;
   if (qi >= q) return;   // whole warp leaves together
+  float* run_s = W == 0 ? out_s + (size_t)qi * k : smem + warp * k;
+  int* run_i = W == 0 ? out_i + (size_t)qi * k
+                      : reinterpret_cast<int*>(smem + WARPS * k) + warp * k;
 
   for (int j = lane; j < k; j += 32) {
     run_s[j] = NEG_INF;
@@ -128,9 +138,11 @@ __global__ void __launch_bounds__(tile::THREADS)
       offer<Max, W>(run_s, run_i, k, v, part_i[base + j], lane);
     }
   }
-  for (int j = lane; j < k; j += 32) {
-    out_s[(size_t)qi * k + j] = run_s[j];
-    out_i[(size_t)qi * k + j] = run_i[j];
+  if (W != 0) {
+    for (int j = lane; j < k; j += 32) {
+      out_s[(size_t)qi * k + j] = run_s[j];
+      out_i[(size_t)qi * k + j] = run_i[j];
+    }
   }
 }
 
@@ -147,7 +159,7 @@ int scan_topk_launch(const float* xu, const float* lam, int n, int f,
                      int k, int splits, float* part_s, int* part_i,
                      float* out_s, int* out_i, int device, void* stream) {
   const int words = tile::list_words(k);
-  if (n <= 0 || f <= 0 || q <= 0 || words == 0 || k > n || splits <= 0)
+  if (n <= 0 || f <= 0 || q <= 0 || words < 0 || k > n || splits <= 0)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + tile::TILE - 1) / tile::TILE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
@@ -156,18 +168,22 @@ int scan_topk_launch(const float* xu, const float* lam, int n, int f,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   // At k = 256 the lists take 128 KB (161 KB with the tiles): above the
-  // 48 KB a launch gets without opting in.
+  // 48 KB a launch gets without opting in.  Wide lists take none.
+  const size_t list_bytes =
+      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
   const size_t smem =
-      (size_t)tile::TILE_FLOATS * sizeof(float) +
-      (size_t)tile::TILE * k * (sizeof(float) + sizeof(int));
-  auto scan = &scan_kernel<8>;
-  auto merge = &merge_kernel<8>;
+      (size_t)tile::TILE_FLOATS * sizeof(float) + tile::TILE * list_bytes;
+  auto scan = &scan_kernel<0>;
+  auto merge = &merge_kernel<0>;
   if (words == 2) {
     scan = &scan_kernel<2>;
     merge = &merge_kernel<2>;
   } else if (words == 4) {
     scan = &scan_kernel<4>;
     merge = &merge_kernel<4>;
+  } else if (words == 8) {
+    scan = &scan_kernel<8>;
+    merge = &merge_kernel<8>;
   }
   err = cudaFuncSetAttribute(
       scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -178,7 +194,7 @@ int scan_topk_launch(const float* xu, const float* lam, int n, int f,
       xu, lam, n, f, qn, lamq, q, tau, k, tiles_per_split, part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = (size_t)tile::WARPS * k * (sizeof(float) + sizeof(int));
+  const size_t smem2 = tile::WARPS * list_bytes;
   merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
       part_s, part_i, q, k, splits, out_s, out_i);
   return (int)cudaGetLastError();

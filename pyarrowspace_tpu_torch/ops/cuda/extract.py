@@ -19,7 +19,10 @@ import torch
 
 from ... import _build
 
-MAX_M = 256
+# The kernels' running lists: up to 256 entries in shared memory, up to
+# MAX_M in place in the output row and a scratch row of values.
+MAX_M = 4096
+_MAX_NARROW = 256
 
 # Kernel launches since import (or since the caller last reset them).
 IDS_LAUNCHES = 0
@@ -48,12 +51,24 @@ def _lib():
     lib.extract_ids_launch.restype = ctypes.c_int
     lib.extract_ids_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.extract_pool_launch.restype = ctypes.c_int
     lib.extract_pool_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     return lib
+
+
+def _scratch(rows: int, m: int, device) -> torch.Tensor | None:
+    """The values of wide lists (m > 256); narrow lists need none."""
+    if m <= _MAX_NARROW:
+        return None
+    return torch.empty((rows, m), dtype=torch.float32, device=device)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _check(score: torch.Tensor, m: int, cand=None) -> None:
@@ -96,11 +111,12 @@ def extract_ids(score: torch.Tensor, m: int) -> torch.Tensor:
     out = torch.empty((rows, m), dtype=torch.int32, device=score.device)
     if rows == 0:
         return out
+    scratch = _scratch(rows, m, score.device)
     lib = _lib()
     stream = torch.cuda.current_stream(score.device).cuda_stream
     err = lib.extract_ids_launch(score.data_ptr(), rows, length, m,
-                                 out.data_ptr(), score.device.index or 0,
-                                 stream)
+                                 _ptr(scratch), out.data_ptr(),
+                                 score.device.index or 0, stream)
     _build.check(lib, "extract_topm", err)
     IDS_LAUNCHES += 1
     return out
@@ -119,10 +135,11 @@ def extract_pool(score: torch.Tensor, cand: torch.Tensor,
     out = torch.empty((rows, m), dtype=torch.int32, device=score.device)
     if rows == 0:
         return out
+    scratch = _scratch(rows, m, score.device)
     lib = _lib()
     stream = torch.cuda.current_stream(score.device).cuda_stream
     err = lib.extract_pool_launch(score.data_ptr(), cand.data_ptr(), rows,
-                                  length, m, out.data_ptr(),
+                                  length, m, _ptr(scratch), out.data_ptr(),
                                   score.device.index or 0, stream)
     _build.check(lib, "extract_topm", err)
     POOL_LAUNCHES += 1

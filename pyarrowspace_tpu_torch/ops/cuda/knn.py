@@ -18,8 +18,9 @@ import torch
 from ... import _build
 
 INF_DIST = 2.0
-# The kernel's running lists hold at most 256 entries (32 lanes x 8 words).
-MAX_K = 256
+# The kernel's running lists: up to 256 entries in shared memory, up to
+# MAX_K in place in the output rows.
+MAX_K = 4096
 
 # Kernel launches since import (or since the caller last reset it).
 LAUNCHES = 0

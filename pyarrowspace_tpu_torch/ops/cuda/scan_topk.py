@@ -18,8 +18,9 @@ import torch
 
 from ... import _build
 
-# The kernel's running lists hold at most 256 entries (32 lanes x 8 words).
-MAX_K = 256
+# The kernel's running lists: up to 256 entries in shared memory, up to
+# MAX_K in place in its partial lists and output rows.
+MAX_K = 4096
 _Q_BLOCK = 64      # queries per block of the kernel
 _TILE = 64         # corpus items per tile of the kernel
 

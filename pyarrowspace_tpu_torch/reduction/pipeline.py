@@ -1,4 +1,4 @@
-"""Dims-reduction / sampling / clustering stage — the main-path part of
+"""Dims-reduction / sampling / clustering stage — the port of
 pyarrowspace_tpu/reduction/pipeline.py.
 
   1. random sampling with ~60% keep rate (seeded; reference seed 42),
@@ -6,11 +6,18 @@ pyarrowspace_tpu/reduction/pipeline.py.
   3. K from the rate estimate, searched over [K, K+1] by a BIC objective,
   4. Lloyd's K-means -> centroid "signals" matrix, assignments for all items.
 
+The serving clustering of blocked IVF adds ``lloyd_reseed`` (Lloyd with
+empty-cluster reseeding, ``reduce_corpus(reseed_empty=True)``),
+``lloyd_tighten`` (split fat or oversized clusters) and
+``planned_slab_cap``.
+
 Every random draw is a numpy ``default_rng`` draw in the same calls and
-the same order as the reference, so on CPU the port picks the same sample
-and initial centroids.  On CUDA the centroid sums use ``index_add_``,
-whose float atomics sum in an order that changes from run to run: the
-centroids there are close to the reference's, not bitwise equal.
+the same order as the reference, and the reseeding's Gumbel noise is the
+reference's ``jax.random`` stream (utils/prng.py), so on CPU the port
+picks the same sample, initial centroids and reseeds.  On CUDA the
+centroid sums use ``index_add_``, whose float atomics sum in an order that
+changes from run to run: the centroids there are close to the
+reference's, not bitwise equal.
 """
 
 from __future__ import annotations
@@ -21,8 +28,10 @@ import math
 import numpy as np
 import torch
 
+from ..utils import prng
 from ..utils.debug import dbg_println
 from ..utils.logging import get_logger
+from ..utils.stats import median
 
 log_sampling = get_logger("sampling")
 log_clustering = get_logger("clustering")
@@ -97,18 +106,149 @@ def _assign_argmin(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _lloyd(x: torch.Tensor, centroids: torch.Tensor, n_iters: int):
     """Fixed-iteration Lloyd's K-means; empty clusters keep their centroid."""
-    k = centroids.shape[0]
     c = centroids
-    ones = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     for _ in range(n_iters):
-        a = _assign_argmin(x, c).to(torch.int64)
-        sums = torch.zeros((k, x.shape[1]), dtype=x.dtype,
-                           device=x.device).index_add_(0, a, x)
-        cnts = torch.zeros((k,), dtype=x.dtype,
-                           device=x.device).index_add_(0, a, ones)
-        c = torch.where(cnts[:, None] > 0,
-                        sums / torch.clamp_min(cnts[:, None], 1.0), c)
+        c, _ = _centroid_update(x, _assign_argmin(x, c), c)
     return c, _assign_argmin(x, c)
+
+
+def _centroid_update(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor):
+    """Lloyd's mean update (empty clusters keep their centroid) and the
+    cluster sizes."""
+    k = c.shape[0]
+    a = a.to(torch.int64)
+    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype,
+                       device=x.device).index_add_(0, a, x)
+    cnts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(
+        0, a, torch.ones((x.shape[0],), dtype=x.dtype, device=x.device))
+    return torch.where(cnts[:, None] > 0,
+                       sums / torch.clamp_min(cnts[:, None], 1.0), c), cnts
+
+
+def lloyd_reseed(x: torch.Tensor, centroids: torch.Tensor, n_iters: int,
+                 seed: int = 0):
+    """Lloyd's K-means with empty-cluster reseeding — the serving-quality
+    clustering for IVF slab layouts and exactness certificates.
+
+    Each iteration recycles EMPTY clusters and one of each pair of TWIN
+    centroids (nearest-centroid distance under 0.4 x the median),
+    reseeding them at corpus points drawn without replacement in
+    proportion to their squared distance to the current assignment: a
+    Gumbel top-k over log d^2 + g, where g is the reference's
+    ``jax.random.gumbel(fold_in(PRNGKey(seed), it), (N,), float32)``
+    (utils/prng.py), drawn on the host.  The last two iterations never
+    reseed.
+
+    The reference writes the self-distance mask as ``cc + eye(K) * inf``,
+    which is NaN off the diagonal when evaluated op by op; compiled under
+    its ``jit``, XLA folds it to +inf on the diagonal and 0 elsewhere,
+    and that is the behaviour the port reproduces."""
+    k = centroids.shape[0]
+    key = prng.prng_key(seed)
+    c = centroids
+    eye = torch.eye(k, dtype=torch.bool, device=x.device)
+    ar = torch.arange(k, device=x.device)
+    for it in range(n_iters):
+        a, d2 = _assign_argmin_dist(x, c)
+        new_c, cnts = _centroid_update(x, a, c)
+        empty = cnts <= 0
+        sq = torch.sum(new_c * new_c, dim=1)
+        cc = (sq[:, None] + sq[None, :]
+              - 2.0 * (new_c @ new_c.T).to(torch.float32))
+        cc = cc.masked_fill(eye, math.inf)
+        cc = torch.where(empty[:, None] | empty[None, :], math.inf, cc)
+        nn_d2 = torch.min(cc, dim=1).values
+        nn_id = torch.argmin(cc, dim=1)
+        finite = torch.isfinite(nn_d2)
+        fill = torch.max(torch.where(finite, nn_d2, 0.0))
+        med = median(torch.where(finite, nn_d2, fill))
+        twin = (nn_d2 < 0.16 * med) & (ar < nn_id)
+        recycle = empty | twin
+        if it < n_iters - 2 and bool(recycle.any()):
+            g = torch.from_numpy(prng.gumbel(prng.fold_in(key, it),
+                                             x.shape[0])).to(x.device)
+            score = torch.log(torch.clamp_min(d2.to(torch.float32),
+                                              1e-30)) + g
+            pick = torch.sort(score, descending=True,
+                              stable=True).indices[:k]
+            rank = torch.cumsum(recycle.to(torch.int64), dim=0) - 1
+            reseeded = x[pick[torch.clamp(rank, 0, k - 1)]]
+            new_c = torch.where(recycle[:, None], reseeded, new_c)
+        c = new_c
+    return c, _assign_argmin(x, c)
+
+
+def _radius_stats(x: torch.Tensor, c: torch.Tensor):
+    """Per-cluster max squared member distance to the UNIT centroid (the
+    anchor of the certification bound), one farthest member id, and the
+    cluster sizes.  Assumes unit-normalized x."""
+    k = c.shape[0]
+    a, d2 = _assign_argmin_dist(x, c)
+    a64 = a.to(torch.int64)
+    cn = torch.sqrt(torch.clamp_min(torch.sum(c * c, dim=1), 1e-30))[a64]
+    # ||x - c/||c||||^2 from ||x-c||^2 via x.c = (1 + ||c||^2 - d^2)/2.
+    d2u = torch.clamp_min(2.0 - (1.0 + cn * cn - d2) / cn, 0.0)
+    rmax2 = torch.full((k,), -math.inf, dtype=d2u.dtype,
+                       device=x.device).scatter_reduce_(0, a64, d2u, "amax")
+    is_far = d2u >= rmax2[a64] - 1e-12
+    ids = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    far = torch.full((k,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                     device=x.device).scatter_reduce_(
+        0, a64, torch.where(is_far, ids, -1), "amax")
+    sizes = torch.zeros((k,), dtype=torch.int64,
+                        device=x.device).index_add_(0, a64,
+                                                    torch.ones_like(a64))
+    return a, rmax2, far, sizes
+
+
+def _pad_k(c: torch.Tensor) -> torch.Tensor:
+    """At K >= 1024, pad the centroid set to a multiple of 128 with far
+    sentinels (1e6 rows: they capture no member and bound as empty
+    slabs).  K sets the slab layout, so the port pads as the reference
+    does."""
+    k = c.shape[0]
+    k_pad = ((k + 127) // 128) * 128
+    if k < 1024 or k_pad == k:
+        return c
+    sentinel = torch.full((k_pad - k, c.shape[1]), 1e6, dtype=c.dtype,
+                          device=c.device)
+    return torch.cat([c, sentinel])
+
+
+def lloyd_tighten(x: torch.Tensor, centroids: torch.Tensor,
+                  assignments=None, r_max: float = 0.75,
+                  max_rounds: int = 8, settle_iters: int = 2,
+                  max_size: int | None = None):
+    """Grow the centroid set until every cluster's covering radius (to its
+    unit centroid) is <= r_max and, when max_size is given, no cluster
+    has more than max_size members: a fat cluster saturates its
+    certification bound, and an oversized one spills in
+    build_blocked_ivf.  Each round plants a new centroid at every
+    offending cluster's farthest member and settles with plain Lloyd;
+    K grows by the number of splits (padded by _pad_k at K >= 1024).
+    Returns (centroids, assignments)."""
+    c = centroids
+    for _ in range(max_rounds):
+        a, rmax2, far, sizes = _radius_stats(x, c)
+        fat = rmax2 > r_max * r_max
+        if max_size is not None:
+            fat |= sizes > max_size
+        fat &= sizes > 0                 # sentinels never split
+        if not bool(fat.any()):
+            return c, (a if assignments is None else _assign_argmin(x, c))
+        new_ids = far[fat]
+        new_ids = new_ids[new_ids >= 0].to(torch.int64)
+        c = _pad_k(torch.cat([c, x[new_ids]]))
+        c, _ = _lloyd(x, c, settle_iters)
+    return c, _assign_argmin(x, c)
+
+
+def planned_slab_cap(n: int, k: int, capacity_factor: float = 2.0) -> int:
+    """The slab capacity build_blocked_ivf chooses for n items and k
+    clusters (rounded up to 128) — lloyd_tighten's max_size for a
+    spill-free partition."""
+    cap = max(8, int(np.ceil(capacity_factor * n / k)))
+    return ((cap + 127) // 128) * 128
 
 
 def select_k(n_sampled: int, intrinsic_dim: int,
@@ -179,9 +319,13 @@ def reduce_corpus(x: torch.Tensor, seed: int = 42,
                   keep_rate: float = SAMPLING_KEEP_RATE,
                   k_clusters: int | None = None,
                   n_iters: int = 12,
-                  eps_hint: float | None = None) -> ReductionResult:
+                  eps_hint: float | None = None,
+                  reseed_empty: bool = False) -> ReductionResult:
     """Run the reduction stage; returns centroids over the sampled set and
-    assignments for the FULL corpus."""
+    assignments for the FULL corpus.  reseed_empty=True clusters with
+    lloyd_reseed (the serving clustering of enable_ivf) instead of plain
+    Lloyd.  At keep_rate=1.0 the sample is the whole corpus and is not
+    gathered (a second copy of a 1M x 768 corpus is 3 GB)."""
     n = x.shape[0]
     rng = np.random.default_rng(seed)
     n_keep = max(2, int(round(n * keep_rate)))
@@ -206,7 +350,11 @@ def reduce_corpus(x: torch.Tensor, seed: int = 42,
     log_clustering.debug(msg)
 
     init_sel = rng.choice(n_keep, size=k, replace=False)
-    centroids, _ = _lloyd(xs, _index(xs, init_sel), n_iters)
+    if reseed_empty:
+        centroids, _ = lloyd_reseed(xs, _index(xs, init_sel), n_iters,
+                                    seed=seed)
+    else:
+        centroids, _ = _lloyd(xs, _index(xs, init_sel), n_iters)
     assignments = _assign_argmin(x, centroids)
     return ReductionResult(centroids=centroids, assignments=assignments,
                            intrinsic_dim=idim, n_sampled=n_keep, k_clusters=k)

@@ -118,8 +118,8 @@ def test_kernel_wrappers_reject_unsupported(dev):
     xu = torch.ones((10, 4), device=dev)
     with pytest.raises(TypeError):
         knn.knn_scan(xu.double(), 3, 0.5)
-    with pytest.raises(ValueError, match="256"):
-        knn.knn_scan(xu, 257, 0.5)
+    with pytest.raises(ValueError, match="4096"):
+        knn.knn_scan(xu, 4097, 0.5)
     with pytest.raises(ValueError):
         knn.knn_scan(xu.T, 3, 0.5)
     lam = torch.zeros(10, device=dev)

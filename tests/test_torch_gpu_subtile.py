@@ -2,7 +2,8 @@
 select), K5 (gather and score) and K4a (pool cut) — against their plain
 PyTorch versions on the card, at small and ragged shapes; subtile_search
 on the kernels against subtile_search on the plain versions; and the wide
-lists of K1 and K2 (k up to 256).
+lists of K1 and K2 (k up to 256; the wide lists past 256 are held in
+tests/test_torch_gpu_ivf.py).
 
 Every test here needs an NVIDIA GPU with nvcc: they are marked ``gpu`` and
 skip without one.  This file imports no jax; from the repository root:
@@ -82,12 +83,14 @@ def test_scan_kernel_wide_lists(dev, n, q, f, k):
 
 
 def test_wide_lists_refuse_past_256(dev):
-    xu = torch.ones((300, 4), device=dev)
-    lam = torch.zeros(300, device=dev)
-    with pytest.raises(ValueError, match="256"):
-        scan_topk.lambda_search(xu, lam, xu[:2], lam[:2], 0.5, 257)
-    with pytest.raises(ValueError, match="256"):
-        extract.extract_ids(xu[:2, :1].expand(2, 300).contiguous(), 257)
+    """The list limit, 256 when this test was written, is now the wide
+    lists' MAX_K / MAX_M of 4,096; past it the wrappers refuse."""
+    xu = torch.ones((5000, 4), device=dev)
+    lam = torch.zeros(5000, device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        scan_topk.lambda_search(xu, lam, xu[:2], lam[:2], 0.5, 4097)
+    with pytest.raises(ValueError, match="4096"):
+        extract.extract_ids(xu[:2, :1].expand(2, 5000).contiguous(), 4097)
 
 
 def test_search_batch_exact_topk_200_on_card(dev):

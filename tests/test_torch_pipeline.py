@@ -176,13 +176,19 @@ def test_api_error_paths():
         aspace.get_item(3)
     feats, lam = aspace.get_item(1)
     assert feats.dtype == np.float64 and lam == aspace.lambdas()[1]
-    for mode in ("int8", "ivf", "ivf_block", "certified"):
+    for mode in ("int8", "ivf"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             aspace.search_batch(README_ITEMS, gl, 1.0, mode=mode)
     # "auto" and "subtile" serve: 3 items fall below the auto threshold, so
     # auto is exact; subtile scans a bf16 copy and rescores in float32.
+    # "ivf_block" and "certified" serve too: certified serving is exact.
     query = README_ITEMS * 0.9 + 0.01
     exact = aspace.search_batch(query, gl, 1.0)
+    certified = aspace.search_batch(query, gl, 1.0, mode="certified")
+    np.testing.assert_array_equal(certified[0], exact[0])
+    np.testing.assert_allclose(certified[1], exact[1], rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="certify"):
+        aspace.search_batch(query, gl, 1.0, mode="exact", certify=True)
     auto = aspace.search_batch(query, gl, 1.0, mode="auto")
     subtile = aspace.search_batch(query, gl, 1.0, mode="subtile")
     np.testing.assert_array_equal(auto[0], exact[0])
