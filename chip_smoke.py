@@ -42,9 +42,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      a serving state made on the card (N(0, 1) rows from a seeded
      torch.Generator, the feature Laplacian of the first 65,536 rows with
      k_f 15, lambdas from the port's own synthesis) in an ArrowSpace;
-     mode="subtile" and mode="exact" timed over 2 batches each, their
-     top-15 overlap on 1,024 queries at least 0.99, K3's time and the
-     peak device memory;
+     mode="subtile", mode="exact" and mode="int8" (its first call
+     quantizes the corpus: 768 MB of int8) timed over 2 batches each, the
+     subtile and int8 top-15 overlaps with exact on 1,024 queries at least
+     0.99, K3's time and the peak device memory;
   8. blocked-IVF and certified serving on phase 3's index: enable_ivf()
      (the build's own clustering), then search_batch(mode="ivf_block") and
      mode="certified" (n_probe 8) over phase 3's 8 batches, each after a
@@ -65,17 +66,41 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      1e-5 of float32 scores; K6 against its plain version; the clustering
      time, K, cap, slab GiB, base certification rate, QPS and peak device
      memory;
+  10. int8 serving on phase 3's index: search_batch(mode="int8") over
+     phase 3's 8 batches after a warm-up, the counts reset before: K7
+     (csrc/scan_int8.cu) must have run; K7 against its plain version on
+     the first batch (ids identical, scores bit for bit), timed in turns;
+     the served ids equal phase 3's exact ids outside near-ties of 1e-5 on
+     every query whose exact top-15 lies in K7's pool of 60;
+  11. the bfloat16 serving view (as_serving) of that index: exact search
+     over its 8 batches (K2 over bf16 rows must have run), K2-bf16 against
+     its plain version on the first batch, timed in turns; the overlap with
+     float32 exact (no rescore: at least 0.9);
+  12. hybrid search and gather IVF (n_probe 8) over 2 batches, QPS and
+     overlap with exact; build_energy on the same 313,841 rows
+     (optical_tokens 40, the CVE graph params) with its phase seconds and
+     search_energy_batch on 64 queries;
+  13. lists past the old limit of 4,096: search_batch(topk=5000) on 64
+     queries in exact (against K2's plain version), subtile (overlap with
+     exact at least 0.99) and certified (== exact) modes; K1 at k 5,000 on
+     8 rows, K4b and K4a at m 5,000, and K6 at F 4,096 (its query block
+     staged a feature slab at a time), each against its plain version;
   4. reference parity on the card in float32: the README quickstart scores
      to 1e-6 and the four tests/data_test0.py orderings.
 
 Phases 1, 2 and 6 also hold the wide lists (k 1,024) of K1, K2, K4b and
 K4a against their plain versions and time them beside the narrow ones.
 
-The line before the last is a JSON object with each kernel's launches on
-its main path (phase 3 for K1 and K2, phase 5's subtile run for K3, K4a,
-K4b and K5, phase 8's certified run for K6), its largest difference from
-the plain version, and both times; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is a JSON object with, for each kernel, its
+launches on its main path (phase 3 for K1 and K2, phase 5's subtile run
+for K3, K4a, K4b and K5, phase 8's certified run for K6, phase 10 for K7,
+phase 11 for K2 over bf16 rows), its largest difference from the plain
+version, the kernel's and the plain version's times, its bound (the
+larger of its operations over the H100's peak for their type and its
+bytes over 3.35 TB/s, from this run's shapes; K5 and K6 count the rows
+this run's routing reads) and the time of torch.topk where one PyTorch
+call computes the same function (K4a, K4b; null elsewhere); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -99,8 +124,16 @@ K_WIDEST = 1024       # lists past 256: kept in place in device memory
 MIN_OVERLAP = 0.99
 N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
 N_PROBE, MIX_CLUSTERS, MIX_NOISE, Q_NOISE = 8, 4096, 0.35, 0.25
+K_LONG, Q_LONG, K1_LONG_ROWS = 5000, 64, 8   # lists past the old 4,096
+F_WIDE = 4096                                 # K6's query block per slab
+OTHER_BATCHES, ENERGY_QUERIES, ENERGY_TOKENS = 2, 64, 40
+MIN_BF16_OVERLAP = 0.9   # the bf16 view has no float32 rescore
 KERNEL_SOURCES = ("knn", "scan_topk", "subtile_max", "extract_topm",
-                  "gather_score", "ivf_scan")
+                  "gather_score", "ivf_scan", "scan_int8")
+# The H100 SXM's published peaks at 700 W (dense): float32 outside the
+# tensor cores, bf16 and int8 tensor cores, and HBM3.
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 README_ITEMS = np.array([[0.1, 0.2, 0.3], [0.0, 0.5, 0.1], [0.9, 0.1, 0.0]])
 README_GP = {"eps": 1.0, "k": 6, "topk": 3, "p": 2.0, "sigma": 1.0}
 README_QUERY = np.array([0.05, 0.2, 0.25])
@@ -129,25 +162,38 @@ def _in_turns(plain, kernel, torch) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _bound(ops: float, kind: str, nbytes: float) -> dict:
+    """The least time the card could take for a function: the larger of
+    its operations over the peak rate of their type and the bytes it must
+    move (each input read once, each output written once) over HBM's
+    rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def _reset_launches() -> None:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
-                                                 ivf_scan, knn, scan_topk,
-                                                 subtile_max)
-    for mod in (knn, scan_topk, subtile_max, gather_score, ivf_scan):
+                                                 ivf_scan, knn, scan_int8,
+                                                 scan_topk, subtile_max)
+    for mod in (knn, scan_topk, subtile_max, gather_score, ivf_scan,
+                scan_int8):
         mod.LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
 
 
 def _launches() -> dict:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
-                                                 ivf_scan, knn, scan_topk,
-                                                 subtile_max)
+                                                 ivf_scan, knn, scan_int8,
+                                                 scan_topk, subtile_max)
     return {"knn": knn.LAUNCHES, "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
             "extract_ids": extract.IDS_LAUNCHES,
             "extract_pool": extract.POOL_LAUNCHES,
             "gather_score": gather_score.LAUNCHES,
-            "ivf_scan": ivf_scan.LAUNCHES}
+            "ivf_scan": ivf_scan.LAUNCHES,
+            "scan_int8": scan_int8.LAUNCHES}
 
 
 def _overlap(ids_a: np.ndarray, ids_b: np.ndarray) -> float:
@@ -245,7 +291,6 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     """Phase 6: K3, K4b, K5 and K4a against their plain versions on the
     first batch at the shapes of phase 5, timed in turns, and the bitwise
     block-max check."""
-    from pyarrowspace_tpu_torch.ops import search as search_ops
     from pyarrowspace_tpu_torch.ops import subtile_scan
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
                                                  subtile_max)
@@ -255,11 +300,7 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     st = aspace._subtile
     xs, lam, n_real = st["xu_scan"], st["lambdas"], st["n_real"]
     qb = batches[0].to(f32)
-    lamq = search_ops.query_lambdas(
-        qb, aspace._lap_f.to(f32), aspace._w_f.to(f32),
-        aspace._tau_star.to(f32),
-        rayleigh_normalized=aspace._rayleigh_normalized,
-        tau_mix=aspace._tau_mix).to(f32).contiguous()
+    lamq = _query_lambdas32(torch, aspace, qb)
     qs = unit_normalize(qb).to(xs.dtype).contiguous()
     topk = GP["topk"]
     s_keep = subtile_scan.subtiles_kept(topk, xs.shape[0] // 64)
@@ -310,8 +351,34 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     }
     errs = {"subtile_max": err3, "extract_ids": 0.0 if sel_same else 1.0,
             "gather_score": err5, "extract_pool": 0.0 if pool_same else 1.0}
+    # One PyTorch call computes the selects' function (torch.topk); none
+    # computes a blended max per subtile or a gather-and-score.
+    library = {"subtile_max": None, "gather_score": None}
+    torch.topk(sub, s_keep, dim=1)
+    library["extract_ids"] = _events_ms(
+        lambda: torch.topk(sub, s_keep, dim=1), torch)
+    torch.topk(score_b, m_pool, dim=1)
+    library["extract_pool"] = _events_ms(
+        lambda: torch.topk(score_b, m_pool, dim=1), torch)
+    n_pad, f = xs.shape
+    n_sub, elt = n_pad // 64, xs.element_size()
+    kind = "bf16" if xs.dtype == torch.bfloat16 else "fp32"
+    rows_read = int(torch.unique(sel).numel()) * 64
+    width_b = score_b.shape[1]
+    bounds = {
+        "subtile_max": _bound(2.0 * q * n_pad * f, kind,
+                              n_pad * (f * elt + 4) + q * (f * elt + 4)
+                              + q * n_sub * 4),
+        "extract_ids": _bound(q * n_sub, "fp32",
+                              q * n_sub * 4 + q * s_keep * 4),
+        "gather_score": _bound(2.0 * q * s_keep * 64 * f, kind,
+                               rows_read * f * elt + q * f * elt
+                               + q * s_keep * 4 + q * s_keep * 64 * 4),
+        "extract_pool": _bound(q * width_b, "fp32",
+                               q * width_b * 8 + q * m_pool * 4)}
     for name, (k_ms, p_ms) in times.items():
-        results[name] = dict(max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms)
+        results[name] = dict(max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms,
+                             library_ms=library[name], **bounds[name])
         print(f"phase 6: {name} Q={q} N_pad={xs.shape[0]} F={xs.shape[1]} "
               f"{xs.dtype}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms {card}")
     print(f"phase 6: K3 max_abs_err {err3:.3e} over {real} real subtiles, "
@@ -402,6 +469,21 @@ def _phase_north_star(torch, dev, card, results) -> None:
         qps[mode] = 2 * Q1M / (time.perf_counter() - t0)
         print(f"phase 7: search_batch {mode}: {qps[mode]:.1f} QPS over 2 x "
               f"{Q1M} queries, N={N1M} F={F1M} topk={topk} {card}")
+    # The int8 mode: its first call quantizes the corpus (768 MB of int8).
+    t0 = time.perf_counter()
+    aspace.search_batch(queries[2], None, TAU, topk=topk, mode="int8")
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served["int8"] = [aspace.search_batch(b, None, TAU, topk=topk,
+                                          mode="int8") for b in queries[:2]]
+    qps["int8"] = 2 * Q1M / (time.perf_counter() - t0)
+    overlap_int8 = _overlap(served["int8"][0][0][:Q1M_CHECK],
+                            served["exact"][0][0][:Q1M_CHECK])
+    print(f"phase 7: search_batch int8: {qps['int8']:.1f} QPS over 2 x "
+          f"{Q1M} queries (first call with quantization {t_first:.3f} s); "
+          f"top-{topk} overlap with exact on {Q1M_CHECK} queries "
+          f"{overlap_int8:.6f} {card}")
     overlap = _overlap(served["subtile"][0][0][:Q1M_CHECK],
                        served["exact"][0][0][:Q1M_CHECK])
     st = aspace._subtile
@@ -415,7 +497,8 @@ def _phase_north_star(torch, dev, card, results) -> None:
     k3_ms = _events_ms(lambda: subtile_max.subtile_max(
         st["xu_scan"], st["lambdas"], qs, lamq, TAU, st["n_real"]), torch)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    results["north_star"] = dict(qps=qps, overlap=overlap, k3_ms=k3_ms,
+    results["north_star"] = dict(qps=qps, overlap=overlap,
+                                 overlap_int8=overlap_int8, k3_ms=k3_ms,
                                  peak_gib=peak)
     print(f"phase 7: top-{topk} overlap subtile vs exact on {Q1M_CHECK} "
           f"queries {overlap:.6f}; K3 alone {k3_ms:.3f} ms a batch of "
@@ -424,9 +507,9 @@ def _phase_north_star(torch, dev, card, results) -> None:
              and i.min() >= 0 and i.max() < N1M
              for outs in served.values() for i, v in outs)
     del aspace, st, queries
-    if not ok or overlap < MIN_OVERLAP:
+    if not ok or overlap < MIN_OVERLAP or overlap_int8 < MIN_OVERLAP:
         raise AssertionError(f"1M serving check failed: results ok {ok}, "
-                             f"overlap {overlap}")
+                             f"overlap {overlap}, int8 {overlap_int8}")
 
 
 class _CertifiedCounts:
@@ -475,20 +558,14 @@ class _CertifiedCounts:
 def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
     """K6 against its plain version on the routed batch qb (the routing of
     the certified path: bound-ordered, blocks of 16), timed in turns.
-    Returns (max_abs_err, kernel ms, plain ms)."""
+    Returns (max_abs_err, kernel ms, plain ms, bound)."""
     from pyarrowspace_tpu_torch.ops import ivf_scan as tis
-    from pyarrowspace_tpu_torch.ops import search as search_ops
     from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
     from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
                                                          topk_disagreements)
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
-    f32 = torch.float32
-    q32 = qb.to(f32)
-    lamq = search_ops.query_lambdas(
-        q32, aspace._lap_f.to(f32), aspace._w_f.to(f32),
-        aspace._tau_star.to(f32),
-        rayleigh_normalized=aspace._rayleigh_normalized,
-        tau_mix=aspace._tau_mix).to(f32)
+    q32 = qb.to(torch.float32)
+    lamq = _query_lambdas32(torch, aspace, q32)
     r = tis.route(ivf, unit_normalize(q32), lamq, tis._f32(TAU), qb=16,
                   n_probe=N_PROBE, use_bound=True)
     args = (ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad, r.lamq_pad,
@@ -502,15 +579,22 @@ def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
     bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
     k_ms, p_ms = _in_turns(lambda: k6.ivf_scan_plain(*args, **kw),
                            lambda: k6.ivf_scan(*args, **kw), torch)
-    print(f"{label}: K6 vs plain on {r.qn_pad.shape[0]} routed queries x "
-          f"{N_PROBE} probes x cap {ivf.cap} x F {ivf.slabs.shape[1]} "
+    q_pad, f = r.qn_pad.shape
+    probed = int(torch.unique(r.probe_tbl).numel())
+    bound = _bound(2.0 * q_pad * N_PROBE * ivf.cap * f, "fp32",
+                   probed * ivf.cap * (f * ivf.slabs.element_size() + 8)
+                   + q_pad * (f * 4 + 4) + r.probe_tbl.numel() * 4
+                   + q_pad * k * 8)
+    print(f"{label}: K6 vs plain on {q_pad} routed queries x "
+          f"{N_PROBE} probes x cap {ivf.cap} x F {f} "
           f"{ivf.slabs.dtype}, k {k}: max_abs_err {err:.3e}, disagreeing "
-          f"queries {len(bad)}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-          f"{card}")
+          f"queries {len(bad)}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+          f"{probed} distinct slabs probed) {card}")
     if bad or err > TOL:
         raise AssertionError(f"K6 disagrees with its plain version: queries "
                              f"{bad[:10]}, err {err}")
-    return err, k_ms, p_ms
+    return err, k_ms, p_ms, bound
 
 
 def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
@@ -555,9 +639,10 @@ def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
     print(f"phase 8: ivf_block top-{topk} overlap with exact {overlap:.6f}; "
           f"certified queries differing from exact beyond near-ties of "
           f"{TOL:g}: {bad} of {N_BATCHES * Q_BATCH}")
-    err, k_ms, p_ms = _k6_against_plain(torch, ivf, aspace, batches[0], topk,
-                                        "phase 8", card)
-    results["ivf_scan"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    err, k_ms, p_ms, bound = _k6_against_plain(torch, ivf, aspace, batches[0],
+                                               topk, "phase 8", card)
+    results["ivf_scan"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                               library_ms=None, **bound)
     results["certified_313k"] = dict(qps=qps, overlap=overlap, **summary)
     checks = {
         "K6 launched on the certified path":
@@ -632,9 +717,9 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
           f"{t_cluster:.3f} s: K {ivf.n_clusters} after tightening, largest "
           f"cluster {out['max_cluster']}, planned cap "
           f"{aspace._ivf_cap_plan}, cap {ivf.cap} {card}")
-    err, k_ms, p_ms = _k6_against_plain(torch, ivf, aspace, queries[0], topk,
-                                        "phase 9", card)
-    out["k6"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    err, k_ms, p_ms, bound = _k6_against_plain(torch, ivf, aspace, queries[0],
+                                               topk, "phase 9", card)
+    out["k6"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **bound)
     results["ivf_scan"]["max_abs_err"] = max(results["ivf_scan"][
         "max_abs_err"], err)
     ok = True
@@ -722,6 +807,315 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
         raise AssertionError("1M certified serving checks failed")
 
 
+def _query_lambdas32(torch, aspace, qb):
+    """float32 query lambdas of a batch, as the serving paths make them."""
+    from pyarrowspace_tpu_torch.ops import search as search_ops
+    f32 = torch.float32
+    return search_ops.query_lambdas(
+        qb.to(f32), aspace._lap_f.to(f32), aspace._w_f.to(f32),
+        aspace._tau_star.to(f32),
+        rayleigh_normalized=aspace._rayleigh_normalized,
+        tau_mix=aspace._tau_mix).to(f32).contiguous()
+
+
+def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
+                results) -> None:
+    """Phase 10: search_batch(mode="int8") on the phase-3 index over phase
+    3's batches; K7 against its plain version on the first batch (ids
+    identical, scores bit for bit); the served ids against phase 3's exact
+    ids on every query whose exact top-15 lies in K7's pool."""
+    from pyarrowspace_tpu_torch.ops.cuda import scan_int8
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    from pyarrowspace_tpu_torch.ops.quantize import quantize_rows
+    topk = GP["topk"]
+    m = min(4 * topk, N)
+    t0 = time.perf_counter()
+    aspace.search_batch(batches[-1], gl, TAU, mode="int8")      # warm-up
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    _reset_launches()
+    t0 = time.perf_counter()
+    got = [aspace.search_batch(b, gl, TAU, mode="int8") for b in batches]
+    qps = Q_BATCH * N_BATCHES / (time.perf_counter() - t0)
+    launches = _launches()
+    results["launches_int8"] = launches
+    xq, scales = aspace._quantized
+    lam = aspace._lambdas
+    qb = batches[0]
+    lamq = _query_lambdas32(torch, aspace, qb)
+    qq, qs = quantize_rows(unit_normalize(qb))
+    args = (xq, scales, lam, qq, qs, lamq, TAU, m)
+    i_k, s_k = scan_int8.scan_int8(*args)
+    i_p, s_p = scan_int8.scan_int8_plain(*args)
+    same_ids = torch.equal(i_k, i_p)
+    err = float((s_k.double() - s_p.double()).abs().max())
+    k_ms, p_ms = _in_turns(lambda: scan_int8.scan_int8_plain(*args),
+                           lambda: scan_int8.scan_int8(*args), torch)
+    bound = _bound(2.0 * Q_BATCH * N * F, "int8",
+                   N * (F + 8) + Q_BATCH * (F + 8) + Q_BATCH * m * 8)
+    results["scan_int8"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                library_ms=None, **bound)
+    # Served == exact wherever the exact top-15 is in the K7 pool.
+    covered = bad = 0
+    for b, o, e in zip(batches, got, outs_exact):
+        pool, _ = scan_int8.lambda_search_quantized(
+            xq, scales, lam, unit_normalize(b),
+            _query_lambdas32(torch, aspace, b), TAU, m)
+        pool = pool.cpu().numpy()
+        inside = (e[0][:, :, None] == pool[:, None, :]).any(axis=2).all(
+            axis=1)
+        covered += int(inside.sum())
+        bad += len(topk_disagreements(o[1][inside], o[0][inside],
+                                      e[1][inside], e[0][inside], TOL))
+    overlap = _overlap(np.concatenate([o[0] for o in got]),
+                       np.concatenate([e[0] for e in outs_exact]))
+    results["int8_313k"] = dict(qps=qps, overlap=overlap, covered=covered,
+                                first_call_s=t_first)
+    print(f"phase 10: search_batch int8: {qps:.1f} QPS over {N_BATCHES} x "
+          f"{Q_BATCH} queries (exact {results['exact_qps']:.1f}); first "
+          f"call with quantization {t_first:.3f} s; launches {launches} "
+          f"{card}")
+    print(f"phase 10: K7 Q={Q_BATCH} N={N} F={F} k={m}: ids identical "
+          f"{same_ids}, scores max |diff| {err:.3e}; kernel {k_ms:.3f} ms, "
+          f"plain {p_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}) {card}")
+    print(f"phase 10: top-{topk} overlap with exact {overlap:.6f}; exact "
+          f"top-{topk} inside the pool of {m} for {covered} of "
+          f"{N_BATCHES * Q_BATCH} queries, of which served != exact beyond "
+          f"near-ties: {bad}")
+    checks = {
+        "K7 launched on the int8 path": launches["scan_int8"] > 0,
+        "K7 ids == plain": same_ids, "K7 scores == plain": err == 0.0,
+        "served == exact where the pool holds it": bad == 0,
+        "result shapes": all(o[0].shape == (Q_BATCH, topk)
+                             and np.all(np.isfinite(o[1])) for o in got)}
+    if not all(checks.values()):
+        raise AssertionError(f"int8 checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
+                     results) -> None:
+    """Phase 11: exact search over the bfloat16 serving view (as_serving):
+    K2 over bf16 rows against its plain version, QPS and the overlap with
+    phase 3's float32 exact results."""
+    from pyarrowspace_tpu_torch.ops.cuda import scan_topk
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    topk = GP["topk"]
+    view = aspace.as_serving()
+    view.search_batch(batches[-1], gl, TAU)                     # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    got = [view.search_batch(b, gl, TAU) for b in batches]
+    qps = Q_BATCH * N_BATCHES / (time.perf_counter() - t0)
+    launches = _launches()
+    results["launches_bf16"] = launches
+    overlap = _overlap(np.concatenate([o[0] for o in got]),
+                       np.concatenate([e[0] for e in outs_exact]))
+    xb, lam = view._data_unit, view._lambdas
+    qb = batches[0]
+    lamq = _query_lambdas32(torch, aspace, qb)
+    qn = unit_normalize(qb).contiguous()
+    i_k, s_k = scan_topk.lambda_search(xb, lam, qn, lamq, TAU, topk)
+    i_p, s_p = scan_topk.scan_plain(xb, lam, qn, lamq, TAU, topk)
+    s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
+    bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
+    err = max_abs_err(s_k, s_p)
+    k_ms, p_ms = _in_turns(
+        lambda: scan_topk.scan_plain(xb, lam, qn, lamq, TAU, topk),
+        lambda: scan_topk.lambda_search(xb, lam, qn, lamq, TAU, topk), torch)
+    bound = _bound(2.0 * Q_BATCH * N * F, "bf16",
+                   N * (2 * F + 4) + Q_BATCH * ((F + 1) * 4 + topk * 8))
+    results["scan_topk_bf16"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                     library_ms=None, **bound)
+    results["bf16_313k"] = dict(qps=qps, overlap=overlap)
+    print(f"phase 11: as_serving bf16 exact: {qps:.1f} QPS over {N_BATCHES} "
+          f"x {Q_BATCH} queries (float32 exact {results['exact_qps']:.1f}); "
+          f"top-{topk} overlap with float32 exact {overlap:.6f}; launches "
+          f"{launches} {card}")
+    print(f"phase 11: K2 over bf16 rows vs plain: max_abs_err {err:.3e}, "
+          f"disagreeing queries {len(bad)}; kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}) {card}")
+    checks = {"K2 launched on the bf16 path": launches["scan_topk"] > 0,
+              "K2 bf16 == plain": not bad and err <= TOL,
+              f"overlap >= {MIN_BF16_OVERLAP}": overlap >= MIN_BF16_OVERLAP,
+              "result shapes": all(o[0].shape == (Q_BATCH, topk)
+                                   and np.all(np.isfinite(o[1]))
+                                   for o in got)}
+    del view
+    if not all(checks.values()):
+        raise AssertionError(f"bf16 view checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _phase_other_modes(torch, aspace, gl, items, batches, src, outs_exact,
+                       card, results) -> None:
+    """Phase 12: hybrid batches and gather IVF (n_probe 8) on the phase-3
+    index, then build_energy on the same rows (optical_tokens 40, the CVE
+    graph params) and search_energy_batch."""
+    import pyarrowspace_tpu_torch as pt
+    topk = GP["topk"]
+    use = batches[:OTHER_BATCHES]
+    out = {}
+    checks = {}
+    for name, run in (
+            ("hybrid", lambda b: aspace.search_hybrid_batch(b, gl, TAU)),
+            ("ivf", lambda b: aspace.search_batch(b, gl, TAU, mode="ivf",
+                                                  n_probe=N_PROBE))):
+        run(batches[-1])                                        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [run(b) for b in use]
+        qps = Q_BATCH * len(use) / (time.perf_counter() - t0)
+        overlap = _overlap(np.concatenate([o[0] for o in got]),
+                           np.concatenate([e[0] for e in outs_exact[:len(use)]]))
+        top1 = all(np.array_equal(o[0][:, 0], s_) for o, s_ in zip(got, src))
+        out[name] = dict(qps=qps, overlap=overlap)
+        if name == "hybrid":
+            checks["hybrid: source row first"] = top1
+        print(f"phase 12: {name}: {qps:.1f} QPS over {len(use)} x {Q_BATCH} "
+              f"queries; top-{topk} overlap with exact {overlap:.6f}; each "
+              f"source row first: {top1} {card}")
+        checks[f"{name}: result shapes"] = all(
+            o[0].shape == (Q_BATCH, topk) and np.all(np.isfinite(o[1]))
+            for o in got)
+    t0 = time.perf_counter()
+    ea, eg = pt.ArrowSpaceBuilder.build_energy(
+        items, {"optical_tokens": ENERGY_TOKENS}, GP)
+    t_energy = time.perf_counter() - t0
+    phases = pt.get_phase_timings()
+    qe = batches[0][:ENERGY_QUERIES]
+    ea.search_energy_batch(qe, eg, topk)                        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ei, ev = ea.search_energy_batch(qe, eg, topk)
+    t_search = time.perf_counter() - t0
+    routed = ea._search_energy_routed(qe, *ea._energy_query(qe), 1.0, 0.5,
+                                      topk)
+    routed_full = bool((routed[0] >= 0).all())
+    out["energy"] = dict(build_s=t_energy, phases=phases,
+                         nodes=int(ea._energy_maps.nodes.shape[0]),
+                         search_s=t_search, routed=routed_full)
+    results["other_modes"] = out
+    print(f"phase 12: build_energy {N}x{F} (optical_tokens {ENERGY_TOKENS}) "
+          f"in {t_energy:.3f} s: {out['energy']['nodes']} energy nodes, "
+          f"graph nnodes {eg.nnodes}, nedges {eg.nedges}; phases (s) "
+          f"{json.dumps({kk: round(v, 4) for kk, v in phases.items()})} "
+          f"{card}")
+    print(f"phase 12: search_energy_batch {ENERGY_QUERIES} queries, k "
+          f"{topk}: {t_search:.3f} s (routed pool full: {routed_full}) "
+          f"{card}")
+    checks["energy: results"] = (ei.shape == (ENERGY_QUERIES, topk)
+                                 and ei.min() >= 0 and ei.max() < N
+                                 and bool(np.all(np.isfinite(ev))))
+    checks["energy: lambdas finite"] = bool(np.all(np.isfinite(
+        ea.lambdas())))
+    del ea, eg
+    if not all(checks.values()):
+        raise AssertionError(f"other-mode checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _phase_long_lists(torch, aspace, gl, xu, batches, card, results) -> None:
+    """Phase 13: lists past the old limit of 4,096 and K6 past F 3,434:
+    search_batch(topk=5000) in exact, subtile and certified modes (exact
+    against K2's plain version; certified == exact; subtile's overlap), K1
+    at k 5,000 and K4b / K4a at m 5,000 against their plain versions, and
+    K6 at F 4,096 against its plain version."""
+    from pyarrowspace_tpu_torch.ops.cuda import extract, ivf_scan, knn, \
+        scan_topk
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    qb = batches[0][:Q_LONG]
+    checks, secs = {}, {}
+    served = {}
+    for mode in ("exact", "subtile", "certified"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served[mode] = aspace.search_batch(qb, gl, TAU, topk=K_LONG,
+                                           mode=mode, n_probe=N_PROBE)
+        secs[mode] = time.perf_counter() - t0
+        checks[f"{mode}: shapes"] = (
+            served[mode][0].shape == (Q_LONG, K_LONG)
+            and np.all(np.isfinite(served[mode][1])))
+    lamq = _query_lambdas32(torch, aspace, qb)
+    i_p, s_p = scan_topk.scan_plain(aspace._data_unit, aspace._lambdas,
+                                    unit_normalize(qb), lamq, TAU, K_LONG)
+    bad_exact = topk_disagreements(served["exact"][1], served["exact"][0],
+                                   s_p.cpu().numpy(), i_p.cpu().numpy(), TOL)
+    bad_cert = topk_disagreements(served["certified"][1],
+                                  served["certified"][0],
+                                  served["exact"][1], served["exact"][0], TOL)
+    overlap = _overlap(served["subtile"][0], served["exact"][0])
+    checks["exact k 5000 == plain K2"] = not bad_exact
+    checks["certified k 5000 == exact"] = not bad_cert
+    checks[f"subtile k 5000 overlap >= {MIN_OVERLAP}"] = overlap >= MIN_OVERLAP
+    print(f"phase 13: search_batch topk={K_LONG} on {Q_LONG} queries: exact "
+          f"{secs['exact']:.3f} s (vs plain K2: disagreeing {len(bad_exact)})"
+          f", subtile {secs['subtile']:.3f} s (overlap {overlap:.6f}), "
+          f"certified {secs['certified']:.3f} s (vs exact: disagreeing "
+          f"{len(bad_cert)}) {card}")
+    t0 = time.perf_counter()
+    d, i = knn.knn_scan(xu, K_LONG, GP["eps"], 0, K1_LONG_ROWS)
+    torch.cuda.synchronize()
+    t_k1 = time.perf_counter() - t0
+    dp, ip = knn.knn_plain(xu, K_LONG, GP["eps"],
+                           rows=slice(0, K1_LONG_ROWS))
+    bad_k1 = topk_disagreements(d.cpu().numpy(), i.cpu().numpy(),
+                                dp.cpu().numpy(), ip.cpu().numpy(), TOL)
+    checks["K1 k 5000 == plain"] = not bad_k1
+    gen = torch.Generator(device=xu.device)
+    gen.manual_seed(5)
+    score = torch.randint(0, 64, (Q_LONG, 16_384), generator=gen,
+                          device=xu.device).float() / 8.0
+    cand = torch.argsort(torch.rand(score.shape, generator=gen,
+                                    device=xu.device), dim=1).to(torch.int32)
+    ids_same = torch.equal(extract.extract_ids(score, K_LONG),
+                           extract.extract_ids_plain(score, K_LONG))
+    pool_same = torch.equal(extract.extract_pool(score, cand, K_LONG),
+                            extract.extract_pool_plain(score, cand, K_LONG))
+    checks["K4b / K4a m 5000 == plain"] = ids_same and pool_same
+    print(f"phase 13: K1 k={K_LONG} on {K1_LONG_ROWS} rows of {N}: "
+          f"{t_k1:.3f} s, disagreeing rows {len(bad_k1)}; K4b / K4a at "
+          f"m={K_LONG} over {tuple(score.shape)}: ids identical {ids_same} / "
+          f"{pool_same} {card}")
+    # K6 at F 4,096: the query block no longer fits beside the tiles.
+    n_clusters, cap, qblk, n_probe, n_blocks = 16, 256, 16, 4, 8
+    slabs = unit_normalize(torch.randn((n_clusters * cap, F_WIDE),
+                                       generator=gen, device=xu.device))
+    slab_lam = torch.rand(n_clusters * cap, generator=gen, device=xu.device)
+    slab_ids = torch.randperm(n_clusters * cap, generator=gen,
+                              device=xu.device).to(torch.int32)
+    qn = unit_normalize(torch.randn((n_blocks * qblk, F_WIDE), generator=gen,
+                                    device=xu.device))
+    lq = torch.rand(n_blocks * qblk, generator=gen, device=xu.device)
+    probe = torch.stack([torch.randperm(n_clusters, generator=gen,
+                                        device=xu.device)[:n_probe]
+                         for _ in range(n_blocks)]).to(torch.int32)
+    args = (slabs, slab_lam, slab_ids, qn, lq, probe, TAU)
+    kw = dict(k=GP["topk"], q_block=qblk, cap=cap)
+    s_k, i_k = ivf_scan.ivf_scan(*args, **kw)
+    s_p, i_p = ivf_scan.ivf_scan_plain(*args, **kw)
+    s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
+    err6 = max_abs_err(s_k, s_p)
+    bad6 = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
+    checks["K6 F 4096 == plain"] = not bad6 and err6 <= TOL
+    print(f"phase 13: K6 at F={F_WIDE} ({n_blocks} blocks of {qblk} "
+          f"queries x {n_probe} probes x cap {cap}): max_abs_err {err6:.3e}, "
+          f"disagreeing queries {len(bad6)} {card}")
+    results["long_lists"] = dict(seconds=secs, subtile_overlap=overlap,
+                                 k1_s=t_k1, k6_f4096_err=err6)
+    if not all(checks.values()):
+        raise AssertionError(f"long-list checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -802,7 +1196,10 @@ def main() -> int:
         k_ms, p_ms = _in_turns(
             lambda: knn.knn_plain(xu, k, eps, rows=slice(0, K1_TIME_ROWS)),
             lambda: knn.knn_scan(xu, k, eps, 0, K1_TIME_ROWS), torch)
-        results["knn"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        results["knn"] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+            **_bound(2.0 * K1_TIME_ROWS * N * F, "fp32",
+                     N * F * 4 + K1_TIME_ROWS * k * 8))
         print(f"phase 1: K1 full corpus {N}x{F} k={k}: {full_ms:.3f} ms; "
               f"{K1_TIME_ROWS} rows: kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.3f} ms {card}")
@@ -947,7 +1344,10 @@ def main() -> int:
             lambda: scan_topk.scan_plain(xs, lams, qn, lam_q, TAU, topk),
             lambda: scan_topk.lambda_search(xs, lams, qn, lam_q, TAU, topk),
             torch)
-        results["scan_topk"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        results["scan_topk"] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+            **_bound(2.0 * Q_BATCH * N * F, "fp32",
+                     N * (F + 1) * 4 + Q_BATCH * ((F + 1) * 4 + topk * 8)))
         print(f"phase 2: K2 Q={Q_BATCH} N={N} F={F} k={topk}: kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms {card}")
         print(f"phase 2: K2 vs plain: max_abs_err {err:.3e}, disagreeing "
@@ -1005,6 +1405,18 @@ def main() -> int:
             ("phase 8 (certified serving)",
              lambda: _phase_certified(torch, aspace, gl, batches, outs,
                                       card, results)),
+            ("phase 10 (int8 serving)",
+             lambda: _phase_int8(torch, aspace, gl, batches, outs, card,
+                                 results)),
+            ("phase 11 (bf16 serving view)",
+             lambda: _phase_bf16_view(torch, aspace, gl, batches, outs, card,
+                                      results)),
+            ("phase 12 (hybrid, gather IVF, energy)",
+             lambda: _phase_other_modes(torch, aspace, gl, items, batches,
+                                        src, outs, card, results)),
+            ("phase 13 (lists of 5,000; K6 at F 4,096)",
+             lambda: _phase_long_lists(torch, aspace, gl, xu, batches, card,
+                                       results)),
             ("phase 9 (1M x 768 certified serving)",
              lambda: _phase_certified_1m(torch, dev, card, results))):
         try:
@@ -1036,30 +1448,38 @@ def main() -> int:
         failed.append("phase 4 (reference parity)")
 
     print(f"chip_smoke: total {time.perf_counter() - t_start:.3f} s")
-    if failed or not all(key in results for key in (
-            "launches", "launches_subtile", "launches_certified")):
+    paths = ("launches", "launches_subtile", "launches_certified",
+             "launches_int8", "launches_bf16")
+    if failed or not all(key in results for key in paths):
         print(f"chip_smoke: FAILED {failed}", file=sys.stderr)
         return 1
     pallas = "pyarrowspace_tpu/ops/pallas/"
-    table = (  # name, source, TPU kernel, the path whose launches count
-        ("knn", "knn.cu", "knn.py:247", "launches"),
-        ("scan_topk", "scan_topk.cu", "scan_topk.py:75", "launches"),
+    table = (  # name, source, TPU kernel, the path whose launches count,
+        #        its counter
+        ("knn", "knn.cu", "knn.py:247", "launches", "knn"),
+        ("scan_topk", "scan_topk.cu", "scan_topk.py:75", "launches",
+         "scan_topk"),
+        ("scan_topk_bf16", "scan_topk.cu", "scan_topk.py:75",
+         "launches_bf16", "scan_topk"),
         ("subtile_max", "subtile_max.cu", "subtile_scan.py:59",
-         "launches_subtile"),
+         "launches_subtile", "subtile_max"),
         ("extract_ids", "extract_topm.cu", "subtile_scan.py:266",
-         "launches_subtile"),
+         "launches_subtile", "extract_ids"),
         ("extract_pool", "extract_topm.cu", "subtile_scan.py:220",
-         "launches_subtile"),
+         "launches_subtile", "extract_pool"),
         ("gather_score", "gather_score.cu", "subtile_scan.py:131",
-         "launches_subtile"),
-        ("ivf_scan", "ivf_scan.cu", "ivf_scan.py:231", "launches_certified"),
+         "launches_subtile", "gather_score"),
+        ("ivf_scan", "ivf_scan.cu", "ivf_scan.py:231", "launches_certified",
+         "ivf_scan"),
+        ("scan_int8", "scan_int8.cu", "scan_topk.py:113", "launches_int8",
+         "scan_int8"),
     )
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"pyarrowspace_tpu_torch/csrc/{source}",
-         "replaces": pallas + tpu, "launches": results[path][name],
+         "replaces": pallas + tpu, "launches": results[path][counter],
          **results[name]}
-        for name, source, tpu, path in table]
+        for name, source, tpu, path, counter in table]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,13 @@ Static-method API parity with the reference binding
 
   ArrowSpaceBuilder.build(graph_params, items) -> (ArrowSpace, GraphLaplacian)
 
-plus the engine's fluent configuration API.  ``build`` takes an optional
-``device``: by default the device of a tensor input, else CUDA when a card
-is present, else CPU.
+  ArrowSpaceBuilder.build_energy(items, energy_params=None,
+                                 graph_params=None)
+
+plus the engine's fluent configuration API.  ``build`` and
+``build_energy`` take an optional ``device``: by default the device of a
+tensor input, else CUDA; without a card they raise unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Any, Mapping, Optional
 
 from .core.laplacian import GraphLaplacian
 from .core.params import DEFAULT_GRAPH_PARAMS, GraphParams, TauMode, \
-    parse_graph_params
+    parse_energy_params, parse_graph_params
 from .core.space import ArrowSpace
 from .graph.build import BuildConfig, DEFAULT_BUILD_CONFIG, build_standard
 from .utils.debug import dbg_println
@@ -113,8 +117,31 @@ class ArrowSpaceBuilder:
         return build_standard(items, gp, device=device)
 
     @staticmethod
-    def build_energy(items, energy_params=None, graph_params=None):
-        """Energy-only build: not ported yet (ROADMAP.md Slice C item 15)."""
-        raise NotImplementedError(
-            "build_energy is not ported yet: ROADMAP.md Slice C item 15 "
-            "(energy)")
+    def build_energy(items,
+                     energy_params: Optional[Mapping[str, Any]] = None,
+                     graph_params: Optional[Mapping[str, Any]] = None,
+                     device=None) -> tuple[ArrowSpace, GraphLaplacian]:
+        """Energy-only (cosine-free) build (parity: reference
+        src/lib.rs:303-376).  Dims-reduction is mandatory for this pipeline
+        (reference lib.rs:358-359 passes (true, Some(0.35)))."""
+        from .energy.maps import build_energy_maps
+
+        dbg_println("build_energy: Converting pyarray2 to Vec<Vec>")
+        ep = parse_energy_params(energy_params)
+        dbg_println(
+            f"build_energy: optical_tokens={ep.optical_tokens}, "
+            f"w_λ={ep.w_lambda:.2f}, w_G={ep.w_disp:.2f}, "
+            f"w_D={ep.w_dirichlet:.2f}")
+        gp = parse_graph_params(graph_params)
+        if gp is None:
+            gp = DEFAULT_GRAPH_PARAMS
+        gp = dataclasses.replace(
+            gp, dims_reduction=True, reduction_eps=0.35, seed=42,
+            sparsity_check=False)
+        dbg_println("build_energy: Starting energy pipeline")
+        aspace, gl_energy = build_energy_maps(items, ep, gp, device=device)
+        dbg_println(
+            f"build_energy complete: nitems={aspace.nitems}, "
+            f"nfeatures={aspace.nfeatures}, graph_nodes={gl_energy.nnodes}, "
+            f"lambdas_len={aspace.nitems}")
+        return aspace, gl_energy

@@ -2,13 +2,16 @@
 the stored feature-space spectral state used to score queries.
 
 API parity with the reference's `PyArrowSpace` wrapper (reference
-src/lib.rs:64-263) for the search paths ported so far: builder-only
-construction; `nitems`, `nfeatures`,
-`get_item(idx) -> (np.ndarray float64, float)`,
-`lambdas() -> np.ndarray`, `search(query, gl, tau)` returning a list of
-(index, score) by descending score, `search_batch` in modes "exact",
-"subtile", "auto", "ivf_block" and "certified", `enable_ivf` and
-`serving_stream`.  State lives as torch tensors on the build's device.
+src/lib.rs:64-263): builder-only construction; `nitems`, `nfeatures`,
+`get_item(idx) -> (np.ndarray float64, float)`, `lambdas() -> np.ndarray`,
+`search(query, gl, tau)`, `search_hybrid(query, gl, tau)`,
+`search_energy(query, gl, k, w_lambda=None, w_dirichlet=None)` — each a
+list of (index, score) by descending score — and the JAX package's
+extras: `search_batch` in every mode ("auto", "exact", "int8", "subtile",
+"ivf", "ivf_block", "certified"), `search_hybrid_batch`,
+`search_energy_batch`, `enable_ivf`, `serving_stream`, `as_serving`,
+`spectral_summary`, `data` and `feature_laplacian`.  State lives as torch
+tensors on the build's device.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from ..ops import ivf_scan as ivf_ops
 from ..ops import search as search_ops
 from ..ops.cuda import scan_topk
 from ..ops.distance import unit_normalize
-from ..ops.ivf import IVFIndex, build_ivf
+from ..ops.ivf import IVFIndex, build_ivf, ivf_lambda_search
+from ..ops.quantize import quantize_rows
+from ..ops.rayleigh import rayleigh_batch
 from ..ops.subtile_scan import build_subtile_state
 from ..utils.debug import dbg_println
 from ..utils.logging import get_logger
@@ -43,12 +48,6 @@ AUTO_SUBTILE_MIN_ITEMS = 131_072
 # the scan it tries to avoid).
 _WIDEN_MIN_CERT_RATE = 0.25
 
-# search_batch modes of the reference that this package does not run yet,
-# with the ROADMAP.md item that ports each.
-_PENDING_MODES = {
-    "ivf": "Slice C item 13 (gather IVF)",
-    "int8": "Slice C item 12 (int8 scan + rescore)",
-}
 _MODES = ("auto", "exact", "int8", "subtile", "ivf", "ivf_block",
           "certified")
 
@@ -75,6 +74,9 @@ class ArrowSpace:
         self._data_unit: torch.Tensor = kwargs["data_unit"]  # [N, F] unit rows
         self._lambdas: torch.Tensor = kwargs["lambdas"]      # [N]
         self._e_raw: torch.Tensor = kwargs["e_raw"]          # [N]
+        # [N] RAW x^T L_f x when _e_raw holds normalized Rayleigh quotients
+        # (rayleigh_normalized=True); the energy searches need the raw ones.
+        self._e_un: Optional[torch.Tensor] = kwargs.get("e_un")
         self._lap_f: torch.Tensor = kwargs["lap_f"]          # [F, F]
         self._w_f: torch.Tensor = kwargs["w_f"]              # [F, F]
         self._tau_star: torch.Tensor = kwargs["tau_star"]    # 0-dim
@@ -88,8 +90,15 @@ class ArrowSpace:
         self._assignments: Optional[torch.Tensor] = kwargs.get("assignments")
         self._knn_dist: Optional[torch.Tensor] = kwargs.get("knn_dist")
         self._knn_idx: Optional[torch.Tensor] = kwargs.get("knn_idx")
-        # Padded serving layout of mode="subtile", made at its first use.
+        # Padded serving layout of mode="subtile", the int8 corpus and row
+        # scales of mode="int8", each made at its first use.
         self._subtile: Optional[dict] = None
+        self._quantized: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+        # Energy-built spaces: the energy-node table (energy/maps.py) and
+        # the bucket table of its routed search, made at first use.
+        self._energy_maps = None
+        self._energy_routing_cache = None
+        self._spectral_cache: Optional[dict] = None
         # Blocked-IVF serving state (enable_ivf, _ensure_ivf_blocked): the
         # postings, the slab layout, its capacity factor and planned cap
         # (with the cluster count it was planned for), and the slab dtype.
@@ -133,14 +142,24 @@ class ArrowSpace:
         return torch.as_tensor(queries).to(device=self.device,
                                            dtype=self._data.dtype)
 
+    def _batch_queries(self, queries) -> torch.Tensor:
+        q = self._as_queries(queries)
+        if q.dim() != 2 or q.shape[1] != self.nfeatures:
+            raise ValueError(f"queries must be [Q, {self.nfeatures}], got "
+                             f"{tuple(q.shape)}")
+        return q
+
+    def _query_lambdas(self, q: torch.Tensor) -> torch.Tensor:
+        return search_ops.query_lambdas(
+            q, self._lap_f, self._w_f, self._tau_star,
+            rayleigh_normalized=self._rayleigh_normalized,
+            tau_mix=self._tau_mix)
+
     def prepare_query_item(self, query, gl: GraphLaplacian) -> float:
         """Synthetic lambda of a query vector against the stored feature
         Laplacian (reference engine `prepare_query_item`)."""
         q = self._as_queries(query).reshape(1, -1)
-        return float(search_ops.query_lambdas(
-            q, self._lap_f, self._w_f, self._tau_star,
-            rayleigh_normalized=self._rayleigh_normalized,
-            tau_mix=self._tau_mix)[0])
+        return float(self._query_lambdas(q)[0])
 
     def _check_query(self, query) -> np.ndarray:
         if isinstance(query, torch.Tensor):
@@ -186,6 +205,148 @@ class ArrowSpace:
                 torch.as_tensor(tau, dtype=dt), topk)
         return [(int(i), float(s)) for i, s in zip(idx.tolist(),
                                                    vals.tolist())]
+
+    def search_hybrid(self, query, gl: GraphLaplacian, tau: float
+                      ) -> list[tuple[int, float]]:
+        """Hybrid lambda-aware search, cos * (tau + (1 - tau) * prox)
+        (reference src/lib.rs:182-219; no zero-lambda assert on this path,
+        matching the reference)."""
+        v = self._check_query(query)
+        lam_q = self.prepare_query_item(v, gl)
+        topk = min(gl.params.topk, self.nitems)
+        dt = self._data.dtype
+        idx, vals = search_ops.hybrid_topk(
+            self._data_unit, self._lambdas,
+            torch.as_tensor(v, dtype=dt, device=self.device),
+            torch.as_tensor(lam_q, dtype=dt, device=self.device),
+            torch.as_tensor(tau, dtype=dt, device=self.device), topk)
+        return [(int(i), float(s)) for i, s in zip(idx.tolist(),
+                                                   vals.tolist())]
+
+    def search_hybrid_batch(self, queries, gl: GraphLaplacian, tau: float,
+                            topk: Optional[int] = None):
+        """Batched hybrid search: queries [Q, F] -> (indices [Q, topk]
+        np.int32, scores [Q, topk])."""
+        q = self._batch_queries(queries)
+        topk = min(gl.params.topk if topk is None else int(topk),
+                   self.nitems)
+        lam_q = self._query_lambdas(q)
+        idx, vals = search_ops.hybrid_topk_batch(
+            self._data_unit, self._lambdas, q, lam_q,
+            torch.as_tensor(tau, dtype=self._data.dtype), topk)
+        return idx.cpu().numpy(), vals.cpu().numpy()
+
+    # -- energy-only search ----------------------------------------------------
+    def _energies_raw(self) -> torch.Tensor:
+        """Per-item RAW Dirichlet energies x^T L_f x, which the residual
+        identity D(q, x) = e_q + e_x - 2 q^T L x of every energy search
+        needs: _e_raw itself, or with rayleigh_normalized=True the stored
+        e_un, else computed once here."""
+        if not self._rayleigh_normalized:
+            return self._e_raw
+        if self._e_un is None:
+            self._e_un = rayleigh_batch(self._data, self._lap_f,
+                                        normalized=False)
+        return self._e_un
+
+    def _energy_query(self, q: torch.Tensor):
+        """(lam_q [Q], e_q [Q]) of a query batch: the lambda from the
+        items' energy convention, e_q the RAW energy."""
+        return (self._query_lambdas(q),
+                rayleigh_batch(q, self._lap_f, normalized=False))
+
+    def _energy_routing(self):
+        """The centroid -> member bucket table of the routed energy search
+        (ops/ivf.py's layout at capacity factor 2.0), built at first use."""
+        if self._energy_routing_cache is None:
+            ivf = build_ivf(self._centroids, self._assignments, self.nitems,
+                            capacity_factor=2.0)
+            self._energy_routing_cache = (ivf.buckets, ivf.tail)
+        return self._energy_routing_cache
+
+    def _search_energy_routed(self, q, lam_q, e_q, w_l: float, w_d: float,
+                              k_eff: int):
+        """The candidate-pool routed energy search (reference
+        src/lib.rs:311-323), or None when the space has no energy maps.
+        Queries go in chunks whose [chunk, pool, F] gather stays near
+        search_ops.GATHER_BYTES."""
+        emaps = self._energy_maps
+        if emaps is None or self._assignments is None:
+            return None
+        buckets, tail = self._energy_routing()
+        # candidate_m counts NODES; the dedup to centroids is inside.
+        probe = min(emaps.candidate_m, int(emaps.nodes.shape[0]))
+        m_pool = probe * int(buckets.shape[1]) + int(tail.shape[0])
+        qc = max(1, search_ops.GATHER_BYTES // max(1, m_pool
+                                                   * self.nfeatures * 4))
+        dt = self._data.dtype
+        outs = [search_ops.energy_routed_topk_batch(
+                    self._data, self._lambdas, self._energies_raw(),
+                    emaps.nodes, emaps.node_lambda, emaps.node_dirichlet,
+                    emaps.node_centroid, self._lap_f, self._tau_star,
+                    buckets, tail, q[s:s + qc], lam_q[s:s + qc],
+                    e_q[s:s + qc], torch.as_tensor(w_l, dtype=dt),
+                    torch.as_tensor(w_d, dtype=dt), probe=probe, topk=k_eff)
+                for s in range(0, q.shape[0], qc)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    def search_energy(self, query, gl: GraphLaplacian, k: int,
+                      w_lambda: Optional[float] = None,
+                      w_dirichlet: Optional[float] = None
+                      ) -> list[tuple[int, float]]:
+        """Energy-only search, no cosine (parity: reference
+        src/lib.rs:221-262; defaults w_lambda=1.0, w_dirichlet=0.5).  An
+        energy-built space routes through its energy maps when the routed
+        pool fills all k results; otherwise the exact energy scan runs."""
+        v = self._check_query(query)
+        w_l = 1.0 if w_lambda is None else float(w_lambda)
+        w_d = 0.5 if w_dirichlet is None else float(w_dirichlet)
+        dbg_println(
+            f"search_energy: qlen={v.shape[0]}, k={k}, w_λ={w_l:.2f}, "
+            f"w_D={w_d:.2f}")
+        dt = self._data.dtype
+        q = torch.as_tensor(v, dtype=dt, device=self.device).reshape(1, -1)
+        lam_q, e_q = self._energy_query(q)
+        k_eff = min(int(k), self.nitems)
+        routed = self._search_energy_routed(q, lam_q, e_q, w_l, w_d, k_eff)
+        # The width check first: a routed pool narrower than k gives
+        # fewer results, which the id check alone would accept.
+        if (routed is not None and routed[0].shape[1] >= k_eff
+                and bool(torch.all(routed[0][0, :k_eff] >= 0))):
+            idx, vals = routed[0][0], routed[1][0]
+        else:
+            idx, vals = search_ops.energy_topk(
+                self._data, self._lambdas, self._energies_raw(),
+                self._lap_f, q[0], lam_q[0], e_q[0], self._tau_star,
+                torch.as_tensor(w_l, dtype=dt),
+                torch.as_tensor(w_d, dtype=dt), k_eff)
+        return [(int(i), float(s)) for i, s in zip(idx.tolist(),
+                                                   vals.tolist())]
+
+    def search_energy_batch(self, queries, gl: GraphLaplacian, k: int,
+                            w_lambda: Optional[float] = None,
+                            w_dirichlet: Optional[float] = None):
+        """Batched energy-only search: (indices [Q, k] np.int32, scores).
+        The routed search serves the batch when it fills every query's k
+        results; otherwise the exact energy scan serves it."""
+        q = self._batch_queries(queries)
+        w_l = 1.0 if w_lambda is None else float(w_lambda)
+        w_d = 0.5 if w_dirichlet is None else float(w_dirichlet)
+        lam_q, e_q = self._energy_query(q)
+        k_eff = min(int(k), self.nitems)
+        routed = self._search_energy_routed(q, lam_q, e_q, w_l, w_d, k_eff)
+        if (routed is not None and routed[0].shape[1] >= k_eff
+                and bool(torch.all(routed[0][:, :k_eff] >= 0))):
+            idx, vals = routed
+        else:
+            dt = self._data.dtype
+            idx, vals = search_ops.energy_topk_batch(
+                self._data, self._lambdas, self._energies_raw(),
+                self._lap_f, q, lam_q, e_q, self._tau_star,
+                torch.as_tensor(w_l, dtype=dt),
+                torch.as_tensor(w_d, dtype=dt), k_eff)
+        return idx.cpu().numpy(), vals.cpu().numpy()
 
     # -- blocked IVF and certified serving -------------------------------------
     def enable_ivf(self, n_clusters: Optional[int] = None,
@@ -374,10 +535,7 @@ class ArrowSpace:
                  "rungs": max(0, int(probe_escalations))}
 
         def dispatch(queries):
-            q = self._as_queries(queries)
-            if q.dim() != 2 or q.shape[1] != self.nfeatures:
-                raise ValueError(f"queries must be [Q, {self.nfeatures}], "
-                                 f"got {tuple(q.shape)}")
+            q = self._batch_queries(queries)
             np_cur, m_cur = state["n_probe"], state["m"]
             out = self._ivf_block_dispatch(q, float(tau), topk_eff, np_cur,
                                            True, m_cur, q_block=q_block,
@@ -445,6 +603,12 @@ class ArrowSpace:
 
         mode "exact" scans the full corpus: query-lambda synthesis, then
         the blended scan with a running top-k (kernel K2 on CUDA).
+        mode "int8" scans an int8 copy of the corpus (per-row absmax
+        scales, made at its first use) for a pool of min(4 topk, N)
+        candidates (kernel K7 on CUDA) and rescores the pool in float32:
+        the exact scan's results whenever its top-k is in the pool.
+        mode "ivf" scores the members of each query's n_probe nearest
+        clusters and the spill tail (gather-routed; approximate).
         mode "subtile" routes through the subtile maxima (kernels K3, K4b,
         K5 and K4a on CUDA; ops/subtile_scan.py) over a padded bf16 copy
         of the corpus made at its first use, and rescores a 2 x topk pool
@@ -460,15 +624,9 @@ class ArrowSpace:
         ivf_block with certificates, refusals re-probed at doubled n_probe
         (up to n_widen rounds, m_pool doubling with it over reduced-
         precision slabs) and the rest escalated to mode "exact".
-        enable_ivf() runs on demand.  The reference's other modes are not
-        ported yet and raise NotImplementedError naming their ROADMAP
-        item."""
+        enable_ivf() runs on demand for the ivf modes."""
         if certify and mode != "ivf_block":
             raise ValueError("certify=True requires mode='ivf_block'")
-        if mode in _PENDING_MODES:
-            raise NotImplementedError(
-                f"search_batch(mode={mode!r}) is not ported yet: ROADMAP.md "
-                f"{_PENDING_MODES[mode]}")
         if mode not in _MODES:
             raise ValueError(f"unknown search mode {mode!r}; expected "
                              "'auto', 'exact', 'int8', 'subtile', 'ivf', "
@@ -491,15 +649,33 @@ class ArrowSpace:
         if mode == "auto":
             mode = ("subtile" if self.nitems >= AUTO_SUBTILE_MIN_ITEMS
                     else "exact")
-        q = self._as_queries(queries)
-        if q.dim() != 2 or q.shape[1] != self.nfeatures:
-            raise ValueError(
-                f"queries must be [Q, {self.nfeatures}], got "
-                f"{tuple(q.shape)}")
+        q = self._batch_queries(queries)
         topk = gl.params.topk if topk is None else int(topk)
         topk = min(topk, self.nitems)
+        f32 = torch.float32
+        if mode == "int8":
+            if self._quantized is None:
+                self._quantized = quantize_rows(self._data_unit.to(f32))
+            xq, scales = self._quantized
+            idx, vals = search_ops.fused_query_pipeline_quantized(
+                self._data_unit.to(f32), xq, scales, self._lambdas.to(f32),
+                self._lap_f.to(f32), self._w_f.to(f32),
+                self._tau_star.to(f32), q.to(f32), float(tau), topk=topk,
+                rescore_m=min(4 * topk, self.nitems),
+                rayleigh_normalized=self._rayleigh_normalized,
+                tau_mix=self._tau_mix)
+            return idx.cpu().numpy(), vals.cpu().numpy()
+        if mode == "ivf":
+            if self._ivf is None:
+                self.enable_ivf()
+            idx, vals = ivf_lambda_search(
+                self._data_unit, self._lambdas, self._ivf, unit_normalize(q),
+                self._query_lambdas(q),
+                torch.as_tensor(tau, dtype=self._data.dtype,
+                                device=self.device),
+                n_probe=n_probe, topk=topk)
+            return idx.cpu().numpy(), vals.cpu().numpy()
         if mode == "subtile":
-            f32 = torch.float32
             if self._subtile is None:
                 self._subtile = build_subtile_state(
                     self._data_unit.to(f32), self._lambdas.to(f32))
@@ -527,9 +703,54 @@ class ArrowSpace:
             tau_mix=self._tau_mix)
         return idx.cpu().numpy(), vals.cpu().numpy()
 
+    def as_serving(self, dtype=None) -> "ArrowSpace":
+        """A serving view: the scanned unit rows cast to ``dtype`` (default
+        bfloat16; kernel K2 reads them as they are, with the queries
+        rounded to bfloat16 and float32 sums).  Rankings can differ from
+        float32 only on near-ties; build state and lambdas keep full
+        precision, and the subtile, int8 and IVF modes cast to float32
+        where the JAX package does."""
+        dtype = dtype or torch.bfloat16
+        clone = ArrowSpace._from_build(
+            data=self._data, data_unit=self._data_unit.to(dtype),
+            lambdas=self._lambdas, e_raw=self._e_raw, e_un=self._e_un,
+            lap_f=self._lap_f, w_f=self._w_f, tau_star=self._tau_star,
+            params=self._params,
+            rayleigh_normalized=self._rayleigh_normalized,
+            tau_mix=self._tau_mix, centroids=self._centroids,
+            assignments=self._assignments)
+        clone._energy_maps = self._energy_maps
+        return clone
+
+    @property
+    def data(self) -> np.ndarray:
+        return self._data.cpu().numpy()
+
     @property
     def tau_star(self) -> float:
         return float(self._tau_star)
+
+    def spectral_summary(self) -> dict:
+        """Eigen-summary of the F x F feature Laplacian: spectral gap,
+        algebraic connectivity, spectral radius, the number of zero
+        eigenvalues and the full spectrum (cached)."""
+        if self._spectral_cache is None:
+            evals = torch.linalg.eigvalsh(self._lap_f).cpu().numpy()
+            evals = np.maximum(evals, 0.0)
+            nonzero = evals[evals > 1e-10]
+            self._spectral_cache = {
+                "eigenvalues": evals,
+                "spectral_radius": float(evals[-1]),
+                "algebraic_connectivity": float(nonzero[0])
+                if nonzero.size else 0.0,
+                "spectral_gap": float(nonzero[0]) if nonzero.size else 0.0,
+                "n_components": int((evals <= 1e-10).sum()),
+            }
+        return self._spectral_cache
+
+    @property
+    def feature_laplacian(self) -> np.ndarray:
+        return self._lap_f.cpu().numpy()
 
     def __repr__(self) -> str:
         return (f"ArrowSpace(nitems={self.nitems}, "

@@ -17,7 +17,7 @@
 //
 // The simple design: one warp per row, with the row's running list in
 // shared memory (tile_common.cuh's insertion, 2, 4 or 8 words a lane for
-// m <= 256), or for 256 < m <= 4096 in place in the output row (the ids)
+// m <= 256), or for m > 256 in place in the output row (the ids)
 // and a scratch row (the values), shifted there (offer_wide: the subtile
 // select at topk 1,024 keeps m 1,024 subtiles and a pool of 2,048).  The
 // warp reads its row 128 values at a time (4 coalesced

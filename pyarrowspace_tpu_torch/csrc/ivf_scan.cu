@@ -28,11 +28,14 @@
 // running lists are carried inside the block across its probes (the TPU's
 // sequential probe axis and its scalar prefetch become a loop that reads
 // the block's own probe row).  The block's qb <= 32 queries sit in shared
-// memory transposed, [F][4 * qpt] floats (48 KB at qb 16, F 768).  Per
-// probe it walks the slab 64 rows at a time; per 32-feature slab it stages
-// the 64 rows in shared memory (16-byte loads when the rows are 16-byte
-// aligned), and thread t advances row t % 64's chains for its qpt queries
-// (t / 64) * qpt.. by 32 steps.  Then the scores of the 64 rows go to a
+// memory transposed, [F][4 * qpt] floats (48 KB at qb 16, F 768); when that
+// does not fit beside the tiles (F above 3,434 at qb 16), only the current
+// 32-feature slab of them does, [32][4 * qpt], staged beside the slab rows.
+// Per probe it walks the slab 64 rows at a time; per 32-feature slab it
+// stages the 64 rows in shared memory (16-byte loads when the rows are
+// 16-byte aligned), and thread t advances row t % 64's chains for its qpt
+// queries (t / 64) * qpt.. by 32 steps.  Either staging feeds each chain
+// the same products in the same order, so the scores are the same bits.  Then the scores of the 64 rows go to a
 // shared tile and one warp per query offers the improving ones to the
 // query's list (MaxLex: slab ids arrive in slab order, not ascending).
 // Lists of k <= 256 live in shared memory; longer ones (the rescored
@@ -87,7 +90,9 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ slabs,
   }
 }
 
-template <class T, int W, bool VEC>
+// Q_SLAB: the query block is staged one 32-feature slab at a time (a
+// template parameter: the whole-block path carries no branch for it).
+template <class T, int W, bool VEC, bool Q_SLAB>
 __global__ void __launch_bounds__(tile::THREADS)
     ivf_kernel(const T* __restrict__ slabs, const float* __restrict__ slab_lam,
                const int* __restrict__ slab_ids, int f, int cap,
@@ -99,8 +104,8 @@ __global__ void __launch_bounds__(tile::THREADS)
   const int qpt = (qb + GROUPS - 1) / GROUPS;
   const int qstride = GROUPS * qpt;
   auto Bs = reinterpret_cast<float(*)[PAD]>(smem);    // [SLAB][PAD]
-  float* Qt = smem + SLAB * PAD;                      // [f][qstride]
-  float* Ss = Qt + (size_t)f * qstride;               // [qb][TILE]
+  float* Qt = smem + SLAB * PAD;   // [f][qstride], or [SLAB][qstride]
+  float* Ss = Qt + (size_t)(Q_SLAB ? SLAB : f) * qstride;   // [qb][TILE]
   int* Is = reinterpret_cast<int*>(Ss + qb * TILE);   // [TILE]
   float* lists = reinterpret_cast<float*>(Is + TILE); // [qb][k] x 2
 
@@ -110,9 +115,11 @@ __global__ void __launch_bounds__(tile::THREADS)
   const size_t q0 = (size_t)blockIdx.x * qb;
   const int* my_probe = probe + (size_t)blockIdx.x * n_probe;
 
-  for (int e = tid; e < f * qstride; e += THREADS) {
-    const int feat = e / qstride, qq = e % qstride;
-    Qt[e] = qq < qb ? qn[(q0 + qq) * f + feat] : 0.0f;
+  if (!Q_SLAB) {
+    for (int e = tid; e < f * qstride; e += THREADS) {
+      const int feat = e / qstride, qq = e % qstride;
+      Qt[e] = qq < qb ? qn[(q0 + qq) * f + feat] : 0.0f;
+    }
   }
   float lq[MAX_QPT];
 #pragma unroll
@@ -136,9 +143,16 @@ __global__ void __launch_bounds__(tile::THREADS)
       for (int j = 0; j < MAX_QPT; ++j) acc[j] = 0.0f;
       for (int f0 = 0; f0 < f; f0 += SLAB) {
         stage_rows<T, VEC>(slabs, f, base + r0, f0, Bs);
+        if (Q_SLAB) {
+          for (int e = tid; e < SLAB * qstride; e += THREADS) {
+            const int feat = f0 + e / qstride, qq = e % qstride;
+            Qt[e] = (qq < qb && feat < f) ? qn[(q0 + qq) * f + feat] : 0.0f;
+          }
+        }
         __syncthreads();
         const int nf = min(SLAB, f - f0);
-        const float* qcol = Qt + (size_t)f0 * qstride + q_first;
+        const float* qcol =
+            Qt + (Q_SLAB ? (size_t)0 : (size_t)f0 * qstride) + q_first;
 #pragma unroll 4
         for (int kk = 0; kk < nf; ++kk) {
           const float x = Bs[kk][r];
@@ -175,26 +189,33 @@ __global__ void __launch_bounds__(tile::THREADS)
   }
 }
 
-template <class T, bool VEC>
+// Shared memory of a block besides its lists: the slab tile, q_rows
+// feature rows of the transposed query block, the score tile and its ids.
+size_t fixed_smem(int qb, int q_rows) {
+  using namespace tile;
+  const int qpt = (qb + GROUPS - 1) / GROUPS;
+  return sizeof(float) * (SLAB * PAD + (size_t)q_rows * GROUPS * qpt +
+                          (size_t)qb * TILE) +
+         sizeof(int) * TILE;
+}
+
+template <class T, bool VEC, bool Q_SLAB>
 int launch_t(const void* slabs, const float* slab_lam, const int* slab_ids,
              int f, int cap, const float* qn, const float* lamq,
              const int* probe, int n_blocks, int n_probe, int qb, float tau,
              int k, float* out_s, int* out_i, cudaStream_t st) {
   using namespace tile;
-  const int qpt = (qb + GROUPS - 1) / GROUPS;
-  const size_t fixed = sizeof(float) * (SLAB * PAD + (size_t)f * GROUPS * qpt +
-                                        (size_t)qb * TILE) +
-                       sizeof(int) * TILE;
+  const size_t fixed = fixed_smem(qb, Q_SLAB ? SLAB : f);
   const size_t narrow = (size_t)qb * k * (sizeof(float) + sizeof(int));
   int words = list_words(k);
   // Narrow lists that do not fit beside the queries go wide.
   if (words > 0 && fixed + narrow > SMEM_LIMIT) words = 0;
   const size_t smem = fixed + (words == 0 ? 0 : narrow);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = &ivf_kernel<T, 0, VEC>;
-  if (words == 2) kernel = &ivf_kernel<T, 2, VEC>;
-  if (words == 4) kernel = &ivf_kernel<T, 4, VEC>;
-  if (words == 8) kernel = &ivf_kernel<T, 8, VEC>;
+  auto kernel = &ivf_kernel<T, 0, VEC, Q_SLAB>;
+  if (words == 2) kernel = &ivf_kernel<T, 2, VEC, Q_SLAB>;
+  if (words == 4) kernel = &ivf_kernel<T, 4, VEC, Q_SLAB>;
+  if (words == 8) kernel = &ivf_kernel<T, 8, VEC, Q_SLAB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -211,7 +232,12 @@ int launch(const void* slabs, const float* slab_lam, const int* slab_ids,
            int k, float* out_s, int* out_i, cudaStream_t st) {
   const bool vec = (f * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<std::uintptr_t>(slabs) % 16 == 0;
-  auto fn = vec ? &launch_t<T, true> : &launch_t<T, false>;
+  // The whole query block when it fits beside the tiles, else one slab.
+  const bool q_slab = fixed_smem(qb, f) > SMEM_LIMIT;
+  auto fn = vec ? (q_slab ? &launch_t<T, true, true>
+                          : &launch_t<T, true, false>)
+                : (q_slab ? &launch_t<T, false, true>
+                          : &launch_t<T, false, false>);
   return fn(slabs, slab_lam, slab_ids, f, cap, qn, lamq, probe, n_blocks,
             n_probe, qb, tau, k, out_s, out_i, st);
 }
@@ -224,7 +250,7 @@ extern "C" {
 // lambdas and ids [n_clusters * cap], queries qn [n_blocks * qb, f] and
 // lamq [n_blocks * qb] (float), the probe table [n_blocks, n_probe] (each
 // entry in [0, n_clusters)) -> out_s / out_i [n_blocks * qb, k].  cap is a
-// multiple of 64, qb <= 32, k <= 4096.  Runs on the given device and
+// multiple of 64, qb <= 32, k >= 1.  Runs on the given device and
 // stream; returns the CUDA error code (0 on success).
 int ivf_scan_launch(const void* slabs, int dtype, const float* slab_lam,
                     const int* slab_ids, int f, int cap, const float* qn,

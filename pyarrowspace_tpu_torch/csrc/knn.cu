@@ -22,7 +22,7 @@
 // candidates to the row's running list.  The result is exact in fp32, and
 // d(i, j) == d(j, i) bitwise.  Lists of k <= 256 live in shared memory, as
 // templates on words per lane (2, 4, 8; the launcher takes the narrowest
-// that holds k); lists of 256 < k <= 4096 would take 64 x k x 8 bytes of
+// that holds k); lists of k > 256 would take 64 x k x 8 bytes of
 // shared memory (512 KB at k 1,024), so they are kept in place in the
 // output rows and shifted there (tile_common.cuh offer_wide).  wgmma, TMA
 // and pipelining are later work.

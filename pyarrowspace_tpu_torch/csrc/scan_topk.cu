@@ -5,7 +5,10 @@
 // `lambda_search_pallas`).  For every query q it keeps the k largest
 //   score(q, i) = tau * (qn_q . xu_i) + (1 - tau) / (1 + |lam_i - lamq_q|)
 // over the corpus, ties to the smallest id, with corpus ids >= n masked
-// to -3e38; rows come out descending by score.
+// to -3e38; rows come out descending by score.  The corpus and queries are
+// float32, or both bfloat16 (the as_serving view: the caller rounds the
+// queries to bf16 as the JAX package does); bf16 values are converted to
+// float exactly on load and every score is one float32 fmaf chain.
 //
 // What bounds it on the H100: every query block of 64 reads the whole
 // corpus once (4,096 queries over 313,841 x 384 fp32: 64 passes of 482 MB),
@@ -18,27 +21,26 @@
 // blocks per SM even for a single query.  A block runs the tiled fp32
 // product of tile_common.cuh over its split's tiles in ascending order,
 // blends, masks, and merges into running lists in shared memory, then
-// writes its partial lists [S, Q, k].  Launch 2: one warp per query merges
-// the S partial lists in split order with the same insertion rule, so the
-// result is the exact top-k in (score desc, id asc) order.  Lists of
-// k <= 256 live in shared memory, as templates on words per lane (2, 4, 8;
-// the launcher takes the narrowest that holds k; at k 256 they take 161 KB
-// with the tiles).  Lists of 256 < k <= 4096 stay in place in the partial
-// lists (launch 1) and in the output rows (launch 2), shifted there
-// (tile_common.cuh offer_wide).
+// writes its partial lists [S, Q, k].  Launch 2 (tile::merge_splits): one
+// warp per query merges the S partial lists in split order with the same
+// insertion rule, so the result is the exact top-k in (score desc, id asc)
+// order.  Lists of k <= 256 live in shared memory, as templates on words
+// per lane (2, 4, 8; the launcher takes the narrowest that holds k; at k
+// 256 they take 161 KB with the tiles).  Longer lists stay in place in the
+// partial lists (launch 1) and in the output rows (launch 2), shifted there
+// (tile_common.cuh offer_wide): any k the caller's scratch holds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tile_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -3.0e38f;
-
-template <int W>
+template <class T, int W>
 __global__ void __launch_bounds__(tile::THREADS)
-    scan_kernel(const float* __restrict__ xu, const float* __restrict__ lam,
-                int n, int f, const float* __restrict__ qn,
+    scan_kernel(const T* __restrict__ xu, const float* __restrict__ lam,
+                int n, int f, const T* __restrict__ qn,
                 const float* __restrict__ lamq, int q, float tau, int k,
                 int tiles_per_split, float* part_s, int* part_i) {
   using namespace tile;
@@ -64,7 +66,7 @@ __global__ void __launch_bounds__(tile::THREADS)
     run_i = part_i + ((size_t)split * q + q0) * k;
   }
   for (int e = tid; e < n_rows * k; e += THREADS) {
-    run_s[e] = NEG_INF;
+    run_s[e] = NEG_SCORE;
     run_i[e] = -1;
   }
   float lq[4];
@@ -86,14 +88,14 @@ __global__ void __launch_bounds__(tile::THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float s = blend(tau, one_minus_tau, acc[i][j], lc, lq[i]);
-        if (col >= n) s = NEG_INF;
+        if (col >= n) s = NEG_SCORE;
         Ss[ty + 16 * i][tx + 16 * j] = s;
       }
     }
     __syncthreads();
     for (int rr = warp; rr < TILE && q0 + rr < q; rr += WARPS)
-      merge_row<Max, W>(Ss[rr], c0, run_s + rr * k, run_i + rr * k, k,
-                        lane);
+      merge_row<Max, W>(Ss[rr], c0, run_s + (size_t)rr * k,
+                        run_i + (size_t)rr * k, k, lane);
     __syncthreads();
   }
 
@@ -107,43 +109,47 @@ __global__ void __launch_bounds__(tile::THREADS)
   }
 }
 
-// One warp per query: merge the S partial lists in split order (a wide
-// list in place in the output row).
-template <int W>
-__global__ void __launch_bounds__(tile::THREADS)
-    merge_kernel(const float* __restrict__ part_s,
-                 const int* __restrict__ part_i, int q, int k, int splits,
-                 float* out_s, int* out_i) {
-  using namespace tile;
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qi = blockIdx.x * WARPS + warp;
-  if (qi >= q) return;   // whole warp leaves together
-  float* run_s = W == 0 ? out_s + (size_t)qi * k : smem + warp * k;
-  int* run_i = W == 0 ? out_i + (size_t)qi * k
-                      : reinterpret_cast<int*>(smem + WARPS * k) + warp * k;
-
-  for (int j = lane; j < k; j += 32) {
-    run_s[j] = NEG_INF;
-    run_i[j] = -1;
+template <class T>
+int launch(const void* xu, const float* lam, int n, int f, const void* qn,
+           const float* lamq, int q, float tau, int k, int splits,
+           float* part_s, int* part_i, float* out_s, int* out_i,
+           cudaStream_t st) {
+  const int words = tile::list_words(k);
+  const int n_tiles = (n + tile::TILE - 1) / tile::TILE;
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
+    return (int)cudaErrorInvalidValue;
+  // At k = 256 the lists take 128 KB (161 KB with the tiles): above the
+  // 48 KB a launch gets without opting in.  Wide lists take none.
+  const size_t list_bytes =
+      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
+  const size_t smem =
+      (size_t)tile::TILE_FLOATS * sizeof(float) + tile::TILE * list_bytes;
+  auto scan = &scan_kernel<T, 0>;
+  auto merge = &tile::merge_splits<0>;
+  if (words == 2) {
+    scan = &scan_kernel<T, 2>;
+    merge = &tile::merge_splits<2>;
+  } else if (words == 4) {
+    scan = &scan_kernel<T, 4>;
+    merge = &tile::merge_splits<4>;
+  } else if (words == 8) {
+    scan = &scan_kernel<T, 8>;
+    merge = &tile::merge_splits<8>;
   }
-  __syncwarp();
-  for (int s = 0; s < splits; ++s) {
-    const size_t base = ((size_t)s * q + qi) * k;
-    // Each partial list is sorted; once an entry fails to improve, no
-    // later entry of the same list can.
-    for (int j = 0; j < k; ++j) {
-      const float v = part_s[base + j];
-      if (!(v > run_s[k - 1])) break;
-      offer<Max, W>(run_s, run_i, k, v, part_i[base + j], lane);
-    }
-  }
-  if (W != 0) {
-    for (int j = lane; j < k; j += 32) {
-      out_s[(size_t)qi * k + j] = run_s[j];
-      out_i[(size_t)qi * k + j] = run_i[j];
-    }
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
+  scan<<<grid, tile::THREADS, smem, st>>>(
+      static_cast<const T*>(xu), lam, n, f, static_cast<const T*>(qn), lamq,
+      q, tau, k, tiles_per_split, part_s, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem2 = tile::WARPS * list_bytes;
+  merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
+      part_s, part_i, q, k, splits, out_s, out_i);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -151,53 +157,23 @@ __global__ void __launch_bounds__(tile::THREADS)
 extern "C" {
 
 // Queries qn [q, f] (unit rows) with lambdas lamq [q] against the corpus
-// xu [n, f] with lambdas lam [n] -> out_s / out_i [q, k].  part_s / part_i
-// are scratch of [splits, q, k].  Runs on the given device and stream.
+// xu [n, f] with lambdas lam [n] -> out_s / out_i [q, k].  xu and qn are
+// both float (dtype 0) or both bf16 (dtype 1).  part_s / part_i are
+// scratch of [splits, q, k].  Runs on the given device and stream.
 // Returns the CUDA error code (0 on success).
-int scan_topk_launch(const float* xu, const float* lam, int n, int f,
-                     const float* qn, const float* lamq, int q, float tau,
-                     int k, int splits, float* part_s, int* part_i,
+int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
+                     int f, const void* qn, const float* lamq, int q,
+                     float tau, int k, int splits, float* part_s, int* part_i,
                      float* out_s, int* out_i, int device, void* stream) {
-  const int words = tile::list_words(k);
-  if (n <= 0 || f <= 0 || q <= 0 || words < 0 || k > n || splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int n_tiles = (n + tile::TILE - 1) / tile::TILE;
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
+  if (n <= 0 || f <= 0 || q <= 0 || tile::list_words(k) < 0 || k > n ||
+      splits <= 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // At k = 256 the lists take 128 KB (161 KB with the tiles): above the
-  // 48 KB a launch gets without opting in.  Wide lists take none.
-  const size_t list_bytes =
-      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
-  const size_t smem =
-      (size_t)tile::TILE_FLOATS * sizeof(float) + tile::TILE * list_bytes;
-  auto scan = &scan_kernel<0>;
-  auto merge = &merge_kernel<0>;
-  if (words == 2) {
-    scan = &scan_kernel<2>;
-    merge = &merge_kernel<2>;
-  } else if (words == 4) {
-    scan = &scan_kernel<4>;
-    merge = &merge_kernel<4>;
-  } else if (words == 8) {
-    scan = &scan_kernel<8>;
-    merge = &merge_kernel<8>;
-  }
-  err = cudaFuncSetAttribute(
-      scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
   cudaStream_t st = (cudaStream_t)stream;
-  scan<<<grid, tile::THREADS, smem, st>>>(
-      xu, lam, n, f, qn, lamq, q, tau, k, tiles_per_split, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = tile::WARPS * list_bytes;
-  merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
-      part_s, part_i, q, k, splits, out_s, out_i);
-  return (int)cudaGetLastError();
+  auto fn = dtype == 1 ? &launch<__nv_bfloat16> : &launch<float>;
+  return fn(xu, lam, n, f, qn, lamq, q, tau, k, splits, part_s, part_i,
+            out_s, out_i, st);
 }
 
 const char* scan_topk_error_string(int err) {

@@ -84,12 +84,17 @@ def validate_items(items):
 
 def resolve_device(items, device=None) -> torch.device:
     """The build's device: the explicit one, else the device of a tensor
-    input, else CUDA when a card is present, else CPU."""
+    input, else CUDA.  Without a card it raises rather than fall back to
+    the CPU, which runs only when asked for (``device="cpu"`` or a CPU
+    tensor)."""
     if device is not None:
         return torch.device(device)
     if isinstance(items, torch.Tensor):
         return items.device
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (or a CPU "
+                           "tensor) to build on the CPU")
+    return torch.device("cuda")
 
 
 def _pick_dtype(arr, device: torch.device) -> torch.dtype:

@@ -3,7 +3,8 @@
 ``state_from_numpy`` turns the arrays of an index (for instance pulled out
 of a JAX-built ArrowSpace/GraphLaplacian with ``np.asarray``) into this
 package's (ArrowSpace, GraphLaplacian) on a chosen device, so both
-implementations can serve from identical state.
+implementations can serve from identical state, the energy-only searches
+of an energy-built index included.
 """
 
 from __future__ import annotations
@@ -19,19 +20,27 @@ from ..core.space import ArrowSpace
 
 STATE_KEYS = ("data", "data_unit", "lambdas", "e_raw", "lap_f", "w_f",
               "tau_star", "knn_dist", "knn_idx", "nbr_idx", "nbr_w",
-              "degrees", "centroids", "assignments")
-_INT_KEYS = ("knn_idx", "nbr_idx", "assignments")
-_OPTIONAL_KEYS = ("knn_dist", "knn_idx", "centroids", "assignments")
+              "degrees", "centroids", "assignments", "e_un")
+_INT_KEYS = ("knn_idx", "nbr_idx", "assignments", "node_centroid")
+_OPTIONAL_KEYS = ("knn_dist", "knn_idx", "centroids", "assignments", "e_un")
+# The energy-map table of an energy-built index, all arrays but the last.
+ENERGY_KEYS = ("nodes", "node_lambda", "node_disp", "node_dirichlet",
+               "node_centroid", "candidate_m")
 
 
 def state_from_numpy(arrays: Mapping[str, Optional[np.ndarray]],
-                     params: GraphParams, device="cpu"
+                     params: GraphParams, device="cpu",
+                     energy_maps: Optional[Mapping] = None
                      ) -> tuple[ArrowSpace, GraphLaplacian]:
     """(ArrowSpace, GraphLaplacian) from the arrays of STATE_KEYS of an
     index built with the default BuildConfig.  Float arrays keep their
     dtype on CPU and become float32 on CUDA (the dtype policy of the
     build); index arrays become int32.  Optional keys (k-NN candidates,
-    reduction artifacts) may be missing or None."""
+    reduction artifacts, the raw energies e_un) may be missing or None.
+    ``energy_maps`` (ENERGY_KEYS) attaches an energy-map table, so the
+    space routes its energy searches."""
+    from ..energy.maps import EnergyMaps
+
     dev = torch.device(device)
     missing = [key for key in STATE_KEYS
                if key not in _OPTIONAL_KEYS and arrays.get(key) is None]
@@ -41,8 +50,8 @@ def state_from_numpy(arrays: Mapping[str, Optional[np.ndarray]],
                   and np.asarray(arrays["data"]).dtype == np.float64
                   else torch.float32)
 
-    def tensor(key):
-        a = arrays.get(key)
+    def tensor(key, src=arrays):
+        a = src.get(key)
         if a is None:
             return None
         dtype = torch.int32 if key in _INT_KEYS else data_dtype
@@ -51,10 +60,14 @@ def state_from_numpy(arrays: Mapping[str, Optional[np.ndarray]],
     t = {key: tensor(key) for key in STATE_KEYS}
     aspace = ArrowSpace._from_build(
         data=t["data"], data_unit=t["data_unit"], lambdas=t["lambdas"],
-        e_raw=t["e_raw"], lap_f=t["lap_f"], w_f=t["w_f"],
+        e_raw=t["e_raw"], e_un=t["e_un"], lap_f=t["lap_f"], w_f=t["w_f"],
         tau_star=t["tau_star"].reshape(()), params=params,
         centroids=t["centroids"], assignments=t["assignments"],
         knn_dist=t["knn_dist"], knn_idx=t["knn_idx"])
+    if energy_maps is not None:
+        aspace._energy_maps = EnergyMaps(
+            **{key: tensor(key, energy_maps) for key in ENERGY_KEYS[:-1]},
+            candidate_m=int(energy_maps["candidate_m"]))
     gl = GraphLaplacian._from_ell(t["nbr_idx"], t["nbr_w"], t["degrees"],
                                   params)
     return aspace, gl

@@ -19,9 +19,8 @@ import torch
 
 from ... import _build
 
-# The kernels' running lists: up to 256 entries in shared memory, up to
-# MAX_M in place in the output row and a scratch row of values.
-MAX_M = 4096
+# The kernels' running lists: up to 256 entries in shared memory, longer
+# ones in place in the output row and a scratch row of values.
 _MAX_NARROW = 256
 
 # Kernel launches since import (or since the caller last reset them).
@@ -94,8 +93,6 @@ def _check(score: torch.Tensor, m: int, cand=None) -> None:
     if not score.is_contiguous() or (cand is not None
                                      and not cand.is_contiguous()):
         raise ValueError("the extract kernel takes contiguous rows")
-    if m > MAX_M:
-        raise ValueError(f"the extract kernel takes m <= {MAX_M}, got {m}")
     if score.numel() >= 2 ** 31:
         raise ValueError(f"unsupported shape {tuple(score.shape)}")
 

@@ -22,9 +22,8 @@ import torch
 from ... import _build
 
 NEG_INF = -3.0e38
-# The kernel's running lists: up to 256 entries in shared memory, up to
-# MAX_K in place in the output rows; at most MAX_Q_BLOCK queries a block.
-MAX_K = 4096
+# The kernel's running lists: up to 256 entries in shared memory, longer
+# ones in place in the output rows; at most MAX_Q_BLOCK queries a block.
 MAX_Q_BLOCK = 32
 _CAP_MULTIPLE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -136,8 +135,6 @@ def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
                             f"got {t.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the IVF scan kernel takes contiguous tensors")
-    if k > MAX_K:
-        raise ValueError(f"the IVF scan kernel takes k <= {MAX_K}, got {k}")
     if q_block > MAX_Q_BLOCK or cap % _CAP_MULTIPLE:
         raise ValueError(f"the IVF scan kernel takes q_block <= "
                          f"{MAX_Q_BLOCK} and cap a multiple of "

@@ -18,9 +18,8 @@ import torch
 from ... import _build
 
 INF_DIST = 2.0
-# The kernel's running lists: up to 256 entries in shared memory, up to
-# MAX_K in place in the output rows.
-MAX_K = 4096
+# The kernel's running lists: up to 256 entries in shared memory, longer
+# ones in place in the output rows.
 
 # Kernel launches since import (or since the caller last reset it).
 LAUNCHES = 0
@@ -88,9 +87,10 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
         raise TypeError(f"the k-NN kernel takes float32, got {xu.dtype}")
     if not xu.is_contiguous():
         raise ValueError("the k-NN kernel takes a contiguous corpus")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the k-NN kernel takes 1 <= k <= {MAX_K}, got {k}")
-    if n == 0 or f == 0 or n >= 2 ** 31 // max(f, 1):
+    if k < 1:
+        raise ValueError(f"the k-NN kernel takes k >= 1, got {k}")
+    if (n == 0 or f == 0 or n >= 2 ** 31 // max(f, 1)
+            or row_count >= 2 ** 31 // k):
         raise ValueError(f"unsupported corpus shape {tuple(xu.shape)}")
     out_d = torch.empty((row_count, k), dtype=torch.float32, device=xu.device)
     out_i = torch.empty((row_count, k), dtype=torch.int32, device=xu.device)

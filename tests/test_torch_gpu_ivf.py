@@ -141,9 +141,9 @@ def test_ivf_scan_kernel_rejects(dev):
     rng = np.random.default_rng(0)
     slabs, lam, ids = _slabs(rng, 40, 128, 16, torch.float32, dev)
     qn, lamq, probe = _queries(rng, 2, 8, 40, 33, 16, dev)
-    with pytest.raises(ValueError, match="4096"):
-        ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU, k=4097,
-                          q_block=8, cap=128)
+    with pytest.raises(ValueError, match="must be in"):
+        ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU,
+                          k=33 * 128 + 1, q_block=8, cap=128)
     with pytest.raises(TypeError):
         ivf_scan.ivf_scan(slabs.double(), lam, ids, qn, lamq, probe, TAU,
                           k=5, q_block=8, cap=128)

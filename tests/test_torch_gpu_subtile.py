@@ -83,14 +83,19 @@ def test_scan_kernel_wide_lists(dev, n, q, f, k):
 
 
 def test_wide_lists_refuse_past_256(dev):
-    """The list limit, 256 when this test was written, is now the wide
-    lists' MAX_K / MAX_M of 4,096; past it the wrappers refuse."""
-    xu = torch.ones((5000, 4), device=dev)
-    lam = torch.zeros(5000, device=dev)
-    with pytest.raises(ValueError, match="4096"):
-        scan_topk.lambda_search(xu, lam, xu[:2], lam[:2], 0.5, 4097)
-    with pytest.raises(ValueError, match="4096"):
-        extract.extract_ids(xu[:2, :1].expand(2, 5000).contiguous(), 4097)
+    """The list limit, 256 when this test was written and 4,096 later, is
+    gone: past both, the wrappers serve their plain versions' lists."""
+    rng = np.random.default_rng(9)
+    xu = torch.from_numpy(_unit(rng, 5000, 4)).to(dev)
+    lam = torch.from_numpy(rng.uniform(0, 1, 5000).astype(np.float32)).to(dev)
+    i, s = scan_topk.lambda_search(xu, lam, xu[:2], lam[:2], 0.5, 4097)
+    ip, sp = scan_topk.scan_plain(xu, lam, xu[:2], lam[:2], 0.5, 4097)
+    assert topk_disagreements(s.cpu(), i.cpu(), sp.cpu(), ip.cpu(),
+                              TOL) == []
+    score = torch.from_numpy(rng.uniform(size=(2, 5000)).astype(
+        np.float32)).to(dev)
+    assert torch.equal(extract.extract_ids(score, 4097),
+                       extract.extract_ids_plain(score, 4097))
 
 
 def test_search_batch_exact_topk_200_on_card(dev):

@@ -176,13 +176,19 @@ def test_api_error_paths():
         aspace.get_item(3)
     feats, lam = aspace.get_item(1)
     assert feats.dtype == np.float64 and lam == aspace.lambdas()[1]
+    # Every mode of the JAX package serves.  "int8" and "ivf" serve what
+    # the JAX package serves on the same index.
+    query = README_ITEMS * 0.9 + 0.01
+    ja, jg = jx.ArrowSpaceBuilder.build(README_GP, README_ITEMS)
     for mode in ("int8", "ivf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            aspace.search_batch(README_ITEMS, gl, 1.0, mode=mode)
+        got = aspace.search_batch(query, gl, 1.0, mode=mode)
+        ref = ja.search_batch(query, jg, 1.0, mode=mode)
+        np.testing.assert_array_equal(got[0], np.asarray(ref[0]))
+        np.testing.assert_allclose(got[1], np.asarray(ref[1]), rtol=0,
+                                   atol=1e-6)
     # "auto" and "subtile" serve: 3 items fall below the auto threshold, so
     # auto is exact; subtile scans a bf16 copy and rescores in float32.
     # "ivf_block" and "certified" serve too: certified serving is exact.
-    query = README_ITEMS * 0.9 + 0.01
     exact = aspace.search_batch(query, gl, 1.0)
     certified = aspace.search_batch(query, gl, 1.0, mode="certified")
     np.testing.assert_array_equal(certified[0], exact[0])
@@ -197,8 +203,13 @@ def test_api_error_paths():
     np.testing.assert_allclose(subtile[1], exact[1], rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="unknown search mode"):
         aspace.search_batch(README_ITEMS, gl, 1.0, mode="fast")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ArrowSpaceBuilder.build_energy(README_ITEMS)
+    # build_energy serves what the JAX package's serves.
+    ea, eg = pt.ArrowSpaceBuilder.build_energy(README_ITEMS, device="cpu")
+    ja, jg = jx.ArrowSpaceBuilder.build_energy(README_ITEMS)
+    assert eg.nnodes == jg.nnodes
+    np.testing.assert_allclose(ea.lambdas(), ja.lambdas(), rtol=1e-9)
+    assert ([h[0] for h in ea.search_energy(query[0], eg, 3)]
+            == [h[0] for h in ja.search_energy(query[0], jg, 3)])
     assert gl.graph_params == {"eps": 1.0, "k": 6, "topk": 3, "p": 2.0,
                                "sigma": 1.0}
 
@@ -230,7 +241,8 @@ def test_float32_input_builds_in_float32():
 
 def test_package_imports_no_jax():
     code = ("import sys, pyarrowspace_tpu_torch, pyarrowspace_tpu_torch.io; "
-            "from pyarrowspace_tpu_torch.ops.cuda import knn, scan_topk; "
+            "from pyarrowspace_tpu_torch.ops.cuda import knn, scan_topk, "
+            "scan_int8; import pyarrowspace_tpu_torch.energy; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pyarrowspace_tpu.'))] "
             "+ [m for m in sys.modules if m == 'pyarrowspace_tpu']; "
