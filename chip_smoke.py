@@ -18,7 +18,9 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      mode="exact") over 8 batches of 4,096 queries, 3 single searches.
      Launch counts are reset just before and read just after: both
      kernels must have run.  The Laplacian must be exactly symmetric,
-     every lambda finite in [0, 1], and no edge dropped;
+     every lambda finite in [0, 1], and no edge dropped; the warm-up and
+     the timed build must give the same lambdas, centroids and lists bit
+     for bit (the Lloyd sums use no float atomics);
   2. K2 (csrc/scan_topk.cu) against its plain version on the built index:
      4,096 queries, tau 0.62, k 15, scores within 1e-5; and k 200 on 1,024
      queries;
@@ -79,12 +81,28 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   12. hybrid search and gather IVF (n_probe 8) over 2 batches, QPS and
      overlap with exact; build_energy on the same 313,841 rows
      (optical_tokens 40, the CVE graph params) with its phase seconds and
-     search_energy_batch on 64 queries;
+     search_energy_batch on 64 queries; a second build_energy, whose graph
+     must equal the first bit for bit;
   13. lists past the old limit of 4,096: search_batch(topk=5000) on 64
      queries in exact (against K2's plain version), subtile (overlap with
      exact at least 0.99) and certified (== exact) modes; K1 at k 5,000 on
      8 rows, K4b and K4a at m 5,000, and K6 at F 4,096 (its query block
      staged a feature slab at a time), each against its plain version;
+  14. the k-NN variants (ARROWSPACE_KNN_VARIANT): K1t (csrc/knn_t.cu) and
+     K1's rotated walk (diagstart) and its permuted walk over the
+     projection-sorted corpus (reorder), each against its plain version on 2,048 rows and bit for bit against phase
+     3's lists on the 16,384 timed rows, timed in turns with its plain
+     version; each against K1 in turns (and bit for bit) over a 65,536 x
+     384 mixture corpus (4,096 centres); the 313,841 x 384 build under each
+     of the four, whose lists, Laplacian and lambdas must be phase 3's bit
+     for bit, with its build and knn seconds and its launches;
+  15. the index lifecycle: ArrowSpaceBuilder.extend of phase 3's index by
+     9,416 rows (N(0, 1) x 12, default_rng(43)), warm, against a rebuild of
+     the 323,257 rows (lists, Laplacian, lambdas and tau* bit for bit);
+     seeded K1 against its plain version on 2,048 old rows and timed on
+     16,384; save_index / load_index of the extended index in a temporary
+     directory (MB, seconds; exact search on the loaded index bitwise the
+     saved one's); suggest_graph_params and emit_build_suggestions at 313k;
   4. reference parity on the card in float32: the README quickstart scores
      to 1e-6 and the four tests/data_test0.py orderings.
 
@@ -94,13 +112,15 @@ K4a against their plain versions and time them beside the narrow ones.
 The line before the last is a JSON object with, for each kernel, its
 launches on its main path (phase 3 for K1 and K2, phase 5's subtile run
 for K3, K4a, K4b and K5, phase 8's certified run for K6, phase 10 for K7,
-phase 11 for K2 over bf16 rows), its largest difference from the plain
-version, the kernel's and the plain version's times, its bound (the
-larger of its operations over the H100's peak for their type and its
-bytes over 3.35 TB/s, from this run's shapes; K5 and K6 count the rows
-this run's routing reads) and the time of torch.topk where one PyTorch
-call computes the same function (K4a, K4b; null elsewhere); the last line
-is {"ok": true, "device": {...}}.
+phase 11 for K2 over bf16 rows, phase 14's build under each variant for
+K1t and K1's options, phase 15's extend for seeded K1), its largest
+difference from the plain version, the kernel's and the plain version's
+times, its bound (the larger of its operations over the H100's peak for
+their type and its bytes over 3.35 TB/s, from this run's shapes; K5 and
+K6 count the rows this run's routing reads, seeded K1 the new columns)
+and the time of torch.topk where one PyTorch call computes the same
+function (K4a, K4b; null elsewhere); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -126,9 +146,10 @@ N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
 N_PROBE, MIX_CLUSTERS, MIX_NOISE, Q_NOISE = 8, 4096, 0.35, 0.25
 K_LONG, Q_LONG, K1_LONG_ROWS = 5000, 64, 8   # lists past the old 4,096
 F_WIDE = 4096                                 # K6's query block per slab
+N_MIX, N_EXTEND = 65_536, 9_416   # the variants' mixture corpus; a 3% append
 OTHER_BATCHES, ENERGY_QUERIES, ENERGY_TOKENS = 2, 64, 40
 MIN_BF16_OVERLAP = 0.9   # the bf16 view has no float32 rescore
-KERNEL_SOURCES = ("knn", "scan_topk", "subtile_max", "extract_topm",
+KERNEL_SOURCES = ("knn", "knn_t", "scan_topk", "subtile_max", "extract_topm",
                   "gather_score", "ivf_scan", "scan_int8")
 # The H100 SXM's published peaks at 700 W (dense): float32 outside the
 # tensor cores, bf16 and int8 tensor cores, and HBM3.
@@ -175,19 +196,26 @@ def _bound(ops: float, kind: str, nbytes: float) -> dict:
 
 def _reset_launches() -> None:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
-                                                 ivf_scan, knn, scan_int8,
-                                                 scan_topk, subtile_max)
-    for mod in (knn, scan_topk, subtile_max, gather_score, ivf_scan,
+                                                 ivf_scan, knn, knn_t,
+                                                 scan_int8, scan_topk,
+                                                 subtile_max)
+    for mod in (knn, knn_t, scan_topk, subtile_max, gather_score, ivf_scan,
                 scan_int8):
         mod.LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
+    knn.SEEDED_LAUNCHES = knn.DIAG_START_LAUNCHES = knn.PERM_LAUNCHES = 0
 
 
 def _launches() -> dict:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
-                                                 ivf_scan, knn, scan_int8,
-                                                 scan_topk, subtile_max)
-    return {"knn": knn.LAUNCHES, "scan_topk": scan_topk.LAUNCHES,
+                                                 ivf_scan, knn, knn_t,
+                                                 scan_int8, scan_topk,
+                                                 subtile_max)
+    return {"knn": knn.LAUNCHES, "knn_t": knn_t.LAUNCHES,
+            "knn_seeded": knn.SEEDED_LAUNCHES,
+            "knn_diagstart": knn.DIAG_START_LAUNCHES,
+            "knn_reorder": knn.PERM_LAUNCHES,
+            "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
             "extract_ids": extract.IDS_LAUNCHES,
             "extract_pool": extract.POOL_LAUNCHES,
@@ -1015,7 +1043,17 @@ def _phase_other_modes(torch, aspace, gl, items, batches, src, outs_exact,
                                  and bool(np.all(np.isfinite(ev))))
     checks["energy: lambdas finite"] = bool(np.all(np.isfinite(
         ea.lambdas())))
-    del ea, eg
+    ea2, eg2 = pt.ArrowSpaceBuilder.build_energy(
+        items, {"optical_tokens": ENERGY_TOKENS}, GP)
+    energy_diff = _same(torch, [
+        ("nbr_idx", eg.neighbor_indices, eg2.neighbor_indices),
+        ("nbr_w", eg.neighbor_weights, eg2.neighbor_weights),
+        ("nodes", ea._energy_maps.nodes, ea2._energy_maps.nodes),
+        ("lambdas", ea._lambdas, ea2._lambdas)])
+    print(f"phase 12: a second build_energy: {eg2.nedges} edges, differing "
+          f"from the first in {energy_diff}")
+    checks["energy: two builds bitwise equal"] = not energy_diff
+    del ea, eg, ea2, eg2
     if not all(checks.values()):
         raise AssertionError(f"other-mode checks failed: "
                              f"{[c for c, ok in checks.items() if not ok]}")
@@ -1114,6 +1152,274 @@ def _phase_long_lists(torch, aspace, gl, xu, batches, card, results) -> None:
     if not all(checks.values()):
         raise AssertionError(f"long-list checks failed: "
                              f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _variant_scans(torch, x):
+    """The k-NN variants' kernels on the unit corpus x, each with its plain
+    version: name -> (kernel, plain, rows_of), where kernel(R) and plain(R)
+    scan rows [0, R) and rows_of(R) names the result rows that hold them.
+    The reorder variant scans rows of the projection-sorted corpus and
+    returns [N, k] lists by original row.  Also the seconds of reorder's
+    projection, sort and gather."""
+    from pyarrowspace_tpu_torch.ops.cuda import knn, knn_t
+    from pyarrowspace_tpu_torch.ops.distance import projection_order
+    k, eps = GP["k"], GP["eps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm = projection_order(x)
+    xp = x[perm].contiguous()
+    torch.cuda.synchronize()
+    t_perm = time.perf_counter() - t0
+
+    def head(rows):
+        return torch.arange(rows, device=x.device)
+
+    def plain(rows):
+        return knn.knn_plain(x, k, eps, slice(0, rows))
+
+    return t_perm, {
+        "knn_t": (lambda r: knn_t.knn_scan_t(x, k, eps, 0, r), plain, head),
+        "knn_diagstart": (lambda r: knn.knn_scan(x, k, eps, 0, r,
+                                                 diag_start=True),
+                          plain, head),
+        "knn_reorder": (lambda r: knn.knn_scan(xp, k, eps, 0, r,
+                                               diag_start=True, perm=perm),
+                        lambda r: knn.knn_plain(xp, k, eps, slice(0, r),
+                                                perm=perm),
+                        lambda r: perm[:r]),
+    }
+
+
+def _same(torch, pairs) -> list[str]:
+    """The names of the (name, a, b) tensor pairs that differ."""
+    return [name for name, a, b in pairs if not torch.equal(a, b)]
+
+
+def _phase_variants(torch, items, xu, aspace, gl, card, results) -> None:
+    """Phase 14: the k-NN variants.  Each kernel against its plain version
+    on 2,048 rows and bit for bit against phase 3's K1 lists on the 16,384
+    timed rows, timed in turns with its plain version; the same kernels
+    against K1 in turns on a 65,536 x 384 mixture corpus; the 313,841 x
+    384 build under each variant, bitwise phase 3's."""
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch.ops.cuda import knn
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    k, eps = GP["k"], GP["eps"]
+    ref_d, ref_i = aspace._knn_dist, aspace._knn_idx
+    failed = []
+    t_perm, scans = _variant_scans(torch, xu)
+    print(f"phase 14: reorder's projection, sort and gather at {N}x{F}: "
+          f"{t_perm * 1e3:.3f} ms {card}")
+    for name, (kernel, plain, rows_of) in scans.items():
+        rows = rows_of(K1_CHECK_ROWS)
+        d, i = (t[rows].cpu().numpy() for t in kernel(K1_CHECK_ROWS))
+        dp, ip = (t[rows].cpu().numpy() for t in plain(K1_CHECK_ROWS))
+        bad = topk_disagreements(d, i, dp, ip, TOL)
+        err = max_abs_err(d, dp)
+        rows = rows_of(K1_TIME_ROWS)
+        d, i = kernel(K1_TIME_ROWS)
+        diff = _same(torch, [("d", d[rows], ref_d[rows]),
+                             ("i", i[rows], ref_i[rows])])
+        del d, i
+        k_ms, p_ms = _in_turns(lambda: plain(K1_TIME_ROWS),
+                               lambda: kernel(K1_TIME_ROWS), torch)
+        results[name] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+            **_bound(2.0 * K1_TIME_ROWS * N * F, "fp32",
+                     N * F * 4 + K1_TIME_ROWS * k * 8))
+        print(f"phase 14: {name} on {K1_CHECK_ROWS} rows vs plain: "
+              f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; on "
+              f"{K1_TIME_ROWS} rows: kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bitwise K1: {not diff} {card}")
+        if bad or err > TOL or diff:
+            failed.append(name)
+    del scans
+
+    # A clustered corpus: the regime the locality variants were built for.
+    gen = torch.Generator(device=xu.device)
+    gen.manual_seed(3)
+    centres = torch.randn((MIX_CLUSTERS, F), generator=gen, device=xu.device)
+    mix = torch.randint(0, MIX_CLUSTERS, (N_MIX,), generator=gen,
+                        device=xu.device)
+    xm = unit_normalize(centres[mix] + MIX_NOISE * torch.randn(
+        (N_MIX, F), generator=gen, device=xu.device)).contiguous()
+    del centres, mix
+    t_perm, scans = _variant_scans(torch, xm)
+
+    def k1():
+        return knn.knn_scan(xm, k, eps)
+
+    d1, i1 = k1()
+    mixture = {"projection_ms": t_perm * 1e3}
+    for name, (kernel, _plain, _rows_of) in scans.items():
+        d, i = kernel(N_MIX)
+        same = not _same(torch, [("d", d, d1), ("i", i, i1)])
+        del d, i
+        v_ms, k1_ms = _in_turns(k1, lambda: kernel(N_MIX), torch)
+        mixture[name] = dict(ms=v_ms, k1_ms=k1_ms, bitwise_k1=same)
+        print(f"phase 14: {name} on the {N_MIX}x{F} mixture corpus: "
+              f"{v_ms:.3f} ms against K1's {k1_ms:.3f} ms in turns, "
+              f"bitwise K1: {same} {card}")
+        if not same:
+            failed.append(f"{name} (mixture)")
+    print(f"phase 14: reorder's projection, sort and gather at {N_MIX}x{F}: "
+          f"{t_perm * 1e3:.3f} ms")
+    results["variants_mixture"] = mixture
+    del scans, xm, d1, i1
+
+    builds = {}
+    for variant, path in (("transposed", "launches_transposed"),
+                          ("subtile", "launches_sub"),
+                          ("diagstart", "launches_diagstart"),
+                          ("reorder", "launches_reorder")):
+        os.environ["ARROWSPACE_KNN_VARIANT"] = variant
+        try:
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            va, vg = pt.ArrowSpaceBuilder.build(GP, items)
+            t_build = time.perf_counter() - t0
+        finally:
+            del os.environ["ARROWSPACE_KNN_VARIANT"]
+        results[path] = _launches()
+        phases = pt.get_phase_timings()
+        diff = _same(torch, [
+            ("knn_dist", va._knn_dist, ref_d), ("knn_idx", va._knn_idx, ref_i),
+            ("nbr_idx", vg.neighbor_indices, gl.neighbor_indices),
+            ("nbr_w", vg.neighbor_weights, gl.neighbor_weights),
+            ("lambdas", va._lambdas, aspace._lambdas)])
+        builds[variant] = dict(build_s=t_build, knn_s=phases["knn"],
+                               differing=diff)
+        print(f"phase 14: build {N}x{F} under ARROWSPACE_KNN_VARIANT="
+              f"{variant}: {t_build:.3f} s, knn phase {phases['knn']:.3f} s; "
+              f"launches {results[path]}; differing from phase 3: {diff} "
+              f"{card}")
+        if diff:
+            failed.append(f"build {variant}")
+        del va, vg
+    results["variant_builds"] = builds
+    if failed:
+        raise AssertionError(f"variant checks failed: {failed}")
+
+
+def _phase_lifecycle(torch, items, aspace, gl, batches, card,
+                     results) -> None:
+    """Phase 15: extend phase 3's index by N_EXTEND rows against a rebuild
+    of the concatenated corpus (bit for bit), seeded K1 against its plain
+    version, save / load of the extended index, and the parameter
+    suggestions at 313k."""
+    import tempfile
+
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch.graph.suggest import (emit_build_suggestions,
+                                                      suggest_graph_params)
+    from pyarrowspace_tpu_torch.io import load_index, save_index
+    from pyarrowspace_tpu_torch.ops.cuda import knn
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    k, eps = GP["k"], GP["eps"]
+    new = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        (N_EXTEND, F), dtype=np.float32) * 12.0).to(items.device)
+    pt.ArrowSpaceBuilder.extend(aspace, gl, new)              # warm-up
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ea, eg = pt.ArrowSpaceBuilder.extend(aspace, gl, new)
+    t_extend = time.perf_counter() - t0
+    results["launches_extend"] = _launches()
+    ext_phases = pt.get_phase_timings()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ra, rg = pt.ArrowSpaceBuilder.build(GP, torch.cat([items, new]))
+    t_rebuild = time.perf_counter() - t0
+    rb_phases = pt.get_phase_timings()
+    diff = _same(torch, [
+        ("knn_dist", ea._knn_dist, ra._knn_dist),
+        ("knn_idx", ea._knn_idx, ra._knn_idx),
+        ("nbr_idx", eg.neighbor_indices, rg.neighbor_indices),
+        ("nbr_w", eg.neighbor_weights, rg.neighbor_weights),
+        ("lambdas", ea._lambdas, ra._lambdas),
+        ("tau_star", ea._tau_star, ra._tau_star)])
+    print(f"phase 15: extend {N}x{F} by {N_EXTEND} rows: {t_extend:.3f} s "
+          f"(knn_extend {ext_phases['knn_extend']:.3f} s); rebuild of "
+          f"{N + N_EXTEND} rows {t_rebuild:.3f} s (knn "
+          f"{rb_phases['knn']:.3f} s); launches {results['launches_extend']};"
+          f" differing: {diff} {card}")
+    print(f"phase 15: extend phases (s) "
+          f"{json.dumps({kk: round(v, 4) for kk, v in ext_phases.items()})}")
+    del ra, rg
+
+    # Seeded K1: the old rows against the new columns, from their lists.
+    xu_all = ea._data_unit
+
+    def seeded(rows):
+        return knn.knn_scan(xu_all, k, eps, 0, rows, col_start=N,
+                            seed=(aspace._knn_dist[:rows],
+                                  aspace._knn_idx[:rows]))
+
+    def seeded_plain(rows):
+        return knn.knn_plain(xu_all, k, eps, slice(0, rows), N,
+                             (aspace._knn_dist[:rows],
+                              aspace._knn_idx[:rows]))
+
+    d, i = (t.cpu().numpy() for t in seeded(K1_CHECK_ROWS))
+    dp, ip = (t.cpu().numpy() for t in seeded_plain(K1_CHECK_ROWS))
+    bad = topk_disagreements(d, i, dp, ip, TOL)
+    err = max_abs_err(d, dp)
+    k_ms, p_ms = _in_turns(lambda: seeded_plain(K1_TIME_ROWS),
+                           lambda: seeded(K1_TIME_ROWS), torch)
+    results["knn_seeded"] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+        **_bound(2.0 * K1_TIME_ROWS * N_EXTEND * F, "fp32",
+                 N_EXTEND * F * 4 + K1_TIME_ROWS * (F * 4 + 2 * k * 8)))
+    print(f"phase 15: seeded K1 on {K1_CHECK_ROWS} old rows vs plain: "
+          f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; on "
+          f"{K1_TIME_ROWS} rows x {N_EXTEND} new columns: kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms {card}")
+
+    life = dict(extend_s=t_extend, rebuild_s=t_rebuild,
+                knn_extend_s=ext_phases["knn_extend"],
+                rebuild_knn_s=rb_phases["knn"], differing=diff)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index.npz")
+        served = ea.search_batch(batches[0], eg, TAU, mode="exact")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_index(path, ea, eg)
+        life["save_s"] = time.perf_counter() - t0
+        life["file_mb"] = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        la, lg = load_index(path)
+        torch.cuda.synchronize()
+        life["load_s"] = time.perf_counter() - t0
+        again = la.search_batch(batches[0], lg, TAU, mode="exact")
+        life["served_same"] = (np.array_equal(served[0], again[0])
+                               and np.array_equal(served[1], again[1])
+                               and la.device.type == "cuda")
+        print(f"phase 15: save_index {life['file_mb']:.1f} MB in "
+              f"{life['save_s']:.3f} s, load_index in {life['load_s']:.3f} s;"
+              f" exact search on the loaded index bitwise the saved one's: "
+              f"{life['served_same']} {card}")
+        del la, lg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = suggest_graph_params(items)
+        life["suggest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emit_build_suggestions(items, aspace._params, tmp)
+        life["emit_s"] = time.perf_counter() - t0
+    print(f"phase 15: suggest_graph_params at {N}x{F}: {life['suggest_s']:.3f}"
+          f" s -> eps {rec['eps']}, sigma {rec['sigma']}, k {rec['k']}, "
+          f"intrinsic dim {rec['intrinsic_dim']}; emit_build_suggestions "
+          f"{life['emit_s']:.3f} s {card}")
+    results["lifecycle"] = life
+    del ea, eg
+    if diff or bad or err > TOL or not life["served_same"]:
+        raise AssertionError(f"lifecycle checks failed: differing {diff}, "
+                             f"seeded rows {bad[:10]} err {err}, served "
+                             f"same {life['served_same']}")
 
 
 def main() -> int:
@@ -1252,13 +1558,20 @@ def main() -> int:
     try:
         _reset_launches()
         t0 = time.perf_counter()
-        pt.ArrowSpaceBuilder.build(GP, items)
+        warm, _ = pt.ArrowSpaceBuilder.build(GP, items)
         t_warm = time.perf_counter() - t0
         t0 = time.perf_counter()
         aspace, gl = pt.ArrowSpaceBuilder.build(GP, items)
         t_build = time.perf_counter() - t0
         phases = pt.get_phase_timings()
         k1_build = knn.LAUNCHES
+        # Two builds of the same rows: the same bits (no float atomics).
+        repeat_diff = _same(torch, [
+            ("lambdas", warm._lambdas, aspace._lambdas),
+            ("centroids", warm._centroids, aspace._centroids),
+            ("assignments", warm._assignments, aspace._assignments),
+            ("knn_idx", warm._knn_idx, aspace._knn_idx)])
+        del warm
         rng_q = np.random.default_rng(7)
         src = [rng_q.choice(N, Q_BATCH) for _ in range(N_BATCHES)]
         batches = [items[torch.as_tensor(s_, device=dev)] * 1.01
@@ -1300,7 +1613,8 @@ def main() -> int:
               f"dropped {gl.n_dropped_edges}, tau* {aspace.tau_star:.6g}, "
               f"lambda range [{lam.min():.6f}, {lam.max():.6f}]; "
               f"L exactly symmetric: {sym}; each query's source row first: "
-              f"{top1}; single searches agree with the batch: {single_same}")
+              f"{top1}; single searches agree with the batch: {single_same};"
+              f" warm-up and timed builds differing in {repeat_diff}")
         checks = {
             "K1 launched on the main path": launches["knn"] > 0,
             "K2 launched on the main path": launches["scan_topk"] > 0,
@@ -1311,6 +1625,7 @@ def main() -> int:
             "no dropped edges": gl.n_dropped_edges == 0,
             "source row ranks first": top1 and single_ok,
             "single search == batch row": single_same,
+            "two builds bitwise equal": not repeat_diff,
             "result shapes": all(o[0].shape == (Q_BATCH, GP["topk"])
                                  and np.all(np.isfinite(o[1]))
                                  for o in outs),
@@ -1417,6 +1732,12 @@ def main() -> int:
             ("phase 13 (lists of 5,000; K6 at F 4,096)",
              lambda: _phase_long_lists(torch, aspace, gl, xu, batches, card,
                                        results)),
+            ("phase 14 (k-NN variants)",
+             lambda: _phase_variants(torch, items, xu, aspace, gl, card,
+                                     results)),
+            ("phase 15 (extend, save / load, suggestions)",
+             lambda: _phase_lifecycle(torch, items, aspace, gl, batches,
+                                      card, results)),
             ("phase 9 (1M x 768 certified serving)",
              lambda: _phase_certified_1m(torch, dev, card, results))):
         try:
@@ -1449,7 +1770,9 @@ def main() -> int:
 
     print(f"chip_smoke: total {time.perf_counter() - t_start:.3f} s")
     paths = ("launches", "launches_subtile", "launches_certified",
-             "launches_int8", "launches_bf16")
+             "launches_int8", "launches_bf16", "launches_transposed",
+             "launches_sub", "launches_diagstart", "launches_reorder",
+             "launches_extend")
     if failed or not all(key in results for key in paths):
         print(f"chip_smoke: FAILED {failed}", file=sys.stderr)
         return 1
@@ -1473,6 +1796,13 @@ def main() -> int:
          "ivf_scan"),
         ("scan_int8", "scan_int8.cu", "scan_topk.py:113", "launches_int8",
          "scan_int8"),
+        ("knn_t", "knn_t.cu", "knn.py:153", "launches_transposed", "knn_t"),
+        ("knn_diagstart", "knn.cu", "knn.py:288", "launches_diagstart",
+         "knn_diagstart"),
+        ("knn_reorder", "knn.cu", "knn.py:408", "launches_reorder",
+         "knn_reorder"),
+        ("knn_seeded", "knn.cu", "knn.py:247", "launches_extend",
+         "knn_seeded"),
     )
     kernels = [
         {"name": name, "route": "cuda",

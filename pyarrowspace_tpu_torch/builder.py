@@ -8,10 +8,12 @@ Static-method API parity with the reference binding
   ArrowSpaceBuilder.build_energy(items, energy_params=None,
                                  graph_params=None)
 
+  ArrowSpaceBuilder.extend(aspace, gl, new_items, config=None)
+
 plus the engine's fluent configuration API.  ``build`` and
 ``build_energy`` take an optional ``device``: by default the device of a
 tensor input, else CUDA; without a card they raise unless the caller asks
-for the CPU.
+for the CPU.  ``extend`` runs on the index's own device.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class ArrowSpaceBuilder:
         self._params: GraphParams = DEFAULT_GRAPH_PARAMS
         self._config: BuildConfig = DEFAULT_BUILD_CONFIG
         self._sampling_rate: Optional[float] = None
+        self._spectral: bool = False
 
     # -- fluent engine API (reference builder::ArrowSpaceBuilder) -------------
     @staticmethod
@@ -84,17 +87,28 @@ class ArrowSpaceBuilder:
         self._sampling_rate = None if rate is None else float(rate)
         return self
 
+    def with_spectral(self, enabled: bool) -> "ArrowSpaceBuilder":
+        """Compute the spectral summary (feature-Laplacian eigenvalues)
+        eagerly at build time and attach it to the ArrowSpace."""
+        self._spectral = bool(enabled)
+        return self
+
     def with_build_config(self, config: BuildConfig) -> "ArrowSpaceBuilder":
         self._config = config
         return self
 
-    def build_rows(self, rows) -> tuple[ArrowSpace, GraphLaplacian]:
+    def build_rows(self, rows, device=None
+                   ) -> tuple[ArrowSpace, GraphLaplacian]:
         """Fluent terminal: build from configured params."""
         config = self._config
         if self._sampling_rate is not None:
             config = dataclasses.replace(config,
                                          sampling_rate=self._sampling_rate)
-        return build_standard(rows, self._params, config)
+        aspace, gl = build_standard(rows, self._params, config,
+                                    device=device)
+        if self._spectral:
+            aspace.spectral_summary()  # compute and cache eagerly
+        return aspace, gl
 
     # -- reference static API --------------------------------------------------
     @staticmethod
@@ -115,6 +129,21 @@ class ArrowSpaceBuilder:
             reduction_eps=gp.eps, seed=42, sparsity_check=False)
         dbg_println("Building from rows")
         return build_standard(items, gp, device=device)
+
+    @staticmethod
+    def extend(aspace: ArrowSpace, gl: GraphLaplacian, new_items,
+               config: Optional[BuildConfig] = None
+               ) -> tuple[ArrowSpace, GraphLaplacian]:
+        """Append items to a built index without redoing the old-corpus
+        k-NN scan.  Returns a NEW (ArrowSpace, GraphLaplacian) pair equal
+        bit for bit to ``build(graph_params, concat(old, new))`` on the
+        device and dtype the index was built with (graph/extend.py).  Pass
+        the BuildConfig the index was built with when it wasn't the
+        default."""
+        from .graph.extend import extend_build
+        return extend_build(aspace, gl, new_items,
+                            config if config is not None
+                            else DEFAULT_BUILD_CONFIG)
 
     @staticmethod
     def build_energy(items,

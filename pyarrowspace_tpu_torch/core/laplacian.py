@@ -86,6 +86,16 @@ class GraphLaplacian:
         """Directed edges dropped by the fixed ELL width (hub overflow)."""
         return self._n_dropped
 
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """L @ v = D v - W v via a gather over the ELL neighbour lists."""
+        v = torch.as_tensor(v, dtype=self._nbr_w.dtype,
+                            device=self._nbr_w.device)
+        gathered = torch.where(self._nbr_idx >= 0,
+                               v[self._nbr_idx.clamp_min(0).to(torch.int64)],
+                               0.0)
+        wv = torch.sum(self._nbr_w * gathered, dim=1)
+        return self._degrees * v - wv
+
     def to_dense(self) -> np.ndarray:
         """Dense L (small graphs / tests only)."""
         n = self.nnodes

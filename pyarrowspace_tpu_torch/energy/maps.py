@@ -41,7 +41,7 @@ from ..reduction.pipeline import reduce_corpus, select_k
 from ..spectral.taumode import TAU_MIX, derive_tau_star, synthesize
 from ..utils.debug import dbg_println, phase, reset_phase_timings
 from ..utils.logging import get_logger
-from ..utils.stats import median
+from ..utils.stats import median, segment_sum
 
 log = get_logger("energymaps")
 
@@ -93,15 +93,13 @@ def _member_stats(x: torch.Tensor, centroids: torch.Tensor,
     dist = torch.linalg.norm(resid, dim=1)
     cutoff = torch.quantile(dist, 1.0 - trim_quantile)
     wgt = (dist <= cutoff).to(x.dtype)
-    zeros = torch.zeros((k,), dtype=x.dtype, device=x.device)
-    cnt = zeros.clone().index_add_(0, a, wgt)
-    disp = zeros.clone().index_add_(0, a, wgt * dist)
+    cnt = segment_sum(wgt, a, k)
+    disp = segment_sum(wgt * dist, a, k)
     disp = torch.where(cnt > 0, disp / torch.clamp_min(cnt, 1.0), 0.0)
     u = torch.ones((x.shape[1],), dtype=x.dtype,
                    device=x.device) / math.sqrt(x.shape[1])
     proj = resid @ u
-    v = torch.zeros_like(centroids).index_add_(0, a,
-                                               resid * (wgt * proj)[:, None])
+    v = segment_sum(resid * (wgt * proj)[:, None], a, k)
     vnorm = torch.linalg.norm(v, dim=1, keepdim=True)
     v = torch.where(vnorm > 0, v / torch.clamp_min(vnorm, 1e-12), 0.0)
     return disp, v

@@ -3,7 +3,8 @@
 Stages:
   1. validate items
   2. unit-normalize items (the item graph is cosine-based)
-  3. exact eps/k-NN over the FULL corpus — kernel K1 on CUDA
+  3. exact eps/k-NN over the FULL corpus — kernel K1 on CUDA (or K1t, or
+     a K1 option, under ARROWSPACE_KNN_VARIANT; every one bitwise K1)
   4. kernel weights, then symmetrize into a padded-ELL Laplacian
   5. [dims reduction] sample -> TwoNN ID -> K-means centroids
   6. F x F feature-space spectral Laplacian from the signals matrix
@@ -11,12 +12,15 @@ Stages:
 
 Dtype policy: on CPU, float64 when the input is float64, else float32; on
 CUDA, float32.  Every phase runs on the build's device and is timed by
-``utils.debug.phase``.
+``utils.debug.phase``.  With ARROWSPACE_SUGGEST_DIR set, a build also
+writes the parameter recommendation ``suggested_eps.md`` there
+(graph/suggest.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -25,7 +29,8 @@ import torch
 from ..core.laplacian import GraphLaplacian
 from ..core.params import GraphParams
 from ..core.space import ArrowSpace
-from ..ops.distance import kernel_weights, knn_graph_candidates, unit_normalize
+from ..ops.distance import (kernel_weights, knn_graph_candidates,
+                            knn_variant, unit_normalize)
 from ..ops.rayleigh import dispersion_batch, rayleigh_batch
 from ..ops.symmetrize import symmetrize_to_ell, union_width_bound
 from ..reduction.pipeline import SAMPLING_KEEP_RATE, reduce_corpus
@@ -162,6 +167,7 @@ def build_standard(items, gp: GraphParams,
     arr = validate_items(items)
     dev = resolve_device(items, device)
     dtype = _pick_dtype(arr, dev)
+    variant = knn_variant()
     with phase("ingest", dev):
         x = torch.as_tensor(arr).to(device=dev, dtype=dtype).contiguous()
     n, f = x.shape
@@ -173,12 +179,23 @@ def build_standard(items, gp: GraphParams,
     dbg_println(cfg_line)
     log.debug(cfg_line)
 
+    suggest_dir = os.environ.get("ARROWSPACE_SUGGEST_DIR")
+    if suggest_dir:
+        # Per-build parameter-recommendation artifact (the reference
+        # engine's suggested_eps.md).
+        from .suggest import emit_build_suggestions
+        emit_build_suggestions(
+            x, gp, suggest_dir,
+            build_log=[cfg_line,
+                       f"ArrowSpace created with {n} items and {f} "
+                       "features"])
+
     with phase("normalize", dev):
         xu = unit_normalize(x).contiguous()
     stored = xu if gp.normalise else x
 
     with phase("knn", dev):
-        d, i = knn_graph_candidates(xu, gp.k, gp.eps)
+        d, i = knn_graph_candidates(xu, gp.k, gp.eps, variant=variant)
 
     return _assemble_from_knn(stored, xu, d, i, gp, config)
 
@@ -187,7 +204,9 @@ def _assemble_from_knn(stored, xu, d, i, gp: GraphParams,
                        config: BuildConfig
                        ) -> tuple[ArrowSpace, GraphLaplacian]:
     """Everything downstream of the k-NN candidate scan: weights ->
-    symmetrize -> reduction -> feature Laplacian -> lambdas."""
+    symmetrize -> reduction -> feature Laplacian -> lambdas.  Shared by the
+    standard build and the incremental extend (graph/extend.py), so the
+    two cannot drift."""
     n, f = stored.shape
     dev = stored.device
     with phase("weights", dev):

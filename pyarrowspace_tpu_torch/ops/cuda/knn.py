@@ -4,9 +4,12 @@ PyTorch version.
 ``knn_scan`` is the entry point.  On a CPU tensor it runs ``knn_plain``;
 on a CUDA tensor it launches ``csrc/knn.cu`` (built at first use) or
 raises.  Both return, for each row of a row range, the k smallest
-rectified-cosine distances d = 1 - max(0, x_i . x_j) over all columns with
-self and d > eps masked, ascending by (distance, id); missing entries are
-(2.0, -1).
+rectified-cosine distances d = 1 - max(0, x_i . x_j) over the columns
+[col_start, N) with self and d > eps masked, ascending by (distance, id);
+missing entries are (2.0, -1).  The options of the kernel: ``seed`` (start
+each row from a sorted list), ``diag_start`` (a rotated column walk) and
+``perm`` (a corpus sorted for locality); every one returns the default
+scan's result bit for bit.
 """
 
 from __future__ import annotations
@@ -21,39 +24,111 @@ INF_DIST = 2.0
 # The kernel's running lists: up to 256 entries in shared memory, longer
 # ones in place in the output rows.
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it), and the
+# launches among them that used each option.
 LAUNCHES = 0
+SEEDED_LAUNCHES = 0
+DIAG_START_LAUNCHES = 0
+PERM_LAUNCHES = 0
 
-# Plain version: rows per chunk keep the [rows, N] distance block near
-# this many elements.
-_PLAIN_CHUNK_ELEMS = 1 << 25
+# The plain version's products: every distance comes from a product
+# [_ROW_BLOCK, F] x [F, W], zero padded, with W = N rounded up to a multiple
+# of _ROW_BLOCK and at most _COL_TILE.  A CPU matmul rounds an element
+# differently by the shape of the product: a one-row product is a
+# matrix-vector call, and at a wide F a product narrower than 256 columns
+# sums in another order.  So the extend's bit-for-bit equality with a
+# rebuild on the CPU rests on a property of the BLAS: at _ROW_BLOCK rows
+# and a given F, an element's bits depend neither on where its two rows
+# sit in the product nor on a width W >= 256, with any number of threads.
+# tests/test_torch_extend.py holds it to that.
+_ROW_BLOCK, _COL_TILE = 256, 4096
 
 
-def knn_plain(xu: torch.Tensor, k: int, eps: float, rows=None):
-    """Chunked matmul + mask + stable sort.  ``rows`` selects the rows to
-    answer (a slice or an index tensor; default all).  Returns
-    (dist [R, k] in xu's dtype, idx [R, k] int32)."""
+def _padded_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    if x.shape[0] == rows:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
+def _cosines(rows: torch.Tensor, cols: torch.Tensor, c0: int,
+             tile: int) -> torch.Tensor:
+    """rows [R <= _ROW_BLOCK, F] against cols[c0:] -> [R, N - c0], in
+    products [_ROW_BLOCK, F] x [F, tile]."""
+    r, n = rows.shape[0], cols.shape[0]
+    a = _padded_rows(rows, _ROW_BLOCK)
+    out = [(a @ _padded_rows(cols[t0:t0 + tile], tile).T)[:r, :n - t0]
+           for t0 in range(c0, n, tile)]
+    return torch.cat(out, dim=1) if out else a.new_empty((r, 0))
+
+
+def knn_plain(xu: torch.Tensor, k: int, eps: float, rows=None,
+              col_start: int = 0, seed=None, perm=None):
+    """Fixed-shape products + mask + stable sort, _ROW_BLOCK rows at a time.
+
+    ``rows`` selects the rows to answer (a slice or an index tensor;
+    default all), ``col_start`` the first column.  ``seed`` = (d, i)
+    [R, k'] sorted lists holding ids below col_start only: each row's list
+    is the stable sort of its seed list followed by the new columns, so
+    equal distances keep the smaller ids.  ``perm``: xu is a corpus
+    permuted by it; the columns are taken back to their original ids before
+    the sort and the lists come out indexed by original row ([N, k], rows
+    outside ``rows`` left (2.0, -1)).  Returns (dist [R, k] in xu's dtype,
+    idx [R, k] int32)."""
     n = xu.shape[0]
-    row_ids = torch.arange(n, device=xu.device)
+    dev = xu.device
+    row_ids = torch.arange(n, device=dev)
     if rows is not None:
         row_ids = row_ids[rows]
     eps_t = torch.as_tensor(eps, dtype=xu.dtype)
-    cols = torch.arange(n, device=xu.device)
-    step = max(1, _PLAIN_CHUNK_ELEMS // max(n, 1))
+    col_ids = torch.arange(col_start, n, device=dev)
+    if perm is not None:
+        perm = perm.to(device=dev, dtype=torch.int64)
+        inv = torch.argsort(perm)       # original id -> permuted column
+    tile = min(_COL_TILE, -(-max(n, 1) // _ROW_BLOCK) * _ROW_BLOCK)
     out_d, out_i = [], []
-    for s in range(0, row_ids.shape[0], step):
-        r = row_ids[s:s + step]
-        d = 1.0 - torch.clamp_min(xu[r] @ xu.T, 0.0)
-        d = d.masked_fill((cols[None, :] == r[:, None]) | (d > eps_t),
-                          INF_DIST)
+    for s in range(0, row_ids.shape[0], _ROW_BLOCK):
+        r = row_ids[s:s + _ROW_BLOCK]
+        d = 1.0 - torch.clamp_min(_cosines(xu[r], xu, col_start, tile), 0.0)
+        self_ids = r
+        if perm is not None:
+            d, self_ids = d[:, inv], perm[r]
+        d = d.masked_fill((col_ids[None, :] == self_ids[:, None])
+                          | (d > eps_t), INF_DIST)
+        ids = col_ids.expand(d.shape[0], -1)
+        if seed is not None:
+            d = torch.cat([seed[0][s:s + _ROW_BLOCK].to(d.dtype), d], dim=1)
+            ids = torch.cat([seed[1][s:s + _ROW_BLOCK].to(ids.dtype), ids],
+                            dim=1)
+        if d.shape[1] < k:
+            d = torch.nn.functional.pad(d, (0, k - d.shape[1]),
+                                        value=INF_DIST)
+            ids = torch.nn.functional.pad(ids, (0, k - ids.shape[1]),
+                                          value=-1)
         d, order = torch.sort(d, dim=1, stable=True)
-        d, order = d[:, :k], order[:, :k]
+        d = d[:, :k]
+        i = torch.gather(ids, 1, order[:, :k])
         out_d.append(d)
-        out_i.append(torch.where(d < INF_DIST, order, -1).to(torch.int32))
-    if not out_d:
-        return (xu.new_empty((0, k)),
-                torch.empty((0, k), dtype=torch.int32, device=xu.device))
-    return torch.cat(out_d), torch.cat(out_i)
+        out_i.append(torch.where(d < INF_DIST, i, -1).to(torch.int32))
+    d = torch.cat(out_d) if out_d else xu.new_empty((0, k))
+    i = (torch.cat(out_i) if out_i
+         else torch.empty((0, k), dtype=torch.int32, device=dev))
+    if perm is None:
+        return d, i
+    full_d = torch.full((n, k), INF_DIST, dtype=xu.dtype, device=dev)
+    full_i = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    full_d[perm[row_ids]] = d
+    full_i[perm[row_ids]] = i
+    return full_d, full_i
+
+
+def knn_plain_reordered(xu: torch.Tensor, k: int, eps: float,
+                        perm: torch.Tensor):
+    """The reorder variant's plain version: permute the corpus by ``perm``,
+    scan it, map the columns to their original ids, sort each row by
+    (distance, original id) and un-permute the rows: the default scan's
+    result on any data, ties included."""
+    return knn_plain(xu[perm.to(device=xu.device, dtype=torch.int64)], k,
+                     eps, perm=perm)
 
 
 def _lib():
@@ -61,16 +136,16 @@ def _lib():
     lib.knn_launch.restype = ctypes.c_int
     lib.knn_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
-             row_count: int | None = None):
-    """(dist [R, k], idx [R, k] int32) for rows [row_start, row_start + R)
-    of the unit corpus ``xu`` [N, F] against all N columns."""
-    global LAUNCHES
+def check_corpus(xu: torch.Tensor, k: int, row_start: int,
+                 row_count: int | None, kernel: str = "k-NN") -> int:
+    """Validate a scan's corpus and row range; returns the row count.  On
+    a CUDA tensor also the kernels' type, layout and size limits."""
     if xu.dim() != 2:
         raise ValueError(f"xu must be [N, F], got shape {tuple(xu.shape)}")
     n, f = xu.shape
@@ -80,27 +155,70 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
         raise ValueError(f"row range [{row_start}, {row_start + row_count}) "
                          f"outside [0, {n})")
     if xu.device.type == "cpu":
-        return knn_plain(xu, k, eps, slice(row_start, row_start + row_count))
+        return row_count
     if xu.device.type != "cuda":
         raise ValueError(f"unsupported device {xu.device}")
     if xu.dtype != torch.float32:
-        raise TypeError(f"the k-NN kernel takes float32, got {xu.dtype}")
+        raise TypeError(f"the {kernel} kernel takes float32, got {xu.dtype}")
     if not xu.is_contiguous():
-        raise ValueError("the k-NN kernel takes a contiguous corpus")
+        raise ValueError(f"the {kernel} kernel takes a contiguous corpus")
     if k < 1:
-        raise ValueError(f"the k-NN kernel takes k >= 1, got {k}")
+        raise ValueError(f"the {kernel} kernel takes k >= 1, got {k}")
     if (n == 0 or f == 0 or n >= 2 ** 31 // max(f, 1)
             or row_count >= 2 ** 31 // k):
         raise ValueError(f"unsupported corpus shape {tuple(xu.shape)}")
-    out_d = torch.empty((row_count, k), dtype=torch.float32, device=xu.device)
-    out_i = torch.empty((row_count, k), dtype=torch.int32, device=xu.device)
-    if row_count == 0:
+    return row_count
+
+
+def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
+             row_count: int | None = None, *, col_start: int = 0, seed=None,
+             diag_start: bool = False, perm: torch.Tensor | None = None):
+    """(dist [R, k], idx [R, k] int32) for rows [row_start, row_start + R)
+    of the unit corpus ``xu`` [N, F] against the columns [col_start, N).
+
+    ``seed`` = (d, i) [R, k] sorted lists whose ids are all below
+    col_start (the stored lists of the rows, for the extend).
+    ``diag_start`` walks each row block's columns from its own tile.
+    ``perm``: xu is the corpus permuted by it (int32 or int64, on xu's
+    device); the result is then [N, k] indexed by original row, with the
+    rows outside perm[row_start:row_start + R] left (2.0, -1)."""
+    global LAUNCHES, SEEDED_LAUNCHES, DIAG_START_LAUNCHES, PERM_LAUNCHES
+    n = xu.shape[0] if xu.dim() == 2 else 0
+    row_count = check_corpus(xu, k, row_start, row_count)
+    if not 0 <= col_start <= n:
+        raise ValueError(f"col_start {col_start} outside [0, {n}]")
+    if seed is not None and (perm is not None or seed[0].shape[0] != row_count
+                             or seed[0].shape != seed[1].shape):
+        raise ValueError("seed lists must be [R, k] pairs, without perm")
+    if perm is not None and (perm.shape != (n,) or col_start != 0):
+        raise ValueError("perm must be [N] with col_start 0")
+    if seed is not None and seed[0].shape[1] != k:
+        raise ValueError(f"seed lists must be {k} wide, got "
+                         f"{seed[0].shape[1]}")
+    rows = slice(row_start, row_start + row_count)
+    if xu.device.type == "cpu":
+        return knn_plain(xu, k, eps, rows, col_start, seed, perm)
+    shape = (n if perm is not None else row_count, k)
+    out_d = torch.full(shape, INF_DIST, dtype=torch.float32, device=xu.device)
+    out_i = torch.full(shape, -1, dtype=torch.int32, device=xu.device)
+    if seed is not None:
+        out_d.copy_(seed[0])
+        out_i.copy_(seed[1])
+    if row_count == 0 or col_start == n:
         return out_d, out_i
+    perm32 = None
+    if perm is not None:
+        perm32 = perm.to(device=xu.device, dtype=torch.int32).contiguous()
     lib = _lib()
     stream = torch.cuda.current_stream(xu.device).cuda_stream
-    err = lib.knn_launch(xu.data_ptr(), n, f, row_start, row_count,
-                         float(eps), k, out_d.data_ptr(), out_i.data_ptr(),
-                         xu.device.index or 0, stream)
+    err = lib.knn_launch(xu.data_ptr(), n, xu.shape[1], row_start, row_count,
+                         float(eps), k, col_start, int(diag_start),
+                         perm32.data_ptr() if perm32 is not None else None,
+                         int(seed is not None), out_d.data_ptr(),
+                         out_i.data_ptr(), xu.device.index or 0, stream)
     _build.check(lib, "knn", err)
     LAUNCHES += 1
+    SEEDED_LAUNCHES += seed is not None
+    DIAG_START_LAUNCHES += bool(diag_start)
+    PERM_LAUNCHES += perm is not None
     return out_d, out_i

@@ -304,6 +304,8 @@ def route(ivf: BlockedIVF, qn32, lamq32, tau, *, qb: int, n_probe: int,
         top2 = _topk_ids(sims_pad, n_vote)
         valid_q = (torch.arange(q_pad, device=dev) < q).to(_F32)
         block_ids = (torch.arange(q_pad, device=dev) // qb)[:, None]
+        # Votes are 0 / 1: their float sums are exact in any order, so the
+        # atomics of index_add_ give the same bits on every run.
         votes = torch.zeros(n_blocks * n_k, dtype=_F32, device=dev)
         votes.index_add_(0, (block_ids * n_k + top2).reshape(-1),
                          valid_q[:, None].expand(-1, n_vote).reshape(-1))

@@ -14,10 +14,10 @@ empty-cluster reseeding, ``reduce_corpus(reseed_empty=True)``),
 Every random draw is a numpy ``default_rng`` draw in the same calls and
 the same order as the reference, and the reseeding's Gumbel noise is the
 reference's ``jax.random`` stream (utils/prng.py), so on CPU the port
-picks the same sample, initial centroids and reseeds.  On CUDA the
-centroid sums use ``index_add_``, whose float atomics sum in an order that
-changes from run to run: the centroids there are close to the
-reference's, not bitwise equal.
+picks the same sample, initial centroids and reseeds.  The centroid sums
+are ``utils.stats.segment_sum``: a sorted segment sum with no atomics, so
+two runs on the card give the same bits (close to the reference's, not
+equal to them); on the CPU it adds the rows in row order.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 from ..utils import prng
 from ..utils.debug import dbg_println
 from ..utils.logging import get_logger
-from ..utils.stats import median
+from ..utils.stats import median, segment_sum
 
 log_sampling = get_logger("sampling")
 log_clustering = get_logger("clustering")
@@ -117,10 +117,9 @@ def _centroid_update(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor):
     cluster sizes."""
     k = c.shape[0]
     a = a.to(torch.int64)
-    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype,
-                       device=x.device).index_add_(0, a, x)
-    cnts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(
-        0, a, torch.ones((x.shape[0],), dtype=x.dtype, device=x.device))
+    sums = segment_sum(x, a, k)
+    # Counts are integers: exact in any order.
+    cnts = torch.bincount(a, minlength=k).to(x.dtype)
     return torch.where(cnts[:, None] > 0,
                        sums / torch.clamp_min(cnts[:, None], 1.0), c), cnts
 
@@ -195,9 +194,7 @@ def _radius_stats(x: torch.Tensor, c: torch.Tensor):
     far = torch.full((k,), torch.iinfo(torch.int32).min, dtype=torch.int32,
                      device=x.device).scatter_reduce_(
         0, a64, torch.where(is_far, ids, -1), "amax")
-    sizes = torch.zeros((k,), dtype=torch.int64,
-                        device=x.device).index_add_(0, a64,
-                                                    torch.ones_like(a64))
+    sizes = torch.bincount(a64, minlength=k)
     return a, rmax2, far, sizes
 
 

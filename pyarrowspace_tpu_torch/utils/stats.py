@@ -1,9 +1,14 @@
-"""Medians with NumPy's even-count rule.
+"""Medians with NumPy's even-count rule, and segment sums in a fixed order.
 
 ``torch.median`` / ``torch.nanmedian`` return the LOWER of the two middle
 values of an even count; ``numpy.median`` and ``jax.numpy.median`` return
 their mean.  τ* (median energy) and the feature graph's kept-distance
 medians need the latter.
+
+``index_add_`` on a CUDA tensor sums with float atomics, in an order that
+changes from run to run, so two builds of the same rows would differ in
+the last bits of every centroid; ``segment_sum`` uses no atomics, so its
+order is fixed.
 """
 
 from __future__ import annotations
@@ -29,3 +34,20 @@ def median(x: torch.Tensor, dim: int | None = None,
     low = torch.gather(s, dim, half // 2)
     high = torch.gather(s, dim, (half + 1) // 2)
     return ((low + high) * 0.5).squeeze(dim)
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor,
+                n_seg: int) -> torch.Tensor:
+    """sum of values[r] over the rows r of each segment, [n_seg, ...].
+
+    The rows are sorted stably by segment and each segment is reduced by
+    ``torch.segment_reduce``, with no atomics: the same bits on every run.
+    On the CPU that reduction adds each segment's rows in row order from
+    zero, which gives ``index_add_``'s bits; on CUDA its order is fixed
+    too, though not always row order (1-D sums go through CUB's segmented
+    reduce)."""
+    seg = seg.to(torch.int64)
+    order = torch.sort(seg, stable=True).indices
+    lengths = torch.bincount(seg, minlength=n_seg)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths,
+                                axis=0, unsafe=True)
