@@ -7,12 +7,17 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
 
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
-     all started together);
+     all started together); ptxas's registers and spills of K1 and K2;
   1. K1 (csrc/knn.cu) against its plain version on a 313,841 x 384 unit
-     corpus (eps 1.31, k 25): 2,048 random rows, distances within 1e-5 and
-     ids equal up to near-ties; d(i, j) == d(j, i) bitwise on 10,000 kept
-     mutual pairs; kernel and plain timed on the same 16,384 rows; the
-     same check at k 100 (a list wider than 64) on 2,048 rows;
+     corpus (eps 1.31, k 25): its one launch over the whole corpus timed
+     beside its bound (each of the N (N + 1) / 2 distinct pairs' products
+     once: d(i, j) == d(j, i)); 2,048 random rows, distances within 1e-5
+     and ids equal up to near-ties; d(i, j) == d(j, i) bitwise on 10,000
+     kept mutual pairs; on the 16,384 timed rows K1's lists equal K1t's
+     (csrc/knn_t.cu, the older product) bit for bit; kernel and plain
+     timed on those rows, with one torch.mm of the same fp32 product (TF32
+     off) as a yardstick; the same check at k 100 (the 4-word list) on
+     2,048 rows, and K1 at k 100 and k 200 timed on the 16,384 rows;
   3. the main path: ArrowSpaceBuilder.build at 313,841 x 384 with the CVE
      graph params (a warm-up build, then a timed one), search_batch(
      mode="exact") over 8 batches of 4,096 queries, 3 single searches.
@@ -23,7 +28,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      for bit (the Lloyd sums use no float atomics);
   2. K2 (csrc/scan_topk.cu) against its plain version on the built index:
      4,096 queries, tau 0.62, k 15, scores within 1e-5; and k 200 on 1,024
-     queries;
+     queries; at both, every (query, id, score) K2 returns equals bit for
+     bit the blend (tile::blend's op order, in PyTorch) of K5's cosine
+     (csrc/gather_score.cu, the older product) for that id; the torch.mm
+     yardstick beside K2's time; K2 at k 200 timed on the 4,096 queries;
   5. subtile serving on that index: search_batch(mode="subtile"), then
      mode="auto", over the same 8 batches, each after a warm-up, with the
      counts reset before each: K3, K4b, K5 and K4a must all have run, each
@@ -76,8 +84,9 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      every query whose exact top-15 lies in K7's pool of 60;
   11. the bfloat16 serving view (as_serving) of that index: exact search
      over its 8 batches (K2 over bf16 rows must have run), K2-bf16 against
-     its plain version on the first batch, timed in turns; the overlap with
-     float32 exact (no rescore: at least 0.9);
+     its plain version on the first batch, timed in turns, and its scores
+     bit for bit K5's (bf16 rows) blended; the overlap with float32 exact
+     (no rescore: at least 0.9);
   12. hybrid search and gather IVF (n_probe 8) over 2 batches, QPS and
      overlap with exact; build_energy on the same 313,841 rows
      (optical_tokens 40, the CVE graph params) with its phase seconds and
@@ -119,8 +128,25 @@ times, its bound (the larger of its operations over the H100's peak for
 their type and its bytes over 3.35 TB/s, from this run's shapes; K5 and
 K6 count the rows this run's routing reads, seeded K1 the new columns)
 and the time of torch.topk where one PyTorch call computes the same
-function (K4a, K4b; null elsewhere); the last line is {"ok": true,
-"device": {...}}.
+function (K4a, K4b; null elsewhere).  K1 and K2 also carry product_ms:
+one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
+library matmul on the same operands that the port never calls (it is not
+the same function: no mask, blend or top-k, and another summation order),
+and K1 its whole-corpus launch (full_ms, full_bound_ms).  The last line
+is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --against DIR [DIR ...]
+
+compares other checkouts of the repository (a parent's tree unpacked with
+git archive, say) with this one on the same card, instead of the phases:
+each tree's package runs this script's phases 0-3 and 11 (with their
+checks) in a process of its own, in turns (the others, this tree, this
+tree, the others reversed), and each turn prints what those phases
+measured: K1 over the whole corpus, over 16,384 rows and at k 100, 200
+and 1,024, K2 at Q 4,096 over float32 and bfloat16 rows and at k 200 and
+1,024, the build seconds with the knn phase, and exact QPS.  Then every
+run's k-NN lists, lambdas and exact top-k ids must equal this tree's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -140,6 +166,7 @@ TOL = 1e-5            # kernel vs plain version: summation order differs
 Q_BATCH, N_BATCHES, TAU = 4096, 8, 0.62
 K1_CHECK_ROWS, K1_TIME_ROWS = 2048, 16_384
 K1_WIDE, K2_WIDE, K2_WIDE_QUERIES = 100, 200, 1024
+K1_DEVICE_LIST = 200  # a K1 list past 128, in device memory: timed
 K_WIDEST = 1024       # lists past 256: kept in place in device memory
 MIN_OVERLAP = 0.99
 N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
@@ -192,6 +219,44 @@ def _bound(ops: float, kind: str, nbytes: float) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _product_ms(torch, a, b) -> float:
+    """ms of one torch.mm(a, b.T) in float32 with TF32 off (warm): the
+    yardstick of K1's and K2's product, never called by the port."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = torch.empty((a.shape[0], b.shape[0]), device=a.device)
+    torch.mm(a, b.T, out=out)
+    ms = _events_ms(lambda: torch.mm(a, b.T, out=out), torch)
+    del out
+    return ms
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Two float32 (or int32) tensors equal in every bit."""
+    view = (lambda t: t.view(torch.int32)
+            if t.dtype == torch.float32 else t)
+    return a.shape == b.shape and torch.equal(view(a), view(b))
+
+
+def _own_compare():
+    """This checkout's ops/cuda/compare.py (topk_disagreements, k5_blend),
+    loaded by path: with --measure the package imported is another
+    checkout's, and its kernels are held to this checkout's checks."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "pyarrowspace_tpu_torch", "ops", "cuda", "compare.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_compare", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _k1_pairs(rows: int, n: int) -> float:
+    """Distinct pairs of ``rows`` corpus rows with all ``n`` rows: d(i, j)
+    == d(j, i) bit for bit, so a pair whose two rows are both among the
+    scanned ones needs its product once."""
+    return rows * n - rows * (rows - 1) / 2
 
 
 def _reset_launches() -> None:
@@ -949,6 +1014,8 @@ def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
     lamq = _query_lambdas32(torch, aspace, qb)
     qn = unit_normalize(qb).contiguous()
     i_k, s_k = scan_topk.lambda_search(xb, lam, qn, lamq, TAU, topk)
+    witness = _bits_equal(torch, s_k, _own_compare().k5_blend(
+        xb, lam, qn, lamq, TAU, i_k))
     i_p, s_p = scan_topk.scan_plain(xb, lam, qn, lamq, TAU, topk)
     s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
     bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
@@ -969,8 +1036,11 @@ def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
           f"disagreeing queries {len(bad)}; kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
           f"({bound['bound_by']}) {card}")
+    print(f"phase 11: K2 over bf16 rows == K5 + blend bit for bit on "
+          f"{Q_BATCH} queries x {topk}: {witness}")
     checks = {"K2 launched on the bf16 path": launches["scan_topk"] > 0,
               "K2 bf16 == plain": not bad and err <= TOL,
+              "K2 bf16 == K5 + blend bitwise": witness,
               f"overlap >= {MIN_BF16_OVERLAP}": overlap >= MIN_BF16_OVERLAP,
               "result shapes": all(o[0].shape == (Q_BATCH, topk)
                                    and np.all(np.isfinite(o[1]))
@@ -1227,7 +1297,7 @@ def _phase_variants(torch, items, xu, aspace, gl, card, results) -> None:
                                lambda: kernel(K1_TIME_ROWS), torch)
         results[name] = dict(
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
-            **_bound(2.0 * K1_TIME_ROWS * N * F, "fp32",
+            **_bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
                      N * F * 4 + K1_TIME_ROWS * k * 8))
         print(f"phase 14: {name} on {K1_CHECK_ROWS} rows vs plain: "
               f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; on "
@@ -1422,7 +1492,87 @@ def _phase_lifecycle(torch, items, aspace, gl, batches, card,
                              f"same {life['served_same']}")
 
 
-def main() -> int:
+def _ptxas_summary(build, name: str) -> str:
+    """Registers and spill stores of the kernels of csrc/<name>.cu, from
+    ptxas's report that the build keeps beside the library (none when the
+    build keeps no report)."""
+    log = build.library_path(name).with_suffix(".ptxas.txt")
+    if not log.exists():
+        return "no report"
+    regs, spills = [], []
+    for line in log.read_text().splitlines():
+        if "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used ")[1].split()[0]))
+        elif "spill stores" in line:
+            spills.append(int(line.split("bytes stack frame, ")[1].split()[0]))
+    return (f"{len(regs)} kernels, registers {min(regs, default=0)}-"
+            f"{max(regs, default=0)}, spill stores up to "
+            f"{max(spills, default=0)} B")
+
+
+def _measures(results: dict) -> dict:
+    """The numbers --against compares, as this run's phases took them."""
+    wide = results["wide"]
+    return {"k1_full_ms": results["knn"]["full_ms"],
+            "k1_ms": results["knn"]["ms"],
+            "k1_k100_ms": wide["knn_k100"]["ms"],
+            "k1_k200_ms": wide["knn_k200"]["ms"],
+            "k1_k1024_ms": wide["knn"]["ms"],
+            "k2_ms": results["scan_topk"]["ms"],
+            "k2_k200_ms": wide["scan_topk_k200"]["ms"],
+            "k2_k1024_ms": wide["scan_topk"]["ms"],
+            "k2_bf16_ms": results["scan_topk_bf16"]["ms"],
+            "build_s": results["build_s"],
+            "knn_phase_s": results["knn_phase_s"],
+            "exact_qps": results["exact_qps"]}
+
+
+def _against(trees: list[str]) -> int:
+    """--against: each tree's package through this script's phases 0-3 and
+    11, in turns, then every run's k-NN lists, lambdas and exact top-k ids
+    against this tree's."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    trees = [os.path.abspath(t) for t in trees]
+    order = trees + [root, root] + trees[::-1]
+    runs, same = [], True
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, tree in enumerate(order):
+            out = os.path.join(tmp, f"{turn}.npz")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--measure",
+                 tree, out], capture_output=True, text=True)
+            lines = proc.stdout.strip().splitlines()
+            if proc.returncode != 0 or not lines:
+                print(proc.stdout[-4000:], proc.stderr[-4000:])
+                return 1
+            if turn == 0:
+                print(lines[0])                        # the card
+            for line in lines:
+                if "ptxas" in line:
+                    print(f"turn {turn}: {line}")
+            runs.append(json.loads(lines[-1]))
+            print(f"turn {turn} {tree}: {json.dumps(runs[-1])}", flush=True)
+        ref = np.load(os.path.join(tmp, f"{len(trees)}.npz"))
+        for turn, tree in enumerate(order):
+            got = np.load(os.path.join(tmp, f"{turn}.npz"))
+            diff = [key for key in ref.files
+                    if not np.array_equal(got[key].view(np.uint8),
+                                          ref[key].view(np.uint8))]
+            same &= not diff
+            print(f"turn {turn} {tree}: differing from this tree: {diff}")
+    for tree in dict.fromkeys(order):
+        mine = [r for r, t in zip(runs, order) if t == tree]
+        print(f"mean {tree}: " + json.dumps(
+            {key: sum(r[key] for r in mine) / len(mine) for key in mine[0]}))
+    return 0 if same else 1
+
+
+def main(tree: str | None = None, dump: str | None = None) -> int:
+    """Every phase; or, with ``tree`` (--measure), the package of that
+    checkout through phases 0-3 and 11 only, phase 3's k-NN lists, lambdas
+    and exact top-k ids saved to ``dump`` (npz) and the measures printed as
+    the last line."""
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -1430,8 +1580,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
     sys.path.insert(0, os.path.join(root, "tests"))
+    sys.path.insert(0, os.path.abspath(tree or root))
     try:
         import pyarrowspace_tpu_torch as pt
         from data_test0 import (EXPECTED_ORDERINGS, GRAPH_PARAMS_TEST0,
@@ -1442,12 +1592,13 @@ def main() -> int:
         return 1
     from pyarrowspace_tpu_torch import _build
     from pyarrowspace_tpu_torch.ops import search as search_ops
-    from pyarrowspace_tpu_torch.ops.cuda import knn, scan_topk
+    from pyarrowspace_tpu_torch.ops.cuda import knn, knn_t, scan_topk
     from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
                                                          topk_disagreements)
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
 
     assert "jax" not in sys.modules, "the port must not import jax"
+    assert pt.__file__.startswith(os.path.abspath(tree or root) + os.sep)
     dev = torch.device("cuda")
     failed: list[str] = []
     results: dict = {}
@@ -1466,6 +1617,8 @@ def main() -> int:
     for name, secs in _build.load_all(KERNEL_SOURCES).items():
         print(f"phase 0: built csrc/{name}.cu in {secs:.3f} s {card}")
     print(f"phase 0: all kernels built in {time.perf_counter() - t0:.3f} s")
+    for name in ("knn", "scan_topk"):
+        print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
 
     rng = np.random.default_rng(42)
     items_host = rng.standard_normal((N, F), dtype=np.float32) * 12.0
@@ -1499,16 +1652,32 @@ def main() -> int:
         t = back[mutual][:10_000].argmax(axis=1)
         sym = np.array_equal(d_np[r, s].view(np.uint32),
                              d_np[j, t].view(np.uint32))
+        # The witness: K1t keeps tile_common.cuh's product.
+        dt, it = knn_t.knn_scan_t(xu, k, eps, 0, K1_TIME_ROWS)
+        witness = (_bits_equal(torch, d[:K1_TIME_ROWS], dt)
+                   and _bits_equal(torch, i[:K1_TIME_ROWS], it))
+        del dt, it
         k_ms, p_ms = _in_turns(
             lambda: knn.knn_plain(xu, k, eps, rows=slice(0, K1_TIME_ROWS)),
             lambda: knn.knn_scan(xu, k, eps, 0, K1_TIME_ROWS), torch)
+        mm_ms = _product_ms(torch, xu[:K1_TIME_ROWS], xu)
+        full_bound = _bound(2.0 * _k1_pairs(N, N) * F, "fp32",
+                            N * F * 4 + N * k * 8)
         results["knn"] = dict(
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
-            **_bound(2.0 * K1_TIME_ROWS * N * F, "fp32",
-                     N * F * 4 + K1_TIME_ROWS * k * 8))
-        print(f"phase 1: K1 full corpus {N}x{F} k={k}: {full_ms:.3f} ms; "
-              f"{K1_TIME_ROWS} rows: kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms {card}")
+            **_bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
+                     N * F * 4 + K1_TIME_ROWS * k * 8),
+            product_ms=mm_ms, full_ms=full_ms,
+            full_bound_ms=full_bound["bound_ms"])
+        print(f"phase 1: K1 full corpus {N}x{F} k={k}: {full_ms:.3f} ms, "
+              f"bound {full_bound['bound_ms']:.3f} ms "
+              f"({full_bound['bound_by']}); {K1_TIME_ROWS} rows: kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{results['knn']['bound_ms']:.3f} ms; yardstick torch.mm "
+              f"[{K1_TIME_ROWS},{F}]x[{F},{N}] fp32 (not called by the "
+              f"port) {mm_ms:.3f} ms {card}")
+        print(f"phase 1: K1 == K1t bit for bit on {K1_TIME_ROWS} rows: "
+              f"{witness}")
         print(f"phase 1: K1 vs plain on {K1_CHECK_ROWS} rows: "
               f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; "
               f"bitwise d(i,j)==d(j,i) on {r.size} mutual pairs: {sym}")
@@ -1518,8 +1687,12 @@ def main() -> int:
         bad_w = topk_disagreements(dw.cpu().numpy(), iw.cpu().numpy(),
                                    dwp.cpu().numpy(), iwp.cpu().numpy(), TOL)
         err_w = max_abs_err(dw.cpu().numpy(), dwp.cpu().numpy())
+        k_wide_ms = sum(_events_ms(lambda: knn.knn_scan(
+            xu, K1_WIDE, eps, 0, K1_TIME_ROWS), torch) for _ in range(2)) / 2
         print(f"phase 1: K1 at k={K1_WIDE} vs plain on {K1_CHECK_ROWS} rows: "
-              f"max_abs_err {err_w:.3e}, disagreeing rows {len(bad_w)}")
+              f"max_abs_err {err_w:.3e}, disagreeing rows {len(bad_w)}; on "
+              f"{K1_TIME_ROWS} rows {k_wide_ms:.3f} ms (k={k}: {k_ms:.3f} ms)"
+              f" {card}")
         # The wide list (k > 256), in place in the output rows.
         dx, ix = knn.knn_scan(xu, K_WIDEST, eps, 0, K1_CHECK_ROWS)
         dxp, ixp = knn.knn_plain(xu, K_WIDEST, eps,
@@ -1533,18 +1706,28 @@ def main() -> int:
             lambda: knn.knn_scan(xu, K_WIDEST, eps, 0, K1_CHECK_ROWS), torch)
         narrow_ms = _events_ms(
             lambda: knn.knn_scan(xu, k, eps, 0, K1_CHECK_ROWS), torch)
+        k_device_ms = sum(_events_ms(lambda: knn.knn_scan(
+            xu, K1_DEVICE_LIST, eps, 0, K1_TIME_ROWS), torch)
+            for _ in range(2)) / 2
         results["wide"] = {"knn": dict(k=K_WIDEST, ms=wide_ms,
                                        plain_ms=wide_plain_ms,
-                                       narrow_ms=narrow_ms)}
+                                       narrow_ms=narrow_ms),
+                           "knn_k100": dict(k=K1_WIDE, rows=K1_TIME_ROWS,
+                                            ms=k_wide_ms),
+                           "knn_k200": dict(k=K1_DEVICE_LIST,
+                                            rows=K1_TIME_ROWS,
+                                            ms=k_device_ms)}
+        print(f"phase 1: K1 at k={K1_DEVICE_LIST} on {K1_TIME_ROWS} rows "
+              f"{k_device_ms:.3f} ms {card}")
         print(f"phase 1: K1 at k={K_WIDEST} vs plain on {K1_CHECK_ROWS} "
               f"rows: max_abs_err {err_x:.3e}, disagreeing rows "
               f"{len(bad_x)}; kernel {wide_ms:.3f} ms (k={k}: "
               f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms {card}")
         results["knn"]["max_abs_err"] = max(err, err_w, err_x)
         if bad or err > TOL or not sym or r.size < 10_000 or bad_w \
-                or err_w > TOL or bad_x or err_x > TOL:
+                or err_w > TOL or bad_x or err_x > TOL or not witness:
             raise AssertionError(f"K1 check failed: rows {bad[:10]}, "
-                                 f"err {err}, symmetric {sym}, "
+                                 f"err {err}, symmetric {sym}, K1t {witness}, "
                                  f"pairs {r.size}, k={K1_WIDE} rows "
                                  f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
                                  f"rows {bad_x[:10]} err {err_x}")
@@ -1586,7 +1769,8 @@ def main() -> int:
                 for x in singles]
         launches = _launches()
         qps = Q_BATCH * N_BATCHES / t_search
-        results["exact_qps"] = qps
+        results.update(exact_qps=qps, build_s=t_build,
+                       knn_phase_s=phases["knn"])
         print(f"phase 3: build {N}x{F}: warm-up {t_warm:.3f} s, timed "
               f"{t_build:.3f} s {card}")
         print(f"phase 3: build phases (s) "
@@ -1650,6 +1834,8 @@ def main() -> int:
         topk = GP["topk"]
         xs, lams = aspace._data_unit, aspace._lambdas
         i_k, s_k = scan_topk.lambda_search(xs, lams, qn, lam_q, TAU, topk)
+        witness = _bits_equal(torch, s_k, _own_compare().k5_blend(
+            xs, lams, qn, lam_q, TAU, i_k))
         i_p, s_p = scan_topk.scan_plain(xs, lams, qn, lam_q, TAU, topk)
         s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
         s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
@@ -1659,24 +1845,39 @@ def main() -> int:
             lambda: scan_topk.scan_plain(xs, lams, qn, lam_q, TAU, topk),
             lambda: scan_topk.lambda_search(xs, lams, qn, lam_q, TAU, topk),
             torch)
+        mm_ms = _product_ms(torch, qn, xs)
         results["scan_topk"] = dict(
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
             **_bound(2.0 * Q_BATCH * N * F, "fp32",
-                     N * (F + 1) * 4 + Q_BATCH * ((F + 1) * 4 + topk * 8)))
+                     N * (F + 1) * 4 + Q_BATCH * ((F + 1) * 4 + topk * 8)),
+            product_ms=mm_ms)
         print(f"phase 2: K2 Q={Q_BATCH} N={N} F={F} k={topk}: kernel "
-              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms {card}")
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{results['scan_topk']['bound_ms']:.3f} ms; yardstick "
+              f"torch.mm [{Q_BATCH},{F}]x[{F},{N}] fp32 (not called by the "
+              f"port) {mm_ms:.3f} ms {card}")
         print(f"phase 2: K2 vs plain: max_abs_err {err:.3e}, disagreeing "
               f"queries {len(bad)}")
         qw, lw = qn[:K2_WIDE_QUERIES], lam_q[:K2_WIDE_QUERIES]
         i_k, s_k = scan_topk.lambda_search(xs, lams, qw, lw, TAU, K2_WIDE)
+        witness_w = _bits_equal(torch, s_k, _own_compare().k5_blend(
+            xs, lams, qw, lw, TAU, i_k))
         i_p, s_p = scan_topk.scan_plain(xs, lams, qw, lw, TAU, K2_WIDE)
         s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
         s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
         bad_w = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
         err_w = max_abs_err(s_k, s_p)
+        k2_wide_ms = sum(_events_ms(lambda: scan_topk.lambda_search(
+            xs, lams, qn, lam_q, TAU, K2_WIDE), torch) for _ in range(2)) / 2
+        results.setdefault("wide", {})["scan_topk_k200"] = dict(
+            k=K2_WIDE, queries=Q_BATCH, ms=k2_wide_ms)
         print(f"phase 2: K2 at k={K2_WIDE} vs plain on {K2_WIDE_QUERIES} "
               f"queries: max_abs_err {err_w:.3e}, disagreeing queries "
-              f"{len(bad_w)}")
+              f"{len(bad_w)}; on {Q_BATCH} queries {k2_wide_ms:.3f} ms (k="
+              f"{topk}: {k_ms:.3f} ms) {card}")
+        print(f"phase 2: K2 == K5 + blend bit for bit: {witness} at k="
+              f"{topk} on {Q_BATCH} queries, {witness_w} at k={K2_WIDE} on "
+              f"{K2_WIDE_QUERIES}")
         i_k, s_k = scan_topk.lambda_search(xs, lams, qw, lw, TAU, K_WIDEST)
         i_p, s_p = scan_topk.scan_plain(xs, lams, qw, lw, TAU, K_WIDEST)
         s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
@@ -1698,9 +1899,11 @@ def main() -> int:
               f"{len(bad_x)}; kernel {wide_ms:.3f} ms (k={topk}: "
               f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms {card}")
         results["scan_topk"]["max_abs_err"] = max(err, err_w, err_x)
-        if bad or err > TOL or bad_w or err_w > TOL or bad_x or err_x > TOL:
+        if bad or err > TOL or bad_w or err_w > TOL or bad_x or err_x > TOL \
+                or not (witness and witness_w):
             raise AssertionError(f"K2 check failed: queries {bad[:10]}, "
-                                 f"err {err}, k={K2_WIDE} queries "
+                                 f"err {err}, K5 {witness} / {witness_w}, "
+                                 f"k={K2_WIDE} queries "
                                  f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
                                  f"queries {bad_x[:10]} err {err_x}")
     except Exception:
@@ -1740,6 +1943,8 @@ def main() -> int:
                                       card, results)),
             ("phase 9 (1M x 768 certified serving)",
              lambda: _phase_certified_1m(torch, dev, card, results))):
+        if tree is not None and not label.startswith("phase 11 "):
+            continue
         try:
             if aspace is None:
                 raise RuntimeError("no index: phase 3 failed")
@@ -1747,6 +1952,17 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failed.append(label)
+
+    if tree is not None:
+        if failed:
+            print(f"chip_smoke: FAILED {failed}", file=sys.stderr)
+            return 1
+        np.savez(dump, knn_dist=aspace._knn_dist.cpu().numpy(),
+                 knn_idx=aspace._knn_idx.cpu().numpy(),
+                 lambdas=aspace._lambdas.cpu().numpy(),
+                 ids=np.stack([o[0] for o in outs]))
+        print(json.dumps(_measures(results)))
+        return 0
 
     # -- phase 4: reference parity on the card in float32 ---------------------
     try:
@@ -1818,4 +2034,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) > 2:
+        sys.exit(_against(sys.argv[2:]))
+    if sys.argv[1:2] == ["--measure"] and len(sys.argv) == 4:
+        sys.exit(main(*sys.argv[2:]))
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

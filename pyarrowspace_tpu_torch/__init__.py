@@ -37,7 +37,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .builder import ArrowSpaceBuilder  # noqa: E402
 from .core.laplacian import GraphLaplacian  # noqa: E402
-from .core.params import GraphParams, TauMode  # noqa: E402
+from .core.params import (EnergyParams, GraphParams, TauMode,  # noqa: E402
+                          parse_energy_params, parse_graph_params)
 from .core.space import ArrowItem, ArrowSpace  # noqa: E402
 from .graph.build import BuildConfig  # noqa: E402
 from .utils.debug import get_phase_timings, set_debug  # noqa: E402
@@ -50,9 +51,12 @@ __all__ = [
     "ArrowItem",
     "GraphLaplacian",
     "GraphParams",
+    "EnergyParams",
     "TauMode",
     "BuildConfig",
     "set_debug",
     "get_phase_timings",
+    "parse_graph_params",
+    "parse_energy_params",
     "__version__",
 ]

@@ -53,8 +53,9 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiling it first if no
-    library for this exact source exists yet.  Loads of different names
-    compile concurrently."""
+    library for this exact source exists yet, keeping ptxas's report of its
+    registers and spills beside it (``lib<name>-<hash>.ptxas.txt``).  Loads
+    of different names compile concurrently."""
     with _LOCK:
         name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with name_lock:
@@ -65,12 +66,15 @@ def load(name: str) -> ctypes.CDLL:
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n"
                                    f"{proc.stdout}\n{proc.stderr}")
+            report = tmp.with_suffix(".ptxas")
+            report.write_text(proc.stderr)
+            os.replace(report, out.with_suffix(".ptxas.txt"))
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         with _LOCK:

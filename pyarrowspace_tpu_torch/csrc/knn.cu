@@ -9,48 +9,50 @@
 // and d > eps masked to 2.0 before the merge; missing entries stay (2.0,
 // -1).  Rows come out ascending by (distance, id).
 //
-// What bounds it on the H100: the products.  At 313,841 x 384 the scan is
-// 313,841^2 x 384 x 2 = 75.6 TFLOP of fp32 multiply-adds, against 67
-// TFLOP/s of fp32 outside the tensor cores; the merge touches each of the
-// N^2 candidates once (a compare against the row's kth) and inserts only
-// about k (1 + ln(N / k)) times per row.
+// What bounds it on the H100: the products.  At 313,841 x 384 the scan
+// computes 313,841^2 x 384 x 2 = 75.6 TFLOP of fp32 multiply-adds, against
+// 67 TFLOP/s of fp32 outside the tensor cores (1.129 s); since d(i, j) ==
+// d(j, i) bit for bit, the function needs only half of them (0.564 s: a
+// walk over one triangle is not built yet).  The merge touches
+// each of the N^2 candidates once (a compare against the row's kth) and
+// inserts only about k (1 + ln(N / k)) times per row.
 //
-// The simple design: one block of 256 threads per 64-row block; the block
-// walks the 64-column tiles (nothing carries between blocks on a GPU, so
-// the TPU's sequential grid axis becomes this loop).  Per tile: a
-// shared-memory tiled fp32 product with feature slabs of 32 and 4 x 4
-// accumulators a thread (tile_common.cuh), the mask epilogue into a shared
-// 64 x 64 tile, then one warp per row offers the improving candidates to
-// the row's running list.  The result is exact in fp32, and d(i, j) ==
-// d(j, i) bitwise.  Lists of k <= 256 live in shared memory, as templates
-// on words per lane (2, 4, 8; the launcher takes the narrowest that holds
-// k); lists of k > 256 would take 64 x k x 8 bytes of shared memory (512 KB
-// at k 1,024), so they are kept in place in the output rows and shifted
-// there (tile_common.cuh offer_wide).  wgmma, TMA and pipelining are later
-// work.
+// The design: one block of 256 threads per 128-row block; the block walks
+// the 128-column tiles (nothing carries between blocks on a GPU, so the
+// TPU's sequential grid axis becomes this loop).  Per tile: the
+// register-tiled fp32 product of ffma_tile.cuh (8 x 8 outputs a thread,
+// a two-stage ring of 32-feature slabs fed by register prefetch), the mask
+// epilogue into a shared 128 x 128 tile, then one warp per row offers the
+// improving candidates to the row's running list, 64 columns at a time in
+// ascending column order.  The result is exact in fp32, and d(i, j) ==
+// d(j, i) bitwise.  Lists of k <= 128 live in shared memory (2 or 4 words
+// a lane); longer lists would take 128 x k x 8 bytes (256 KB at k 256, past
+// the 227 KB a block may have with the ring), so they are kept in place in
+// the output rows and shifted there (tile_common.cuh offer_wide).
 //
-// Launch options, each keeping the one fmaf chain per pair (tile_product),
-// so every distance stays bitwise the default scan's:
+// Launch options, each keeping the one fmaf chain per pair, so every
+// distance stays bitwise the default scan's:
 //   - col_start and seeded: the walk covers [col_start, n) only, its first
 //     tile starting at col_start itself (no column before it is offered),
 //     and each list starts from the sorted list already in its output row.
 //     The incremental extend seeds old rows with their stored lists; the new
 //     column ids exceed every stored id, so the Min rule stays exact.
-//   - diag_start: block b walks the tiles from the one holding its own rows,
-//     then wraps around (the TPU kernel's locality walk).  Ids then arrive
-//     out of order, so the lists use MinLex.
+//   - diag_start: block b walks the 128-column tiles from the one holding
+//     its own rows, then wraps around (the TPU kernel's locality walk).  Ids
+//     then arrive out of order, so the lists use MinLex.
 //   - perm (reorder): xu is the corpus permuted by perm; the kernel offers
 //     the original ids perm[c] and writes row r's list to output row
 //     perm[r], with MinLex, so the result is the default scan's on any data,
 //     ties included.
 // The TPU kernel's `sub` (per-slice products and merges) has nothing to add
-// here: every 64-column tile is already merged in one slice, each row's
-// slice gated by a ballot against its kth entry.
+// here: every 64-column half of a tile is merged on its own, each row's
+// half gated by a ballot against its kth entry.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 
+#include "ffma_tile.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -58,20 +60,20 @@ namespace {
 constexpr float INF_DIST = 2.0f;
 
 template <class Order, int W>
-__global__ void __launch_bounds__(tile::THREADS)
-    knn_kernel(const float* __restrict__ xu, int n, int f, int row_start,
-               int row_count, float eps, int k, int col_start, int diag_start,
-               const int* __restrict__ perm, int seeded, float* out_d,
-               int* out_i) {
-  using namespace tile;
-  extern __shared__ float smem[];
-  auto As = reinterpret_cast<float(*)[PAD]>(smem);
-  auto Bs = reinterpret_cast<float(*)[PAD]>(smem + SLAB * PAD);
-  auto Ds = reinterpret_cast<float(*)[PAD]>(smem + 2 * SLAB * PAD);
-  __shared__ int col_ids[TILE];   // the ids offered for the tile (perm only)
+__global__ void __launch_bounds__(regtile::THREADS, 1)
+    knn_kernel(const float* __restrict__ xu, int n, int f, int vec,
+               int row_start, int row_count, float eps, int k, int col_start,
+               int diag_start, const int* __restrict__ perm, int seeded,
+               float* out_d, int* out_i) {
+  using namespace regtile;
+  extern __shared__ __align__(16) float ffma_smem[];
+  float* ring = ffma_smem;
+  float* Ds = ffma_smem;   // the tile's distances [128][RES_LD], in the ring
+  __shared__ int col_ids[TILE];          // the ids offered for the tile (perm)
+  __shared__ int row_hit[TILE];          // rows with a candidate to offer
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tx = thread_x(), ty = thread_y();
   const int lane = tid & 31, warp = tid >> 5;
   const int r0 = row_start + blockIdx.x * TILE;
   const int r_end = row_start + row_count;
@@ -84,7 +86,7 @@ __global__ void __launch_bounds__(tile::THREADS)
 
   // The block's lists [n_rows][k]: in shared memory, or in place in the
   // output rows for a wide list.
-  float* run_d = smem + TILE_FLOATS;
+  float* run_d = ffma_smem + RING_FLOATS;
   int* run_i = reinterpret_cast<int*>(run_d + TILE * k);
   for (int e = tid; e < n_rows * k; e += THREADS) {
     const int rr = e / k, s = e - rr * k;
@@ -97,36 +99,65 @@ __global__ void __launch_bounds__(tile::THREADS)
       out_i[o] = -1;
     }
   }
-  // The first barrier inside tile_product orders these writes before any
+  if (tid < TILE) row_hit[tid] = 0;
+  // The first barrier inside regtile::product orders these writes before any
   // merge reads them.
+  auto list_d = [&](int rr) {
+    return W == 0 ? out_d + out_row(rr) * k : run_d + rr * k;
+  };
+  auto list_i = [&](int rr) {
+    return W == 0 ? out_i + out_row(rr) * k : run_i + rr * k;
+  };
 
   const int n_tiles = (n - col_start + TILE - 1) / TILE;
   int t0 = 0;
   if (diag_start && r0 >= col_start) t0 = ((r0 - col_start) / TILE) % n_tiles;
-  for (int s = 0; s < n_tiles; ++s) {
+  // The first column of the s-th tile of the walk.
+  auto tile_c0 = [&](int s) {
     const int t = t0 + s < n_tiles ? t0 + s : t0 + s - n_tiles;
-    const int c0 = col_start + t * TILE;
+    return col_start + t * TILE;
+  };
+  for (int s = 0; s < n_tiles; ++s) {
+    const int c0 = tile_c0(s);
     if (perm && tid < TILE)
       col_ids[tid] = c0 + tid < n ? perm[c0 + tid] : INT_MAX;
-    float acc[4][4];
-    tile_product(xu, r0, r_end, xu, c0, n, f, As, Bs, acc);
+    float acc[MICRO][MICRO];
+    product(xu, r0, r_end, xu, c0, n, f, vec != 0, ring, acc);
+    // The masked distances into Ds; a row whose thread holds a candidate
+    // better than the row's kth entry is flagged for the merge (the lists
+    // do not change before it).
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty + 16 * i;
+    for (int i = 0; i < MICRO; ++i) {
+      const int rr = ty + 16 * i;
+      float kth = -1.0f;   // no candidate beats it: a row past the end
+      int kth_id = -1;
+      if (rr < n_rows) {
+        kth = list_d(rr)[k - 1];
+        kth_id = list_i(rr)[k - 1];
+      }
+      bool hit = false;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MICRO; ++j) {
         const int col = c0 + tx + 16 * j;
         float d = 1.0f - fmaxf(acc[i][j], 0.0f);
-        if (col == row || col >= n || d > eps) d = INF_DIST;
-        Ds[ty + 16 * i][tx + 16 * j] = d;
+        if (col == r0 + rr || col >= n || d > eps) d = INF_DIST;
+        Ds[rr * RES_LD + tx + 16 * j] = d;
+        hit |= Order::better(d, perm ? col_ids[tx + 16 * j] : col, kth,
+                             kth_id);
       }
+      if (hit) row_hit[rr] = 1;
     }
     __syncthreads();
     for (int rr = warp; rr < n_rows; rr += WARPS) {
-      float* rd = W == 0 ? out_d + out_row(rr) * k : run_d + rr * k;
-      int* ri = W == 0 ? out_i + out_row(rr) * k : run_i + rr * k;
-      merge_row<Order, W>(Ds[rr], c0, rd, ri, k, lane,
-                          perm ? col_ids : nullptr);
+      if (!row_hit[rr]) continue;
+      const float* drow = Ds + rr * RES_LD;
+      // Two halves of 64 columns, in ascending column order.  Their
+      // ballots order every lane's read of the flag before it is cleared.
+      tile::merge_row<Order, W>(drow, c0, list_d(rr), list_i(rr), k, lane,
+                                perm ? col_ids : nullptr);
+      tile::merge_row<Order, W>(drow + 64, c0 + 64, list_d(rr), list_i(rr),
+                                k, lane, perm ? col_ids + 64 : nullptr);
+      if (lane == 0) row_hit[rr] = 0;
     }
     __syncthreads();
   }
@@ -138,14 +169,6 @@ __global__ void __launch_bounds__(tile::THREADS)
       out_i[out_row(rr) * k + s] = run_i[e];
     }
   }
-}
-
-template <class Order>
-auto pick(int words) {
-  if (words == 2) return &knn_kernel<Order, 2>;
-  if (words == 4) return &knn_kernel<Order, 4>;
-  if (words == 8) return &knn_kernel<Order, 8>;
-  return &knn_kernel<Order, 0>;
 }
 
 }  // namespace
@@ -163,27 +186,36 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                float eps, int k, int col_start, int diag_start,
                const int* perm, int seeded, float* out_d, int* out_i,
                int device, void* stream) {
-  const int words = tile::list_words(k);
+  const int words = regtile::list_words(k);
   if (n <= 0 || f <= 0 || row_count <= 0 || words < 0 || row_start < 0 ||
       row_start + row_count > n || col_start < 0 || col_start >= n)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // At k = 256 the lists take 128 KB: above the 48 KB a launch gets
-  // without opting in.  Wide lists take no shared memory.
-  const size_t smem =
-      (size_t)tile::TILE_FLOATS * sizeof(float) +
-      (words == 0 ? 0 : (size_t)tile::TILE * k * (sizeof(float) + sizeof(int)));
+  // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
+  // a launch gets without opting in.  Wide lists take none.
+  const size_t smem = regtile::smem_bytes(k);
+  int smem_max = 0;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   // A rotated or permuted walk offers ids out of order: MinLex.
-  auto kernel = (diag_start || perm) ? pick<tile::MinLex>(words)
-                                     : pick<tile::Min>(words);
+  const bool lex = diag_start || perm;
+  auto kernel = lex ? &knn_kernel<tile::MinLex, 0> : &knn_kernel<tile::Min, 0>;
+  if (words == 2)
+    kernel = lex ? &knn_kernel<tile::MinLex, 2> : &knn_kernel<tile::Min, 2>;
+  else if (words == 4)
+    kernel = lex ? &knn_kernel<tile::MinLex, 4> : &knn_kernel<tile::Min, 4>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (row_count + tile::TILE - 1) / tile::TILE;
-  kernel<<<blocks, tile::THREADS, smem, (cudaStream_t)stream>>>(
-      xu, n, f, row_start, row_count, eps, k, col_start, diag_start, perm,
-      seeded, out_d, out_i);
+  const int vec = regtile::can_vectorize<float>(xu, f);
+  const int blocks = (row_count + regtile::TILE - 1) / regtile::TILE;
+  kernel<<<blocks, regtile::THREADS, smem, (cudaStream_t)stream>>>(
+      xu, n, f, vec, row_start, row_count, eps, k, col_start, diag_start,
+      perm, seeded, out_d, out_i);
   return (int)cudaGetLastError();
 }
 

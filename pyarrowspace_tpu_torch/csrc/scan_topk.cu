@@ -10,47 +10,50 @@
 // queries to bf16 as the JAX package does); bf16 values are converted to
 // float exactly on load and every score is one float32 fmaf chain.
 //
-// What bounds it on the H100: every query block of 64 reads the whole
-// corpus once (4,096 queries over 313,841 x 384 fp32: 64 passes of 482 MB),
-// and the products are Q x N x F x 2 = 0.99 TFLOP a batch of 4,096 in
-// fp32 outside the tensor cores.
+// What bounds it on the H100: the products, Q x N x F x 2 = 0.99 TFLOP a
+// batch of 4,096 queries over 313,841 x 384 in fp32 outside the tensor
+// cores (14.7 ms at 67 TFLOP/s); every query block of 128 reads the
+// corpus once (32 passes of 482 MB, mostly from L2 across the blocks that
+// scan a split together).
 //
-// The simple design.  Launch 1: one block per (64-query block, corpus
-// split); the splits are contiguous ranges of 64-item tiles, and the
-// caller picks their number so that the grid holds at least about two
-// blocks per SM even for a single query.  A block runs the tiled fp32
-// product of tile_common.cuh over its split's tiles in ascending order,
-// blends, masks, and merges into running lists in shared memory, then
-// writes its partial lists [S, Q, k].  Launch 2 (tile::merge_splits): one
-// warp per query merges the S partial lists in split order with the same
-// insertion rule, so the result is the exact top-k in (score desc, id asc)
-// order.  Lists of k <= 256 live in shared memory, as templates on words
-// per lane (2, 4, 8; the launcher takes the narrowest that holds k; at k
-// 256 they take 161 KB with the tiles).  Longer lists stay in place in the
-// partial lists (launch 1) and in the output rows (launch 2), shifted there
-// (tile_common.cuh offer_wide): any k the caller's scratch holds.
+// The design.  Launch 1: one block per (128-query block, corpus split);
+// the splits are contiguous ranges of 128-item tiles, and the caller picks
+// the fewest whose grid fills its last wave of blocks to 90% or more (one
+// block an SM runs at a time; at Q 4,096 on 132 SMs, 4 splits: one wave of
+// 128 blocks, where two blocks an SM would take three waves).  A block runs
+// the register-tiled fp32 product of ffma_tile.cuh over its split's tiles
+// in ascending order, blends (tile::blend), masks ids >= n, and merges
+// into running lists, 64 columns at a time, then writes its partial lists
+// [S, Q, k].  Launch 2 (tile::merge_splits): one warp per query merges the
+// S partial lists in split order with the same insertion rule, so the
+// result is the exact top-k in (score desc, id asc) order.  Lists of k <=
+// 128 live in shared memory (2 or 4 words a lane; 200 KB a block with the
+// ring at k 128); longer lists stay in place in the partial lists (launch
+// 1) and are merged as tile::merge_splits takes them (launch 2): any k the
+// caller's scratch holds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ffma_tile.cuh"
 #include "tile_common.cuh"
 
 namespace {
 
 template <class T, int W>
-__global__ void __launch_bounds__(tile::THREADS)
+__global__ void __launch_bounds__(regtile::THREADS, 1)
     scan_kernel(const T* __restrict__ xu, const float* __restrict__ lam,
                 int n, int f, const T* __restrict__ qn,
-                const float* __restrict__ lamq, int q, float tau, int k,
-                int tiles_per_split, float* part_s, int* part_i) {
-  using namespace tile;
-  extern __shared__ float smem[];
-  auto As = reinterpret_cast<float(*)[PAD]>(smem);
-  auto Bs = reinterpret_cast<float(*)[PAD]>(smem + SLAB * PAD);
-  auto Ss = reinterpret_cast<float(*)[PAD]>(smem + 2 * SLAB * PAD);
+                const float* __restrict__ lamq, int q, int vec, float tau,
+                int k, int tiles_per_split, float* part_s, int* part_i) {
+  using namespace regtile;
+  extern __shared__ __align__(16) float ffma_smem[];
+  float* ring = ffma_smem;
+  float* Ss = ffma_smem;   // the tile's scores [128][RES_LD], in the ring
+  __shared__ int row_hit[TILE];          // rows with a candidate to offer
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tx = thread_x(), ty = thread_y();
   const int lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * TILE;
   const int split = blockIdx.y;
@@ -59,43 +62,66 @@ __global__ void __launch_bounds__(tile::THREADS)
   const int n_rows = min(TILE, q - q0);
 
   // The block's lists [n_rows][k]: in shared memory, or its partial lists.
-  float* run_s = smem + TILE_FLOATS;
+  float* run_s = ffma_smem + RING_FLOATS;
   int* run_i = reinterpret_cast<int*>(run_s + TILE * k);
   if (W == 0) {
     run_s = part_s + ((size_t)split * q + q0) * k;
     run_i = part_i + ((size_t)split * q + q0) * k;
   }
   for (int e = tid; e < n_rows * k; e += THREADS) {
-    run_s[e] = NEG_SCORE;
+    run_s[e] = tile::NEG_SCORE;
     run_i[e] = -1;
   }
-  float lq[4];
+  if (tid < TILE) row_hit[tid] = 0;
+  float lq[MICRO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MICRO; ++i) {
     const int qi = q0 + ty + 16 * i;
     lq[i] = qi < q ? lamq[qi] : 0.0f;
   }
   const float one_minus_tau = 1.0f - tau;
-  __syncthreads();
+  // The first barrier inside regtile::product orders the list writes before
+  // any merge reads them.
 
   for (int c0 = c_begin; c0 < c_stop; c0 += TILE) {
-    float acc[4][4];
-    tile_product(qn, q0, q, xu, c0, n, f, As, Bs, acc);
+    float acc[MICRO][MICRO];
+    product(qn, q0, q, xu, c0, n, f, vec != 0, ring, acc);
+    // The blended scores into Ss; a row whose thread holds a score above
+    // the row's kth is flagged for the merge (the lists do not change
+    // before it).
+    float lc[MICRO];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < MICRO; ++j) {
       const int col = c0 + tx + 16 * j;
-      const float lc = col < n ? lam[col] : 0.0f;
+      lc[j] = col < n ? lam[col] : 0.0f;
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = blend(tau, one_minus_tau, acc[i][j], lc, lq[i]);
-        if (col >= n) s = NEG_SCORE;
-        Ss[ty + 16 * i][tx + 16 * j] = s;
+    for (int i = 0; i < MICRO; ++i) {
+      const int rr = ty + 16 * i;
+      const float kth =
+          rr < n_rows ? run_s[(size_t)rr * k + k - 1] : 3.0e38f;
+      bool hit = false;
+#pragma unroll
+      for (int j = 0; j < MICRO; ++j) {
+        float s = tile::blend(tau, one_minus_tau, acc[i][j], lc[j], lq[i]);
+        if (c0 + tx + 16 * j >= n) s = tile::NEG_SCORE;
+        Ss[rr * RES_LD + tx + 16 * j] = s;
+        hit |= s > kth;
       }
+      if (hit) row_hit[rr] = 1;
     }
     __syncthreads();
-    for (int rr = warp; rr < TILE && q0 + rr < q; rr += WARPS)
-      merge_row<Max, W>(Ss[rr], c0, run_s + (size_t)rr * k,
-                        run_i + (size_t)rr * k, k, lane);
+    for (int rr = warp; rr < n_rows; rr += WARPS) {
+      if (!row_hit[rr]) continue;
+      const float* srow = Ss + rr * RES_LD;
+      float* rs = run_s + (size_t)rr * k;
+      int* ri = run_i + (size_t)rr * k;
+      // Two halves of 64 columns, in ascending column order.  Their
+      // ballots order every lane's read of the flag before it is cleared.
+      tile::merge_row<tile::Max, W>(srow, c0, rs, ri, k, lane);
+      tile::merge_row<tile::Max, W>(srow + 64, c0 + 64, rs, ri, k, lane);
+      if (lane == 0) row_hit[rr] = 0;
+    }
     __syncthreads();
   }
 
@@ -112,40 +138,47 @@ __global__ void __launch_bounds__(tile::THREADS)
 template <class T>
 int launch(const void* xu, const float* lam, int n, int f, const void* qn,
            const float* lamq, int q, float tau, int k, int splits,
-           float* part_s, int* part_i, float* out_s, int* out_i,
+           float* part_s, int* part_i, float* out_s, int* out_i, int device,
            cudaStream_t st) {
-  const int words = tile::list_words(k);
-  const int n_tiles = (n + tile::TILE - 1) / tile::TILE;
+  const int n_tiles = (n + regtile::TILE - 1) / regtile::TILE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
     return (int)cudaErrorInvalidValue;
-  // At k = 256 the lists take 128 KB (161 KB with the tiles): above the
-  // 48 KB a launch gets without opting in.  Wide lists take none.
-  const size_t list_bytes =
-      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
-  const size_t smem =
-      (size_t)tile::TILE_FLOATS * sizeof(float) + tile::TILE * list_bytes;
+  // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
+  // a launch gets without opting in.  Wide lists take none.
+  const size_t smem = regtile::smem_bytes(k);
+  int smem_max = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   auto scan = &scan_kernel<T, 0>;
-  auto merge = &tile::merge_splits<0>;
-  if (words == 2) {
+  if (regtile::list_words(k) == 2)
     scan = &scan_kernel<T, 2>;
-    merge = &tile::merge_splits<2>;
-  } else if (words == 4) {
+  else if (regtile::list_words(k) == 4)
     scan = &scan_kernel<T, 4>;
-    merge = &tile::merge_splits<4>;
-  } else if (words == 8) {
-    scan = &scan_kernel<T, 8>;
-    merge = &tile::merge_splits<8>;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
-  scan<<<grid, tile::THREADS, smem, st>>>(
+  const int vec =
+      regtile::can_vectorize<T>(xu, f) && regtile::can_vectorize<T>(qn, f);
+  const dim3 grid((q + regtile::TILE - 1) / regtile::TILE, splits);
+  scan<<<grid, regtile::THREADS, smem, st>>>(
       static_cast<const T*>(xu), lam, n, f, static_cast<const T*>(qn), lamq,
-      q, tau, k, tiles_per_split, part_s, part_i);
+      q, vec, tau, k, tiles_per_split, part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // The merge keeps tile_common.cuh's list layouts: narrow up to k 256.
+  const int words = tile::list_words(k);
+  const size_t list_bytes =
+      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
+  auto merge = &tile::merge_splits<0>;
+  if (words == 2)
+    merge = &tile::merge_splits<2>;
+  else if (words == 4)
+    merge = &tile::merge_splits<4>;
+  else if (words == 8)
+    merge = &tile::merge_splits<8>;
   const size_t smem2 = tile::WARPS * list_bytes;
   merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
       part_s, part_i, q, k, splits, out_s, out_i);
@@ -165,7 +198,7 @@ int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
                      int f, const void* qn, const float* lamq, int q,
                      float tau, int k, int splits, float* part_s, int* part_i,
                      float* out_s, int* out_i, int device, void* stream) {
-  if (n <= 0 || f <= 0 || q <= 0 || tile::list_words(k) < 0 || k > n ||
+  if (n <= 0 || f <= 0 || q <= 0 || regtile::list_words(k) < 0 || k > n ||
       splits <= 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -173,7 +206,7 @@ int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
   cudaStream_t st = (cudaStream_t)stream;
   auto fn = dtype == 1 ? &launch<__nv_bfloat16> : &launch<float>;
   return fn(xu, lam, n, f, qn, lamq, q, tau, k, splits, part_s, part_i,
-            out_s, out_i, st);
+            out_s, out_i, device, st);
 }
 
 const char* scan_topk_error_string(int err) {

@@ -41,7 +41,8 @@ from .feature import build_feature_laplacian
 
 log = get_logger("builder")
 
-# The ELL arrays auto-widen may grow to (weights + int32 indices).
+# The ELL arrays auto-widen may grow to (weights + int32 indices), unless
+# ARROWSPACE_ELL_BUDGET_BYTES says otherwise (read at each build).
 _ELL_BUDGET_BYTES = 2 << 30
 
 
@@ -124,9 +125,11 @@ def symmetrize_auto_widen(run, config: BuildConfig, gp: GraphParams, *,
     auto_widen = (config.ell_auto_widen
                   if config.ell_auto_widen is not None
                   else config.ell_width is None)
+    budget = int(os.environ.get("ARROWSPACE_ELL_BUDGET_BYTES",
+                                _ELL_BUDGET_BYTES))
     bytes_per = weight_itemsize + 4                   # weight + idx
     width_cap = min(max(n - 1, 1),
-                    max(2 * gp.k, _ELL_BUDGET_BYTES // (bytes_per * n)))
+                    max(2 * gp.k, budget // (bytes_per * n)))
     ell_width = (config.ell_width if config.ell_width is not None
                  else 2 * gp.k)
     ell_width = min(ell_width, max(n - 1, 1))
@@ -152,10 +155,11 @@ def symmetrize_auto_widen(run, config: BuildConfig, gp: GraphParams, *,
         if n_dropped > 0:
             log.warning(
                 "hub cap still drops %d edges at the ELL budget cap "
-                "(ell_width=%d, %d bytes): the Laplacian is narrower than "
-                "the reference's unbounded union graph; pass "
-                "BuildConfig(ell_width=...) explicitly",
-                int(n_dropped), ell_width, _ELL_BUDGET_BYTES)
+                "(ell_width=%d, ARROWSPACE_ELL_BUDGET_BYTES=%d): the "
+                "Laplacian is narrower than the reference's unbounded union "
+                "graph; raise the budget or pass BuildConfig(ell_width=...) "
+                "explicitly",
+                int(n_dropped), ell_width, budget)
     return nbr_idx, nbr_w, degrees, n_dropped
 
 

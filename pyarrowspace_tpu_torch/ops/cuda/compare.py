@@ -5,6 +5,8 @@ so values differ in the last bits and two candidates whose values differ
 by less than that may trade places.  Two lists agree when every position's
 values are within ``tol``, every id both hold has values within ``tol``,
 and an id only one holds sits within ``tol`` of the other's last value.
+
+``k5_blend`` is the bit-for-bit witness of K2's scores on the card.
 """
 
 from __future__ import annotations
@@ -42,3 +44,29 @@ def max_abs_err(vals_a, vals_b) -> float:
     diff = np.abs(np.asarray(vals_a, np.float64)
                   - np.asarray(vals_b, np.float64))
     return float(diff.max()) if diff.size else 0.0
+
+
+def k5_blend(xu, lam, qn, lam_q, tau, ids):
+    """K2's scores as another kernel computes them: K5's cosine
+    (csrc/gather_score.cu, which keeps tile_common.cuh's one fmaf chain) of
+    each query of qn [Q, F] with each id of its list ids [Q, k], xu padded
+    to K5's 64-row subtiles, blended as tile::blend does:
+    ``tau * cos + (1 - tau) * (1 / (1 + |lam_i - lam_q|))``, op by op in
+    float32.  Every score K2 returns must equal it bit for bit.  CUDA
+    tensors; the package is imported by name, so a checkout's own copy of
+    this file also checks another checkout's kernels."""
+    import torch
+
+    from pyarrowspace_tpu_torch.ops.cuda import gather_score
+    sub = gather_score.SUBTILE
+    xp = torch.nn.functional.pad(xu, (0, 0, 0, (-xu.shape[0]) % sub))
+    ids64 = ids.to(torch.int64)
+    cos = gather_score.gather_score(
+        xp.contiguous(), qn.to(xu.dtype).contiguous(),
+        (ids64 // sub).to(torch.int32).contiguous())
+    del xp
+    cols = torch.arange(ids.shape[1], device=ids.device) * sub + ids64 % sub
+    cos = torch.gather(cos, 1, cols)
+    tau32 = torch.tensor(tau, dtype=torch.float32)
+    prox = 1.0 / (1.0 + torch.abs(lam[ids64] - lam_q[:, None]))
+    return tau32 * cos + (1.0 - tau32) * prox

@@ -21,7 +21,7 @@ import torch
 from ... import _build
 
 INF_DIST = 2.0
-# The kernel's running lists: up to 256 entries in shared memory, longer
+# The kernel's running lists: up to 128 entries in shared memory, longer
 # ones in place in the output rows.
 
 # Kernel launches since import (or since the caller last reset it), and the

@@ -25,7 +25,10 @@ import torch.nn.functional as nnf
 
 from ... import _build
 from ..quantize import quantize_rows
-from .scan_topk import plan_splits
+from .scan_topk import fit_scratch, sm_count
+
+# Queries per block and corpus items per tile of the kernel.
+_TILE = 64
 
 # Kernel launches since import (or since the caller last reset it).
 LAUNCHES = 0
@@ -33,6 +36,16 @@ LAUNCHES = 0
 # Plain version: queries per chunk keep the [queries, N] score block near
 # this many elements.
 _PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
+    """K7's (splits, queries a launch): at least about two 64-query blocks
+    per SM, every split holding at least one 64-item tile, then
+    ``scan_topk.fit_scratch``."""
+    n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
+    want = min(n_tiles, max(1, -(-2 * sm_count(device.index or 0)
+                                 // n_qblocks)))
+    return fit_scratch(n_tiles, want, q, k)
 
 
 def scan_int8_plain(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,

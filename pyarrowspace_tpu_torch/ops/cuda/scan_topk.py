@@ -23,8 +23,8 @@ import torch
 
 from ... import _build
 
-_Q_BLOCK = 64      # queries per block of the kernel
-_TILE = 64         # corpus items per tile of the kernel
+# Queries per block and corpus items per tile of the kernel.
+_TILE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Partial lists of the split scans (K2, K7): [splits, Q, k] scores and ids
 # are held to this many bytes; fewer splits, then query chunks, keep them
@@ -70,35 +70,39 @@ def scan_plain(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(n: int, q: int, sm_count: int) -> int:
-    """Corpus splits for the kernel: at least about two blocks per SM,
-    every split holding at least one tile."""
-    n_tiles = -(-n // _TILE)
-    n_qblocks = -(-q // _Q_BLOCK)
-    want = min(n_tiles, max(1, -(-2 * sm_count // n_qblocks)))
-    per_split = -(-n_tiles // want)
-    return -(-n_tiles // per_split)
-
-
-def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
-    """(splits, queries a launch) of a split scan over n items for q
-    queries with lists of k: the splits of ``_splits``, cut so that the
-    partial lists [splits, queries, k] stay within SCRATCH_BYTES; when one
-    split over all queries does not fit, the queries go in chunks.  Every
-    split stays non-empty (fewer splits only widen each)."""
-    splits = _splits(n, q, _sm_count(device.index or 0))
+def fit_scratch(n_tiles: int, splits: int, q: int,
+                k: int) -> tuple[int, int]:
+    """(splits, queries a launch) of a split scan over n_tiles tiles for q
+    queries with lists of k: ``splits`` cut so that the partial lists
+    [splits, queries, k] stay within SCRATCH_BYTES; when one split over all
+    queries does not fit, the queries go in chunks.  Every split stays
+    non-empty (fewer splits only widen each), as the C launchers check."""
+    per_split = -(-n_tiles // splits)
+    splits = -(-n_tiles // per_split)
     per_query = 8 * k
     if splits * q * per_query > SCRATCH_BYTES:
-        n_tiles = -(-n // _TILE)
         per_split = -(-n_tiles // max(1, SCRATCH_BYTES // (q * per_query)))
         splits = -(-n_tiles // per_split)
     q_chunk = q if splits * q * per_query <= SCRATCH_BYTES else max(
         1, SCRATCH_BYTES // (splits * per_query))
     return splits, q_chunk
+
+
+def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
+    """K2's (splits, queries a launch): the fewest corpus splits whose grid
+    of 128-query blocks fills its last wave to 90% or more (the kernel runs
+    one block an SM at a time; fewer splits, fewer lists to start and
+    merge), then ``fit_scratch``."""
+    n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
+    sms = sm_count(device.index or 0)
+    want = next((s for s in range(1, n_tiles + 1)
+                 if 10 * n_qblocks * s >= 9 * sms * -(-n_qblocks * s // sms)),
+                n_tiles)
+    return fit_scratch(n_tiles, want, q, k)
 
 
 def _lib():

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from pyarrowspace_tpu_torch import ArrowSpaceBuilder
-from pyarrowspace_tpu_torch.ops.cuda import knn, scan_topk
-from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+from pyarrowspace_tpu_torch.ops.cuda import knn, knn_t, scan_topk
+from pyarrowspace_tpu_torch.ops.cuda.compare import (k5_blend,
+                                                     topk_disagreements)
 
 pytestmark = pytest.mark.gpu
 
@@ -44,15 +45,41 @@ def _tied_unit(rng, n, f):
     return x
 
 
-@pytest.mark.parametrize("n,f,k,eps", [
-    (1, 8, 1, 0.9), (3, 3, 2, 1.0), (65, 33, 7, 0.9), (300, 32, 7, 0.9),
-    (1000, 100, 25, 1.31), (130, 70, 64, 2.0)])
-def test_knn_kernel_matches_plain(dev, n, f, k, eps):
-    xu = torch.from_numpy(_unit(np.random.default_rng(n), n, f)).to(dev)
-    d, i = knn.knn_scan(xu, k, eps)
+# The tile edges of K1 (128-row blocks, 128-column tiles, 32-feature slabs
+# read four features at a time) and its list layouts (k <= 64 and k <= 128
+# in shared memory, longer lists in place in the output), with each launch
+# option.
+@pytest.mark.parametrize("n,f,k,eps,option", [
+    (1, 8, 1, 0.9, None), (3, 3, 2, 1.0, None), (65, 33, 7, 0.9, None),
+    (300, 32, 7, 0.9, None), (1000, 100, 25, 1.31, None),
+    (130, 70, 64, 2.0, None), (127, 3, 64, 2.0, None),
+    (128, 33, 65, 2.0, None), (129, 70, 128, 2.0, None),
+    (255, 385, 129, 2.0, None), (257, 33, 256, 2.0, None),
+    (257, 70, 257, 2.0, None), (255, 385, 25, 1.31, "seeded"),
+    (129, 70, 65, 2.0, "seeded"), (257, 33, 64, 1.0, "diag_start"),
+    (300, 385, 129, 2.0, "diag_start"), (257, 70, 25, 1.31, "perm"),
+    (255, 33, 257, 2.0, "perm"), (300, 33, 100, 2.0, "perm"),
+    (257, 70, 128, 2.0, "diag_start"), (255, 70, 100, 2.0, "seeded")])
+def test_knn_kernel_matches_plain(dev, n, f, k, eps, option):
+    rng = np.random.default_rng(n + f + k)
+    xu = torch.from_numpy(_unit(rng, n, f)).to(dev)
+    if option == "seeded":
+        # Rows [0, c) seeded with their lists over the columns [0, c), then
+        # scanned over [c, n): the full scan's lists.
+        c = n - n // 3
+        seed = knn.knn_plain(xu[:c].contiguous(), k, eps)
+        d, i = knn.knn_scan(xu, k, eps, 0, c, col_start=c, seed=seed)
+        dp, ip = knn.knn_plain(xu, k, eps, rows=slice(0, c))
+    elif option == "perm":
+        perm = torch.from_numpy(rng.permutation(n)).to(dev)
+        d, i = knn.knn_scan(xu[perm].contiguous(), k, eps, diag_start=True,
+                            perm=perm)
+        dp, ip = knn.knn_plain(xu, k, eps)
+    else:
+        d, i = knn.knn_scan(xu, k, eps, diag_start=option == "diag_start")
+        dp, ip = knn.knn_plain(xu, k, eps)
     torch.cuda.synchronize()
-    dp, ip = knn.knn_plain(xu, k, eps)
-    assert d.shape == (n, k) and i.dtype == torch.int32
+    assert d.shape == dp.shape and i.dtype == torch.int32
     assert topk_disagreements(d.cpu(), i.cpu(), dp.cpu(), ip.cpu(), TOL) == []
 
 
@@ -84,12 +111,20 @@ def test_knn_kernel_distances_symmetric(dev):
     assert all(where[a, b] == where[b, a] for a, b in pairs)
 
 
-@pytest.mark.parametrize("n,q,f,k", [
-    (3, 1, 3, 3), (100, 1, 24, 10), (1000, 7, 100, 15), (5000, 130, 64, 15),
-    (777, 65, 33, 64)])
-def test_scan_kernel_matches_plain(dev, n, q, f, k):
+# The tile edges of K2 (128-query blocks, 128-item tiles, 32-feature
+# slabs) and its list layouts, over float32 and bfloat16 rows.
+@pytest.mark.parametrize("n,q,f,k,dtype", [
+    (3, 1, 3, 3, "float32"), (100, 1, 24, 10, "float32"),
+    (1000, 7, 100, 15, "float32"), (5000, 130, 64, 15, "float32"),
+    (777, 65, 33, 64, "float32"), (127, 1, 3, 64, "float32"),
+    (128, 127, 33, 65, "float32"), (129, 129, 70, 128, "float32"),
+    (255, 127, 385, 129, "float32"), (257, 129, 33, 256, "float32"),
+    (1000, 129, 385, 257, "float32"), (5000, 1, 70, 15, "float32"),
+    (257, 129, 70, 64, "bfloat16"), (1000, 127, 385, 129, "bfloat16"),
+    (700, 129, 70, 100, "bfloat16")])
+def test_scan_kernel_matches_plain(dev, n, q, f, k, dtype):
     rng = np.random.default_rng(n + q)
-    xu = torch.from_numpy(_unit(rng, n, f)).to(dev)
+    xu = torch.from_numpy(_unit(rng, n, f)).to(dev).to(getattr(torch, dtype))
     qn = torch.from_numpy(_unit(rng, q, f)).to(dev)
     lam = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
     lamq = torch.from_numpy(rng.uniform(0, 1, q).astype(np.float32)).to(dev)
@@ -143,3 +178,38 @@ def test_build_and_search_on_card_count_launches(dev):
     a_cpu, gl_cpu = ArrowSpaceBuilder.build(gp, items, device="cpu")
     np.testing.assert_allclose(gl.to_dense(), gl_cpu.to_dense(), atol=1e-5)
     np.testing.assert_allclose(a.lambdas(), a_cpu.lambdas(), atol=1e-5)
+
+
+# The bit-for-bit witnesses on the card.  K1t (csrc/knn_t.cu) and K5
+# (csrc/gather_score.cu) keep tile_common.cuh's product, the one fmaf chain
+# over ascending features that K1 and K2 keep on their own product
+# (csrc/ffma_tile.cuh): K1's lists must be K1t's, and every score K2
+# returns must be K5's cosine for its id blended in tile::blend's order.
+@pytest.mark.parametrize("n,f,k,eps,data", [
+    (1000, 100, 25, 1.31, "unit"), (257, 70, 64, 2.0, "unit"),
+    (300, 385, 65, 1.2, "unit"), (400, 16, 5, 0.8, "tied"),
+    (400, 16, 20, 1.0, "tied"), (700, 33, 100, 1.0, "tied")])
+def test_knn_kernel_equals_k1t_bitwise(dev, n, f, k, eps, data):
+    rng = np.random.default_rng(n + k)
+    x = (_unit if data == "unit" else _tied_unit)(rng, n, f)
+    xu = torch.from_numpy(x).to(dev)
+    d, i = knn.knn_scan(xu, k, eps)
+    dt, it = knn_t.knn_scan_t(xu, k, eps)
+    assert torch.equal(i, it)
+    assert torch.equal(d.view(torch.int32), dt.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,q,f,k,dtype", [
+    (5000, 130, 64, 15, "float32"), (3000, 129, 385, 200, "float32"),
+    (1000, 127, 70, 65, "float32"), (5000, 130, 64, 15, "bfloat16"),
+    (3000, 33, 385, 200, "bfloat16")])
+def test_scan_kernel_equals_k5_blend_bitwise(dev, n, q, f, k, dtype):
+    rng = np.random.default_rng(n + q + k)
+    xu = torch.from_numpy(_unit(rng, n, f)).to(dev).to(getattr(torch, dtype))
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev)
+    lam = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+    lamq = torch.from_numpy(rng.uniform(0, 1, q).astype(np.float32)).to(dev)
+    i, s = scan_topk.lambda_search(xu, lam, qn, lamq, 0.62, k)
+    want = k5_blend(xu, lam, qn, lamq, 0.62, i)
+    assert bool((i >= 0).all())
+    assert torch.equal(s.view(torch.int32), want.view(torch.int32))

@@ -10,7 +10,7 @@ import torch
 from pyarrowspace_tpu.ops.pallas.scan_topk import lambda_search_pallas
 from pyarrowspace_tpu.ops.search import lambda_aware_topk as jax_topk
 from pyarrowspace_tpu.ops.search import lambda_aware_topk_batch as jax_batch
-from pyarrowspace_tpu_torch.ops.cuda import scan_topk
+from pyarrowspace_tpu_torch.ops.cuda import scan_int8, scan_topk
 from pyarrowspace_tpu_torch.ops.distance import unit_normalize
 from pyarrowspace_tpu_torch.ops.search import (lambda_aware_topk,
                                                lambda_aware_topk_batch)
@@ -116,3 +116,45 @@ def test_cpu_wrapper_runs_plain_version_without_launching():
     with pytest.raises(ValueError):
         scan_topk.lambda_search(*_t(xu, lam), qn[:, :5],
                                 torch.from_numpy(lam_q), 0.4, 3)
+
+
+def _k7_plan_before(n, q, k):
+    """K7's split plan as it was before K2's tiles widened to 128: 64-query
+    blocks over 64-item tiles, at least about two blocks per SM."""
+    n_tiles, n_qblocks = -(-n // 64), -(-q // 64)
+    want = min(n_tiles, max(1, -(-2 * 132 // n_qblocks)))
+    splits = -(-n_tiles // -(-n_tiles // want))
+    per_query = 8 * k
+    if splits * q * per_query > scan_topk.SCRATCH_BYTES:
+        per_split = -(-n_tiles // max(
+            1, scan_topk.SCRATCH_BYTES // (q * per_query)))
+        splits = -(-n_tiles // per_split)
+    q_chunk = q if splits * q * per_query <= scan_topk.SCRATCH_BYTES else max(
+        1, scan_topk.SCRATCH_BYTES // (splits * per_query))
+    return splits, q_chunk
+
+
+@pytest.mark.parametrize("n,q,k", [
+    (3, 1, 3), (127, 1, 64), (129, 129, 128), (5000, 130, 64),
+    (313_841, 1, 15), (313_841, 4096, 15), (313_841, 4096, 5000),
+    (1_000_000, 16_384, 15), (1_000_000, 16_384, 5000), (1 << 20, 1, 1)])
+def test_split_plans_keep_every_split_nonempty(monkeypatch, n, q, k):
+    """The split plans of K2 (128-wide tiles, whole waves) and K7 (64-wide
+    tiles) on a 132-SM card: every split holds a tile, as the C launchers
+    check, the partial lists fit the scratch, and K7's plan is the one it
+    had with 64-wide K2 tiles."""
+    for mod in (scan_topk, scan_int8):
+        monkeypatch.setattr(mod, "sm_count", lambda index: 132)
+    device = torch.device("cuda", 0)
+    for plan, tile in ((scan_topk.plan_splits, 128),
+                       (scan_int8.plan_splits, 64)):
+        splits, q_chunk = plan(n, q, k, device)
+        n_tiles = -(-n // tile)
+        per_split = -(-n_tiles // splits)
+        assert 1 <= splits <= n_tiles
+        assert (splits - 1) * per_split < n_tiles
+        assert 1 <= q_chunk <= q
+        assert splits * min(q, q_chunk) * 8 * k <= scan_topk.SCRATCH_BYTES
+    assert scan_int8.plan_splits(n, q, k, device) == _k7_plan_before(n, q, k)
+    if (n, q, k) == (313_841, 4096, 15):
+        assert scan_topk.plan_splits(n, q, k, device) == (4, 4096)
