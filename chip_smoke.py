@@ -7,7 +7,8 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
 
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
-     all started together); ptxas's registers and spills of K1 and K2;
+     all started together); ptxas's registers and spills of K1, K2, K3
+     and K5;
   1. K1 (csrc/knn.cu) against its plain version on a 313,841 x 384 unit
      corpus (eps 1.31, k 25): its one launch over the whole corpus timed
      beside its bound (each of the N (N + 1) / 2 distinct pairs' products
@@ -30,24 +31,30 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      4,096 queries, tau 0.62, k 15, scores within 1e-5; and k 200 on 1,024
      queries; at both, every (query, id, score) K2 returns equals bit for
      bit the blend (tile::blend's op order, in PyTorch) of K5's cosine
-     (csrc/gather_score.cu, the older product) for that id; the torch.mm
-     yardstick beside K2's time; K2 at k 200 timed on the 4,096 queries;
+     for that id, K5 on float32 operands (its SIMT route, the fmaf chain
+     K2 keeps: compare.py::k5_blend); the torch.mm yardstick beside K2's
+     time; K2 at k 200 timed on the 4,096 queries;
   5. subtile serving on that index: search_batch(mode="subtile"), then
      mode="auto", over the same 8 batches, each after a warm-up, with the
-     counts reset before each: K3, K4b, K5 and K4a must all have run, each
-     query's source row must rank first and the mean top-15 overlap with
+     counts reset before each: K3, K4b, K5 and K4a must all have run, K3
+     and K5 on their tensor-core route (the bf16 state; the route is
+     printed), each query's source row must rank first and the mean
+     top-15 overlap with
      phase 3's exact results must be at least 0.99.  Those modes route in
      bf16, so a query may lose an item whose float32 score makes the top
      15 but whose bf16 score misses the pool; such queries are counted.
      The same serving step over a float32 scan state routes with K2's own
      scores, so there the ids must equal phase 3's outside near-ties of
-     1e-5 for every query;
+     1e-5 for every query; then exact and subtile in turns (exact,
+     subtile, subtile, exact) over the 8 batches, QPS each;
   6. K3 (csrc/subtile_max.cu), K4b and K4a (csrc/extract_topm.cu) and K5
      (csrc/gather_score.cu) against their plain versions at the shapes of
      phase 5 (maxima and cosines within 1e-5, ids identical), timed in
-     turns; and the block-max check: for every query and each of its
-     selected subtiles, the best of phase b's blended scores equals K3's
-     maximum bit for bit;
+     turns, each with its route and ptxas's registers and spills, K5 with
+     its no-reuse read (each query reading its subtiles' rows itself, the
+     old design's floor) beside its bound; and the block-max check: for
+     every query and each of its selected subtiles, the best of phase b's
+     blended scores equals K3's maximum bit for bit;
   7. the north-star serving shape, 1,000,000 x 768 with batches of 16,384:
      a serving state made on the card (N(0, 1) rows from a seeded
      torch.Generator, the feature Laplacian of the first 65,536 rows with
@@ -55,7 +62,8 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      mode="subtile", mode="exact" and mode="int8" (its first call
      quantizes the corpus: 768 MB of int8) timed over 2 batches each, the
      subtile and int8 top-15 overlaps with exact on 1,024 queries at least
-     0.99, K3's time and the peak device memory;
+     0.99, K3 alone (a batch of 16,384) and the peak device memory;
+     exact and subtile in turns over the 2 batches;
   8. blocked-IVF and certified serving on phase 3's index: enable_ivf()
      (the build's own clustering), then search_batch(mode="ivf_block") and
      mode="certified" (n_probe 8) over phase 3's 8 batches, each after a
@@ -85,7 +93,8 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   11. the bfloat16 serving view (as_serving) of that index: exact search
      over its 8 batches (K2 over bf16 rows must have run), K2-bf16 against
      its plain version on the first batch, timed in turns, and its scores
-     bit for bit K5's (bf16 rows) blended; the overlap with float32 exact
+     bit for bit K5's blended (k5_blend: the rows upcast to float32, the
+     queries rounded to bf16 and upcast); the overlap with float32 exact
      (no rescore: at least 0.9);
   12. hybrid search and gather IVF (n_probe 8) over 2 batches, QPS and
      overlap with exact; build_energy on the same 313,841 rows
@@ -139,12 +148,15 @@ is {"ok": true, "device": {...}}.
 
 compares other checkouts of the repository (a parent's tree unpacked with
 git archive, say) with this one on the same card, instead of the phases:
-each tree's package runs this script's phases 0-3 and 11 (with their
+each tree's package runs this script's phases 0-3, 6b and 11 (with their
 checks) in a process of its own, in turns (the others, this tree, this
 tree, the others reversed), and each turn prints what those phases
 measured: K1 over the whole corpus, over 16,384 rows and at k 100, 200
 and 1,024, K2 at Q 4,096 over float32 and bfloat16 rows and at k 200 and
-1,024, the build seconds with the knn phase, and exact QPS.  Then every
+1,024, the build seconds with the knn phase, exact QPS, K3 and K5 at
+phase 6's shapes and K3 over a 1,000,000 x 768 bf16 corpus made from a
+seeded generator with 16,384 queries (each K3 held against its plain
+version on 1,024 queries, not against this tree's bits).  Then every
 run's k-NN lists, lambdas and exact top-k ids must equal this tree's bit
 for bit.
 """
@@ -267,6 +279,7 @@ def _reset_launches() -> None:
     for mod in (knn, knn_t, scan_topk, subtile_max, gather_score, ivf_scan,
                 scan_int8):
         mod.LAUNCHES = 0
+    subtile_max.TC_LAUNCHES = gather_score.TC_LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
     knn.SEEDED_LAUNCHES = knn.DIAG_START_LAUNCHES = knn.PERM_LAUNCHES = 0
 
@@ -282,9 +295,11 @@ def _launches() -> dict:
             "knn_reorder": knn.PERM_LAUNCHES,
             "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
+            "subtile_max_tc": getattr(subtile_max, "TC_LAUNCHES", 0),
             "extract_ids": extract.IDS_LAUNCHES,
             "extract_pool": extract.POOL_LAUNCHES,
             "gather_score": gather_score.LAUNCHES,
+            "gather_score_tc": getattr(gather_score, "TC_LAUNCHES", 0),
             "ivf_scan": ivf_scan.LAUNCHES,
             "scan_int8": scan_int8.LAUNCHES}
 
@@ -293,6 +308,25 @@ def _overlap(ids_a: np.ndarray, ids_b: np.ndarray) -> float:
     """Mean share of each row's ids that both top-k lists hold."""
     same = (ids_a[:, :, None] == ids_b[:, None, :]).any(axis=2)
     return float(same.mean())
+
+
+def _exact_vs_subtile(torch, aspace, batches, kw: dict) -> dict:
+    """QPS of search_batch in exact and in subtile mode over the batches,
+    timed in turns (exact, subtile, subtile, exact; both warm), each turn
+    ending with the results on the host."""
+    gl = kw.get("gl")
+    extra = {k: v for k, v in kw.items() if k != "gl"}
+
+    def qps(mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            aspace.search_batch(b, gl, TAU, mode=mode, **extra)
+        return sum(b.shape[0] for b in batches) / (time.perf_counter() - t0)
+
+    e1, s1, s2, e2 = (qps(m) for m in ("exact", "subtile", "subtile",
+                                       "exact"))
+    return {"exact": (e1 + e2) / 2, "subtile": (s1 + s2) / 2}
 
 
 def _ell_symmetric(nbr_idx: np.ndarray, nbr_w: np.ndarray) -> bool:
@@ -352,6 +386,9 @@ def _phase_subtile_serving(torch, aspace, gl, batches, src, outs_exact,
         for name in ("subtile_max", "extract_ids", "gather_score",
                      "extract_pool"):
             checks[f"{mode}: {name} launched"] = launches[name] > 0
+        for name in ("subtile_max", "gather_score"):
+            checks[f"{mode}: {name} on the tensor-core route"] = (
+                launches[f"{name}_tc"] == launches[name] > 0)
         checks[f"{mode}: source row first"] = top1
         checks[f"{mode}: overlap >= {MIN_OVERLAP}"] = overlap >= MIN_OVERLAP
         checks[f"{mode}: result shapes"] = all(
@@ -375,6 +412,11 @@ def _phase_subtile_serving(torch, aspace, gl, batches, src, outs_exact,
           f"beyond near-ties of {TOL:g}: {bad32} of {N_BATCHES * Q_BATCH}")
     checks["float32 scan: ids equal outside near-ties"] = bad32 == 0
     del st
+    turns = _exact_vs_subtile(torch, aspace, batches, dict(gl=gl))
+    results["turns_313k"] = turns
+    print(f"phase 5: in turns (exact, subtile, subtile, exact) over "
+          f"{N_BATCHES} x {Q_BATCH} queries: exact {turns['exact']:.1f} QPS, "
+          f"subtile {turns['subtile']:.1f} QPS {card}")
     if not all(checks.values()):
         raise AssertionError(f"subtile checks failed: "
                              f"{[c for c, ok in checks.items() if not ok]}")
@@ -458,9 +500,11 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     kind = "bf16" if xs.dtype == torch.bfloat16 else "fp32"
     rows_read = int(torch.unique(sel).numel()) * 64
     width_b = score_b.shape[1]
+    # K3 multiplies only the real subtiles' rows; the rest get a sentinel.
+    rows_k3 = real * 64
     bounds = {
-        "subtile_max": _bound(2.0 * q * n_pad * f, kind,
-                              n_pad * (f * elt + 4) + q * (f * elt + 4)
+        "subtile_max": _bound(2.0 * q * rows_k3 * f, kind,
+                              rows_k3 * (f * elt + 4) + q * (f * elt + 4)
                               + q * n_sub * 4),
         "extract_ids": _bound(q * n_sub, "fp32",
                               q * n_sub * 4 + q * s_keep * 4),
@@ -469,11 +513,25 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
                                + q * s_keep * 4 + q * s_keep * 64 * 4),
         "extract_pool": _bound(q * width_b, "fp32",
                                q * width_b * 8 + q * m_pool * 4)}
+    # K5's old design read each query's subtiles itself: its floor.
+    no_reuse_ms = (q * s_keep * 64 * f * elt) / HBM_BYTES_PER_S * 1e3
+    route = subtile_max.route_name(xs, qs)
+    routes = {"subtile_max": route, "gather_score": route,
+              "extract_ids": "simt", "extract_pool": "simt"}
+    from pyarrowspace_tpu_torch import _build
     for name, (k_ms, p_ms) in times.items():
         results[name] = dict(max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms,
                              library_ms=library[name], **bounds[name])
+        src = "extract_topm" if name.startswith("extract") else name
         print(f"phase 6: {name} Q={q} N_pad={xs.shape[0]} F={xs.shape[1]} "
-              f"{xs.dtype}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms {card}")
+              f"{xs.dtype}: {routes[name]} route, kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+              f"({bounds[name]['bound_by']}); ptxas csrc/{src}.cu: "
+              f"{_ptxas_summary(_build, src)} {card}")
+    print(f"phase 6: K5 reads {rows_read} distinct rows once; each query "
+          f"reading its {s_keep} subtiles itself would move "
+          f"{q * s_keep * 64 * f * elt / 1e9:.3f} GB ({no_reuse_ms:.3f} ms "
+          f"at 3.35 TB/s, the old design's floor) {card}")
     print(f"phase 6: K3 max_abs_err {err3:.3e} over {real} real subtiles, "
           f"sentinels equal {sentinels}; K4b ids identical {sel_same} "
           f"(S={s_keep}); K5 max_abs_err {err5:.3e}; K4a ids identical "
@@ -511,9 +569,71 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
               f"{narrow[name]:.3f} ms), plain {p_ms:.3f} ms {card}")
     if not (err3 <= TOL and sentinels and sel_same and err5 <= TOL
             and pool_same and bitwise and n_checked == q * s_keep
-            and all(wide_same.values())):
+            and all(wide_same.values()) and route == "tensor-core"):
         raise AssertionError("subtile kernels disagree with their plain "
                              "versions or the block-max check failed")
+
+
+def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
+                      results) -> None:
+    """Phase 6b (--measure only): K3 and K5 of the tree under measure at
+    phase 6's shapes, and K3 over a 1,000,000 x 768 bf16 corpus made from
+    a seeded generator against 16,384 queries, each timed twice and held
+    against its plain version (at 1M on the first 1,024 queries)."""
+    from pyarrowspace_tpu_torch.ops import subtile_scan
+    from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
+                                                 subtile_max)
+    from pyarrowspace_tpu_torch.ops.cuda.compare import max_abs_err
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    f32, bf16 = torch.float32, torch.bfloat16
+    aspace.search_batch(batches[0], gl, TAU, mode="subtile")    # the state
+    st = aspace._subtile
+    xs, lam, n_real = st["xu_scan"], st["lambdas"], st["n_real"]
+    qb = batches[0].to(f32)
+    lamq = _query_lambdas32(torch, aspace, qb)
+    qs = unit_normalize(qb).to(xs.dtype).contiguous()
+    s_keep = subtile_scan.subtiles_kept(GP["topk"], xs.shape[0] // 64)
+    real = -(-n_real // 64)
+    sub = subtile_max.subtile_max(xs, lam, qs, lamq, TAU, n_real)
+    sub_p = subtile_max.subtile_max_plain(xs, lam, qs, lamq, TAU, n_real)
+    err3 = max_abs_err(sub[:, :real].cpu().numpy(),
+                       sub_p[:, :real].cpu().numpy())
+    sel = extract.extract_ids(sub, s_keep)
+    err5 = max_abs_err(gather_score.gather_score(xs, qs, sel).cpu().numpy(),
+                       gather_score.gather_score_plain(xs, qs, sel)
+                       .cpu().numpy())
+    k3_ms = sum(_events_ms(lambda: subtile_max.subtile_max(
+        xs, lam, qs, lamq, TAU, n_real), torch) for _ in range(2)) / 2
+    k5_ms = sum(_events_ms(lambda: gather_score.gather_score(xs, qs, sel),
+                           torch) for _ in range(2)) / 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n_pad = -(-N1M // 8192) * 8192
+    x1 = unit_normalize(torch.randn((n_pad, F1M), generator=gen,
+                                    device=dev)).to(bf16)
+    lam1 = torch.rand(n_pad, generator=gen, device=dev)
+    q1 = unit_normalize(torch.randn((Q1M, F1M), generator=gen,
+                                    device=dev)).to(bf16)
+    lq1 = torch.rand(Q1M, generator=gen, device=dev)
+    subtile_max.subtile_max(x1, lam1, q1, lq1, TAU, N1M)            # warm
+    k3_1m_ms = sum(_events_ms(lambda: subtile_max.subtile_max(
+        x1, lam1, q1, lq1, TAU, N1M), torch) for _ in range(2)) / 2
+    qc, lc = q1[:Q1M_CHECK].contiguous(), lq1[:Q1M_CHECK].contiguous()
+    real1 = -(-N1M // 64)
+    err1m = max_abs_err(
+        subtile_max.subtile_max(x1, lam1, qc, lc, TAU, N1M)[:, :real1]
+        .cpu().numpy(),
+        subtile_max.subtile_max_plain(x1, lam1, qc, lc, TAU, N1M)[:, :real1]
+        .cpu().numpy())
+    del x1, q1
+    results["subtile_ab"] = dict(k3_ms=k3_ms, k5_ms=k5_ms, k3_1m_ms=k3_1m_ms)
+    print(f"phase 6b: K3 {k3_ms:.3f} ms, K5 {k5_ms:.3f} ms at Q={qs.shape[0]} "
+          f"N_pad={xs.shape[0]} F={xs.shape[1]} (max_abs_err {err3:.3e} / "
+          f"{err5:.3e}); K3 {N1M}x{F1M} bf16, Q={Q1M}: {k3_1m_ms:.3f} ms "
+          f"(max_abs_err {err1m:.3e} on {Q1M_CHECK} queries) {card}")
+    if max(err3, err5, err1m) > TOL:
+        raise AssertionError(f"K3 / K5 disagree with their plain versions: "
+                             f"{err3} {err5} {err1m}")
 
 
 def _phase_north_star(torch, dev, card, results) -> None:
@@ -590,12 +710,22 @@ def _phase_north_star(torch, dev, card, results) -> None:
     k3_ms = _events_ms(lambda: subtile_max.subtile_max(
         st["xu_scan"], st["lambdas"], qs, lamq, TAU, st["n_real"]), torch)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    turns = _exact_vs_subtile(torch, aspace, queries[:2], dict(topk=topk))
     results["north_star"] = dict(qps=qps, overlap=overlap,
                                  overlap_int8=overlap_int8, k3_ms=k3_ms,
-                                 peak_gib=peak)
+                                 peak_gib=peak, turns=turns)
+    # The real subtiles' rows only, as in phase 6.
+    rows_k3 = -(-st["n_real"] // 64) * 64
+    k3_bound = _bound(2.0 * Q1M * rows_k3 * F1M, "bf16", 0.0)
+    route = subtile_max.route_name(st["xu_scan"], qs)
     print(f"phase 7: top-{topk} overlap subtile vs exact on {Q1M_CHECK} "
-          f"queries {overlap:.6f}; K3 alone {k3_ms:.3f} ms a batch of "
-          f"{Q1M}; peak device memory {peak:.3f} GiB {card}")
+          f"queries {overlap:.6f}; K3 alone ({route} route) {k3_ms:.3f} ms "
+          f"a batch of {Q1M}, bound "
+          f"{k3_bound['bound_ms']:.3f} ms; peak device memory {peak:.3f} GiB "
+          f"{card}")
+    print(f"phase 7: in turns (exact, subtile, subtile, exact) over 2 x "
+          f"{Q1M} queries: exact {turns['exact']:.1f} QPS, subtile "
+          f"{turns['subtile']:.1f} QPS {card}")
     ok = all(np.all(np.isfinite(v)) and i.shape == (Q1M, topk)
              and i.min() >= 0 and i.max() < N1M
              for outs in served.values() for i, v in outs)
@@ -1524,11 +1654,12 @@ def _measures(results: dict) -> dict:
             "k2_bf16_ms": results["scan_topk_bf16"]["ms"],
             "build_s": results["build_s"],
             "knn_phase_s": results["knn_phase_s"],
-            "exact_qps": results["exact_qps"]}
+            "exact_qps": results["exact_qps"],
+            **results["subtile_ab"]}
 
 
 def _against(trees: list[str]) -> int:
-    """--against: each tree's package through this script's phases 0-3 and
+    """--against: each tree's package through this script's phases 0-3, 6b and
     11, in turns, then every run's k-NN lists, lambdas and exact top-k ids
     against this tree's."""
     import tempfile
@@ -1570,7 +1701,7 @@ def _against(trees: list[str]) -> int:
 
 def main(tree: str | None = None, dump: str | None = None) -> int:
     """Every phase; or, with ``tree`` (--measure), the package of that
-    checkout through phases 0-3 and 11 only, phase 3's k-NN lists, lambdas
+    checkout through phases 0-3, 6b and 11 only, phase 3's k-NN lists, lambdas
     and exact top-k ids saved to ``dump`` (npz) and the measures printed as
     the last line."""
     t_start = time.perf_counter()
@@ -1617,7 +1748,7 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name, secs in _build.load_all(KERNEL_SOURCES).items():
         print(f"phase 0: built csrc/{name}.cu in {secs:.3f} s {card}")
     print(f"phase 0: all kernels built in {time.perf_counter() - t0:.3f} s")
-    for name in ("knn", "scan_topk"):
+    for name in ("knn", "scan_topk", "subtile_max", "gather_score"):
         print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
 
     rng = np.random.default_rng(42)
@@ -1926,6 +2057,9 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             ("phase 10 (int8 serving)",
              lambda: _phase_int8(torch, aspace, gl, batches, outs, card,
                                  results)),
+            ("phase 6b (subtile kernels, --measure)",
+             lambda: _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
+                                       results)),
             ("phase 11 (bf16 serving view)",
              lambda: _phase_bf16_view(torch, aspace, gl, batches, outs, card,
                                       results)),
@@ -1943,7 +2077,9 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
                                       card, results)),
             ("phase 9 (1M x 768 certified serving)",
              lambda: _phase_certified_1m(torch, dev, card, results))):
-        if tree is not None and not label.startswith("phase 11 "):
+        # --measure runs phases 6b and 11 only; a full run all but 6b.
+        if (label.startswith("phase 6b ") if tree is None
+                else not label.startswith(("phase 6b ", "phase 11 "))):
             continue
         try:
             if aspace is None:

@@ -8,8 +8,9 @@
 // becomes -0.0 (it starts at +0.0, and a sum rounds to -0.0 only when both
 // addends are -0.0), so the trailing fmaf(0, 0, acc) steps leave it as it
 // is, and the element equals tile::tile_product's bit for bit whatever the
-// two products' slab widths.  K1t (knn_t.cu) and K5 (gather_score.cu) keep
-// tile_product and dot_step and serve as witnesses of this on the card.
+// two products' slab widths.  K1t (knn_t.cu) and K5's SIMT route
+// (gather_score.cu, on float32 operands) keep tile_product and dot_step and
+// serve as witnesses of this on the card.
 // The feature sum is never split across threads, warps or stages.
 //
 // What bounds the product on the H100: the fp32 FMA pipe (67 TFLOP/s; no

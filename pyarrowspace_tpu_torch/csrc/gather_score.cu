@@ -8,23 +8,36 @@
 //   out[q, 64 s + r] = qn_q . xu[64 sel[q, s] + r],   r = 0..63.
 // The lambda blend stays outside, in PyTorch, as it did on the TPU.
 //
-// Each output is the same dot_step chain over features 0..F-1 in ascending
-// order as the tile product of subtile_max.cu (K3), slab padding included,
-// so the best blended score phase b finds in a subtile equals K3's
-// maximum for it bit for bit: the block-max guarantee of the routing.
+// Each output must be bitwise the product K3 (subtile_max.cu) computes for
+// the same (row, query), so that the best blended score phase b finds in a
+// subtile equals K3's maximum for it: the block-max guarantee of the
+// routing.  Two routes, chosen by K3's predicate
+// (ops/cuda/subtile_max.py::tensor_core_route), so the two kernels never
+// route one state differently:
 //
-// What bounds it on the H100: reading the selected rows, Q x S x 64 x F
-// values (1.5 MB a query at S 16, F 768 in bf16; 25.8 GB at Q 16,384),
-// against 2 flops a value.  Each block reads whole 64-row blocks, which
-// are contiguous in memory.
+// The tensor-core route, a read-once grouped product over the buckets of
+// sel (ops/cuda/gather_score.py::buckets): for each subtile the (query,
+// slot) pairs that selected it.  The wrapper sorts the pairs by subtile
+// and gives each bucket's range (its edges); one block a subtile takes its
+// bucket in chunks of at most 256 pairs: it loads the subtile's 64 rows (A)
+// and gathers the chunk's queries (B; a short chunk's rows past its end
+// keep stale values, which reach only columns that are never written out)
+// with cp.async into the 128-byte-swizzled layout, two 64-feature
+// stages deep, and runs wgmma_tile.cuh's mainloop step: K3's instruction,
+// N, k order and padding, so each element's bits are K3's.  Bound on the
+// H100 by reading the selected rows once (the corpus's touched subtiles,
+// 0.24 GB at 313k) and writing the Q x S x 64 cosines; the padded
+// products are ~0.06 TFLOP.
 //
-// The simple design: one block of 256 threads per query; the block takes
-// its subtiles four at a time, and thread t owns row t % 64 of subtile
-// t / 64.  Per 32-feature slab the block stages the four blocks' slab in
-// shared memory, with 16-byte loads when the rows are 16-byte aligned
-// (neighbouring threads read neighbouring pieces of a row), and each
-// thread advances its row's chain by 32 steps.  No tensor cores: the
-// chain must stay the one K3 runs.
+// The SIMT route (a float32 scan state, ragged F, unaligned bases): K3's
+// SIMT product, the same dot_step chain over features 0..F-1 in ascending
+// order as tile_product, slab padding included.  One block of 256 threads
+// per query; the block takes its subtiles four at a time, and thread t
+// owns row t % 64 of subtile t / 64.  Per 32-feature slab the block stages
+// the four blocks' slab in shared memory (16-byte loads when the rows are
+// 16-byte aligned) and each thread advances its row's chain by 32 steps.
+// It also serves compare.py::k5_blend, the witness of K2's scores, which
+// passes float32 rows (bf16 rows upcast exactly).
 
 #include <cstdint>
 
@@ -32,6 +45,7 @@
 #include <cuda_runtime.h>
 
 #include "tile_common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -119,6 +133,133 @@ int launch(const void* xu, int f, const void* qn, const int* sel, int q,
   return (int)cudaGetLastError();
 }
 
+// -- the tensor-core route -------------------------------------------------
+
+constexpr int TC_STAGES = 2;
+constexpr int TC_STAGE_BYTES = wg::A_BYTES + wg::B_BYTES;   // 40 KB
+constexpr size_t TC_SMEM = (size_t)TC_STAGES * TC_STAGE_BYTES +
+                           2 * wg::N * sizeof(int);
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Stage kb of a chunk into A / B: the subtile's 64 rows and the chunk's
+// len queries qrow[0..len), zeros past f.  B's rows past len are not
+// loaded: each output column depends on its own B row only, and the
+// columns past len are never written out.
+__device__ __forceinline__ void load_stage(
+    const __nv_bfloat16* __restrict__ xu, const __nv_bfloat16* __restrict__ qn,
+    int f, int s, const int* qrow, int len, int kb, uint8_t* a, uint8_t* b) {
+  constexpr int CHUNKS = wg::ROW_BYTES / 16;       // 8 a row
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < wg::M * CHUNKS / wg::THREADS; ++e) {
+    const int idx = e * wg::THREADS + tid;
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    const int feat = kb * wg::KSTAGE + c * 8;
+    const bool in = feat < f;
+    const __nv_bfloat16* src =
+        in ? xu + ((size_t)s * wg::M + r) * f + feat : xu;
+    cp_async16(wg::smem_addr(a + wg::swizzle_offset(r, c)), src,
+               in ? 16 : 0);
+  }
+  for (int idx = tid; idx < len * CHUNKS; idx += wg::THREADS) {
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    const int feat = kb * wg::KSTAGE + c * 8;
+    const bool in = feat < f;
+    const __nv_bfloat16* src = in ? qn + (size_t)qrow[r] * f + feat : qn;
+    cp_async16(wg::smem_addr(b + wg::swizzle_offset(r, c)), src,
+               in ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One block a subtile s: its bucket is the pairs order[edges[s] ..
+// edges[s + 1]); chunk by chunk of at most N pairs, the mainloop over the
+// subtile's rows and the chunk's queries, then out[q, 64 slot + r] for each
+// pair (q, slot).
+__global__ void __launch_bounds__(wg::THREADS)
+    gather_score_tc_kernel(const __nv_bfloat16* __restrict__ xu, int f,
+                           const __nv_bfloat16* __restrict__ qn, int s_keep,
+                           const int64_t* __restrict__ edges,
+                           const int64_t* __restrict__ order,
+                           float* __restrict__ out) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  int* qrow = reinterpret_cast<int*>(smem + TC_STAGES * TC_STAGE_BYTES);
+  int* ocol = qrow + wg::N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x;
+  const int lo = (int)edges[s], hi = (int)edges[s + 1];
+  const int nk = (f + wg::KSTAGE - 1) / wg::KSTAGE;
+  const size_t row_len = (size_t)s_keep * wg::M;
+  const int r_a = 16 * warp + (lane >> 2);
+
+  for (int c0 = lo; c0 < hi; c0 += wg::N) {
+    const int len = min(wg::N, hi - c0);
+    for (int i = tid; i < len; i += wg::THREADS) {
+      const int64_t p = order[c0 + i];
+      qrow[i] = (int)(p / s_keep);
+      ocol[i] = (int)(p % s_keep) * wg::M;
+    }
+    __syncthreads();
+
+    float acc[wg::ACC];
+    load_stage(xu, qn, f, s, qrow, len, 0, smem, smem + wg::A_BYTES);
+    for (int kb = 0; kb < nk; ++kb) {
+      uint8_t* stage = smem + (kb % TC_STAGES) * TC_STAGE_BYTES;
+      if (kb + 1 < nk) {
+        uint8_t* next = smem + ((kb + 1) % TC_STAGES) * TC_STAGE_BYTES;
+        load_stage(xu, qn, f, s, qrow, len, kb + 1, next,
+                   next + wg::A_BYTES);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      // This thread's copies and stores are done; make them visible to
+      // the tensor cores' (async) reads, then wait for everyone's.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      wg::mma_stage(acc, wg::smem_addr(stage),
+                    wg::smem_addr(stage + wg::A_BYTES), kb == 0);
+      wg::wait<0>();
+      __syncthreads();   // the stage is free for the load after next
+    }
+
+#pragma unroll
+    for (int j = 0; j < wg::ACC / 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 8 * j + 2 * (lane & 3) + h;
+        if (col < len) {
+          float* o = out + (size_t)qrow[col] * row_len + ocol[col];
+          o[r_a] = acc[4 * j + h];
+          o[r_a + 8] = acc[4 * j + 2 + h];
+        }
+      }
+    }
+    __syncthreads();   // qrow and ocol are refilled for the next chunk
+  }
+}
+
+int launch_tc(const void* xu, int f, const void* qn, int s_keep, int n_sub,
+              const int64_t* edges, const int64_t* order, float* out,
+              cudaStream_t st) {
+  if (!wg::route_ok(xu, qn, f) || n_sub <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_score_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TC_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  gather_score_tc_kernel<<<n_sub, wg::THREADS, TC_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(xu), f,
+      static_cast<const __nv_bfloat16*>(qn), s_keep, edges, order, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -136,6 +277,22 @@ int gather_score_launch(const void* xu, int f, const void* qn,
   cudaStream_t st = (cudaStream_t)stream;
   return is_bf16 ? launch<__nv_bfloat16>(xu, f, qn, sel, q, s_keep, out, st)
                  : launch<float>(xu, f, qn, sel, q, s_keep, out, st);
+}
+
+// The tensor-core route: bf16 xu [n_sub * 64, f] and qn [q, f] (f % 8 ==
+// 0, 16-byte-aligned bases), and sel [q, s_keep] as its buckets: the q *
+// s_keep pair ids q * s_keep + slot sorted stably by their subtile, order,
+// and edges [n_sub + 1], subtile s's pairs being order[edges[s] ..
+// edges[s + 1]) (ops/cuda/gather_score.py::buckets) -> out [q, s_keep * 64].
+int gather_score_tc_launch(const void* xu, int f, const void* qn, int s_keep,
+                           int n_sub, const int64_t* edges,
+                           const int64_t* order, float* out, int device,
+                           void* stream) {
+  if (f <= 0 || s_keep <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return launch_tc(xu, f, qn, s_keep, n_sub, edges, order, out,
+                   (cudaStream_t)stream);
 }
 
 const char* gather_score_error_string(int err) {

@@ -6,7 +6,8 @@ by less than that may trade places.  Two lists agree when every position's
 values are within ``tol``, every id both hold has values within ``tol``,
 and an id only one holds sits within ``tol`` of the other's last value.
 
-``k5_blend`` is the bit-for-bit witness of K2's scores on the card.
+``k5_blend`` is the bit-for-bit witness of K2's scores on the card: K5's
+SIMT route, which keeps K2's fmaf chain.
 """
 
 from __future__ import annotations
@@ -47,22 +48,29 @@ def max_abs_err(vals_a, vals_b) -> float:
 
 
 def k5_blend(xu, lam, qn, lam_q, tau, ids):
-    """K2's scores as another kernel computes them: K5's cosine
-    (csrc/gather_score.cu, which keeps tile_common.cuh's one fmaf chain) of
-    each query of qn [Q, F] with each id of its list ids [Q, k], xu padded
-    to K5's 64-row subtiles, blended as tile::blend does:
+    """K2's scores as another kernel computes them: K5's cosine of each
+    query of qn [Q, F] with each id of its list ids [Q, k], xu padded to
+    K5's 64-row subtiles, blended as tile::blend does:
     ``tau * cos + (1 - tau) * (1 / (1 + |lam_i - lam_q|))``, op by op in
-    float32.  Every score K2 returns must equal it bit for bit.  CUDA
-    tensors; the package is imported by name, so a checkout's own copy of
-    this file also checks another checkout's kernels."""
+    float32.  Every score K2 returns must equal it bit for bit.
+
+    K5 runs on float32 operands, so it takes its SIMT route
+    (csrc/gather_score.cu), tile_common.cuh's one fmaf chain over
+    ascending features, and not the bf16 tensor-core route: the rows are
+    xu upcast to float32 and the queries rounded to xu's type, then upcast.
+    Both upcasts are exact, so these are the values K2 multiplies (K2 over
+    bf16 rows rounds the queries to bf16 too).  CUDA tensors; the package
+    is imported by name, so a checkout's own copy of this file also checks
+    another checkout's kernels."""
     import torch
 
     from pyarrowspace_tpu_torch.ops.cuda import gather_score
     sub = gather_score.SUBTILE
-    xp = torch.nn.functional.pad(xu, (0, 0, 0, (-xu.shape[0]) % sub))
+    f32 = torch.float32
+    xp = torch.nn.functional.pad(xu.to(f32), (0, 0, 0, (-xu.shape[0]) % sub))
     ids64 = ids.to(torch.int64)
     cos = gather_score.gather_score(
-        xp.contiguous(), qn.to(xu.dtype).contiguous(),
+        xp.contiguous(), qn.to(xu.dtype).to(f32).contiguous(),
         (ids64 // sub).to(torch.int32).contiguous())
     del xp
     cols = torch.arange(ids.shape[1], device=ids.device) * sub + ids64 % sub

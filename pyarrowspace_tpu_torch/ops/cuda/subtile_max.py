@@ -9,6 +9,14 @@ subtile s with none: the routing maxima of ``subtile_search``, already
 repaired for the partial last subtile.  The layout is query-major
 [Q, n_sub].  On CPU tensors it runs ``subtile_max_plain``; on CUDA tensors
 it launches ``csrc/subtile_max.cu`` (built at first use) or raises.
+
+Two routes on the card, chosen by ``tensor_core_route``, the one predicate
+that K5's wrapper (``gather_score.py``) calls too, so that K3 and K5 always
+compute a state's products the same way and the block-max guarantee holds
+bit for bit: the bf16 tensor-core kernel (``csrc/wgmma_tile.cuh``) for a
+bf16 state with F % 8 == 0 and 16-byte-aligned bases, else the SIMT kernel
+(the fmaf chain of ``csrc/tile_common.cuh``).  A failed build or launch
+raises; nothing falls back to the other route or to the plain version.
 """
 
 from __future__ import annotations
@@ -21,8 +29,13 @@ from ... import _build
 
 SUBTILE = 64
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it): all
+# of them, and those of the tensor-core route.
 LAUNCHES = 0
+TC_LAUNCHES = 0
+
+# The launcher's route codes.
+_SIMT_F32, _SIMT_BF16, _TENSOR_CORE = 0, 1, 2
 
 # Plain version: queries per chunk keep the [queries, N_pad] score block
 # near this many elements.
@@ -58,6 +71,22 @@ def subtile_max_plain(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
                        sentinel(sub_ids)[None, :])
 
 
+def tensor_core_route(xu: torch.Tensor, qn: torch.Tensor) -> bool:
+    """Whether K3 and K5 run the bf16 tensor-core kernels on the corpus xu
+    [N_pad, F] and queries qn [Q, F] (on the card): both bfloat16, F a
+    positive multiple of 8 (16-byte rows, TMA's stride rule) and both base
+    addresses 16-byte aligned.  Otherwise both run their SIMT kernels."""
+    f = xu.shape[-1]
+    return (xu.dtype == torch.bfloat16 and qn.dtype == torch.bfloat16
+            and f > 0 and f % 8 == 0 and xu.data_ptr() % 16 == 0
+            and qn.data_ptr() % 16 == 0)
+
+
+def route_name(xu: torch.Tensor, qn: torch.Tensor) -> str:
+    """"tensor-core" or "simt": the route tensor_core_route picks."""
+    return "tensor-core" if tensor_core_route(xu, qn) else "simt"
+
+
 def _lib():
     lib = _build.load("subtile_max")
     lib.subtile_max_launch.restype = ctypes.c_int
@@ -74,7 +103,7 @@ def subtile_max(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     """[Q, N_pad / 64] float32 routing maxima: xu [N_pad, F] (float32 or
     bfloat16, N_pad a multiple of 64) with lambdas lam [N_pad] float32,
     queries qn [Q, F] of xu's dtype with lambdas lam_q [Q] float32."""
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     if xu.dim() != 2 or qn.dim() != 2 or qn.shape[1] != xu.shape[1]:
         raise ValueError(f"shapes xu {tuple(xu.shape)} / qn "
                          f"{tuple(qn.shape)} do not match")
@@ -111,12 +140,16 @@ def subtile_max(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     out = torch.empty((q, n_sub), dtype=torch.float32, device=device)
     if q == 0:
         return out
+    tc = tensor_core_route(xu, qn)
+    route = (_TENSOR_CORE if tc else
+             _SIMT_BF16 if xu.dtype == torch.bfloat16 else _SIMT_F32)
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.subtile_max_launch(
         xu.data_ptr(), lam.data_ptr(), n_sub, f, int(n_real), qn.data_ptr(),
-        lam_q.data_ptr(), q, float(tau), int(xu.dtype == torch.bfloat16),
-        out.data_ptr(), device.index or 0, stream)
+        lam_q.data_ptr(), q, float(tau), route, out.data_ptr(),
+        device.index or 0, stream)
     _build.check(lib, "subtile_max", err)
     LAUNCHES += 1
+    TC_LAUNCHES += tc
     return out

@@ -3,7 +3,10 @@ select), K5 (gather and score) and K4a (pool cut) — against their plain
 PyTorch versions on the card, at small and ragged shapes; subtile_search
 on the kernels against subtile_search on the plain versions; and the wide
 lists of K1 and K2 (k up to 256; the wide lists past 256 are held in
-tests/test_torch_gpu_ivf.py).
+tests/test_torch_gpu_ivf.py).  K3 and K5 have two routes on the card
+(subtile_max.tensor_core_route): the bf16 tensor-core kernels, which share
+csrc/wgmma_tile.cuh's product, and the SIMT kernels, for float32 and
+ragged F; both are held here, and the block-max guarantee on each.
 
 Every test here needs an NVIDIA GPU with nvcc: they are marked ``gpu`` and
 skip without one.  This file imports no jax; from the repository root:
@@ -186,15 +189,11 @@ def test_gather_score_kernel_matches_plain(dev, n_sub, q, s_keep, f, dt):
     torch.testing.assert_close(got, ref, rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_block_max_bitwise(dev, dt):
-    """K3's maximum of a subtile equals, bit for bit, the best of phase b's
-    blended scores over the subtile's real rows (K5 + the PyTorch blend)."""
-    n_real, f, q = 3000, 96, 70
-    rng, xu, lam = _corpus(dev, 9, 8192, f, _dtype(dt), n_real)
-    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
-    lamq = torch.from_numpy(rng.uniform(0.05, 0.3, q).astype(np.float32))
-    lamq = lamq.to(dev)
+def _block_max(dev, xu, lam, qn, lamq, n_real, nan_free=False):
+    """K3's maxima of the real subtiles and the best of phase b's blended
+    scores (K5 + the PyTorch blend) over each subtile's real rows (those
+    whose score is a number, when nan_free)."""
+    q = qn.shape[0]
     sub = subtile_max.subtile_max(xu, lam, qn, lamq, TAU, n_real)
     real = -(-n_real // 64)
     sel = torch.arange(real, dtype=torch.int32, device=dev).expand(q, real)
@@ -205,9 +204,191 @@ def test_block_max_bitwise(dev, dt):
         lam_b - lamq[:, None])))
     rows = sel.long()[:, :, None] * 64 + torch.arange(64, device=dev)
     score = score.masked_fill(rows.reshape(q, -1) >= n_real, float("-inf"))
+    if nan_free:
+        score = score.masked_fill(score.isnan(), float("-inf"))
     best = score.view(q, real, 64).amax(dim=2)
-    assert torch.equal(best.view(torch.int32),
-                       sub[:, :real].contiguous().view(torch.int32))
+    return sub[:, :real].contiguous(), best
+
+
+# bf16 at F 96 takes the tensor-core route, bf16 at F 97 (ragged) and
+# float32 the SIMT route.
+@pytest.mark.parametrize("dt,f", [("f32", 96), ("bf16", 96), ("bf16", 97),
+                                  ("bf16", 384)])
+def test_block_max_bitwise(dev, dt, f):
+    """K3's maximum of a subtile equals, bit for bit, the best of phase b's
+    blended scores over the subtile's real rows (K5 + the PyTorch blend)."""
+    n_real, q = 3000, 300
+    rng, xu, lam = _corpus(dev, 9, 8192, f, _dtype(dt), n_real)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
+    lamq = torch.from_numpy(rng.uniform(0.05, 0.3, q).astype(np.float32))
+    lamq = lamq.to(dev)
+    tc = subtile_max.TC_LAUNCHES, gather_score.TC_LAUNCHES
+    sub, best = _block_max(dev, xu, lam, qn, lamq, n_real)
+    on_tc = dt == "bf16" and f % 8 == 0
+    assert (subtile_max.TC_LAUNCHES, gather_score.TC_LAUNCHES) == (
+        tc[0] + on_tc, tc[1] + on_tc)
+    assert torch.equal(best.view(torch.int32), sub.view(torch.int32))
+
+
+def test_block_max_bitwise_query_order(dev):
+    """A query's bits do not depend on its column in the tensor-core tile:
+    K3 and K5 on the batch permuted give each query the same maxima and
+    cosines bit for bit, and the guarantee holds."""
+    n_real, q, f = 5000, 700, 768
+    rng, xu, lam = _corpus(dev, 10, 8192, f, torch.bfloat16, n_real)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
+    lamq = torch.from_numpy(rng.uniform(0.05, 0.3, q).astype(np.float32))
+    lamq = lamq.to(dev)
+    perm = torch.from_numpy(rng.permutation(q)).to(dev)
+    sub, best = _block_max(dev, xu, lam, qn, lamq, n_real)
+    sub_p, best_p = _block_max(dev, xu, lam, qn[perm].contiguous(),
+                               lamq[perm].contiguous(), n_real)
+    assert torch.equal(best_p.view(torch.int32), sub_p.view(torch.int32))
+    assert torch.equal(sub_p.view(torch.int32), sub[perm].view(torch.int32))
+    assert torch.equal(best_p.view(torch.int32),
+                       best[perm].view(torch.int32))
+
+
+# -- the tensor-core route against the plain versions ---------------------------
+
+@pytest.mark.parametrize("n_pad,n_real,q,f", [
+    (64, 64, 1, 8), (64, 37, 5, 64), (640, 600, 257, 64),
+    (8192, 8130, 300, 384), (8256, 8256, 513, 768), (16384, 9000, 1000, 96),
+    (1024, 0, 3, 384)])
+def test_subtile_max_tensor_core_matches_plain(dev, n_pad, n_real, q, f):
+    rng, xu, lam = _corpus(dev, n_pad + q + f, n_pad, f, torch.bfloat16,
+                           n_real)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
+    lamq = torch.from_numpy(rng.uniform(0.05, 0.3, q).astype(np.float32))
+    lamq = lamq.to(dev)
+    assert subtile_max.tensor_core_route(xu, qn)
+    tc = subtile_max.TC_LAUNCHES
+    got = subtile_max.subtile_max(xu, lam, qn, lamq, TAU, n_real)
+    torch.cuda.synchronize()
+    assert subtile_max.TC_LAUNCHES == tc + 1
+    ref = subtile_max.subtile_max_plain(xu, lam, qn, lamq, TAU, n_real)
+    real = -(-n_real // 64)
+    torch.testing.assert_close(got[:, :real], ref[:, :real], rtol=0,
+                               atol=TOL)
+    assert torch.equal(got[:, real:], ref[:, real:])    # the sentinels
+
+
+def test_subtile_max_tensor_core_division_exact(dev):
+    """The tensor-core epilogue's reciprocal (no branch to a slow path)
+    equals PyTorch's IEEE 1 / x bit for bit: tau 0 makes each maximum the
+    proximity 1 / (1 + |lam_i - lam_q|) itself.  Subtile 0 (lam_i 0) takes
+    every float x in [1, 2) (2^23 queries, lam_q = x - 1) and 2^20 x drawn
+    in [2, 2^62); subtile 1 (lam_i -(2^62 - 2^38), the float of largest
+    magnitude under 2^62) takes x in [2^62, 2^63).  Every lambda stays
+    under 2^62 in magnitude, so all of it is the fast path."""
+    f = 8
+    k = torch.arange(1 << 23, device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    wide = torch.exp2(torch.rand(1 << 20, generator=gen, device=dev) * 61
+                      + 1.0)
+    lamq = torch.cat([k * 2.0 ** -23, wide]).contiguous()
+    assert float(lamq.max()) < 2.0 ** 62
+    xu = torch.ones((128, f), device=dev, dtype=torch.bfloat16)
+    qn = torch.ones((lamq.numel(), f), device=dev, dtype=torch.bfloat16)
+    lam = torch.zeros(128, device=dev)
+    lam[64:] = -(2.0 ** 62 - 2.0 ** 38)
+    assert subtile_max.tensor_core_route(xu, qn)
+    got = subtile_max.subtile_max(xu, lam, qn, lamq, 0.0, 128)
+    want = 1.0 / (1.0 + torch.abs(lam[::64, None] - lamq[None, :])).T
+    x_top = 1.0 + torch.abs(lam[64] - lamq)
+    assert float(x_top.min()) >= 2.0 ** 62 - 2.0 ** 38
+    assert float(x_top.max()) >= 2.0 ** 62.99
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# Lambdas the fast reciprocal does not take (2^62 or more in magnitude, or
+# not finite): the warpgroups that meet one blend with tile::blend's IEEE
+# division.  "huge": a row's lambda 1.5 * 2^62 in one subtile and a query's
+# 2^100; "inf": a row's +inf and a query's -inf (their difference stays
+# infinite, so each proximity is 0); "nan": a row's NaN, whose blended
+# score is NaN on both sides.
+@pytest.mark.parametrize("case", ["huge", "inf", "nan"])
+@pytest.mark.parametrize("dt,f", [("bf16", 96), ("f32", 96)])
+def test_block_max_bitwise_off_the_fast_path(dev, case, dt, f):
+    """The block-max guarantee where a warpgroup's lambdas leave the fast
+    reciprocal's range, on both routes.  K3's max is fmaxf's, which passes
+    over a NaN score, so for "nan" phase b's best is taken over the scores
+    that are numbers (a subtile keeps 63 of them)."""
+    n_real, q = 3000, 300
+    rng, xu, lam = _corpus(dev, 11, 8192, f, _dtype(dt), n_real)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
+    lamq = torch.from_numpy(rng.uniform(0.05, 0.3, q).astype(np.float32))
+    lamq = lamq.to(dev)
+    if case == "huge":
+        lam[64 * 5 + 17] = 1.5 * 2.0 ** 62
+        lamq[260] = 2.0 ** 100
+    elif case == "inf":
+        lam[64 * 5 + 17] = float("inf")
+        lam[n_real - 1] = float("inf")         # in the partial last subtile
+        lamq[260] = float("-inf")
+    else:
+        lam[64 * 5 + 17] = float("nan")
+        lam[n_real - 1] = float("nan")
+    tc = subtile_max.TC_LAUNCHES
+    sub, best = _block_max(dev, xu, lam, qn, lamq, n_real,
+                           nan_free=case == "nan")
+    assert subtile_max.TC_LAUNCHES == tc + (dt == "bf16")
+    assert torch.isfinite(sub).all()
+    assert torch.equal(best.view(torch.int32), sub.view(torch.int32))
+
+
+def _skewed_sel(rng, q, s_keep, n_sub, hot):
+    """Each query's s_keep subtiles: the first `hot` from a few popular
+    subtiles (buckets far larger than a 256-query chunk), the rest random,
+    some repeated within a query; most subtiles stay unselected."""
+    popular = rng.choice(n_sub, size=max(1, hot), replace=False)
+    sel = rng.integers(0, n_sub, (q, s_keep))
+    sel[:, :hot] = popular[None, :hot]
+    sel[::7, -1] = sel[::7, 0]                   # a subtile twice in a row
+    return sel.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_sub,q,s_keep,f,hot", [
+    (2, 1, 1, 8, 0), (64, 300, 16, 384, 3), (130, 700, 16, 768, 16),
+    (500, 65, 5, 64, 1), (4000, 1000, 16, 96, 2)])
+def test_gather_score_tensor_core_matches_plain(dev, n_sub, q, s_keep, f,
+                                                hot):
+    rng, xu, _ = _corpus(dev, n_sub + q + f, n_sub * 64, f, torch.bfloat16)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
+    sel = torch.from_numpy(_skewed_sel(rng, q, s_keep, n_sub,
+                                       min(hot, s_keep))).to(dev)
+    tc = gather_score.TC_LAUNCHES
+    got = gather_score.gather_score(xu, qn, sel)
+    torch.cuda.synchronize()
+    assert gather_score.TC_LAUNCHES == tc + 1
+    ref = gather_score.gather_score_plain(xu, qn, sel)
+    torch.testing.assert_close(got, ref, rtol=0, atol=TOL)
+
+
+def test_simt_routes_serve_f32_and_ragged_f(dev):
+    """A float32 state and a bf16 state of ragged F run the SIMT kernels
+    (the tensor-core counters do not move) and agree with the plain
+    versions."""
+    for dtype, f in ((torch.float32, 384), (torch.bfloat16, 100),
+                     (torch.float32, 33)):
+        rng, xu, lam = _corpus(dev, f, 1024, f, dtype, 1000)
+        qn = torch.from_numpy(_unit(rng, 9, f)).to(dev).to(dtype)
+        lamq = torch.full((9,), 0.2, device=dev)
+        assert not subtile_max.tensor_core_route(xu, qn)
+        before = (subtile_max.LAUNCHES, subtile_max.TC_LAUNCHES,
+                  gather_score.LAUNCHES, gather_score.TC_LAUNCHES)
+        sub = subtile_max.subtile_max(xu, lam, qn, lamq, TAU, 1000)
+        sel = extract.extract_ids(sub, 4)
+        cos = gather_score.gather_score(xu, qn, sel)
+        assert (subtile_max.LAUNCHES, subtile_max.TC_LAUNCHES,
+                gather_score.LAUNCHES, gather_score.TC_LAUNCHES) == (
+            before[0] + 1, before[1], before[2] + 1, before[3])
+        ref = subtile_max.subtile_max_plain(xu, lam, qn, lamq, TAU, 1000)
+        torch.testing.assert_close(sub, ref, rtol=0, atol=TOL)
+        torch.testing.assert_close(
+            cos, gather_score.gather_score_plain(xu, qn, sel), rtol=0,
+            atol=TOL)
 
 
 # -- subtile_search: kernels against plain versions -------------------------------
