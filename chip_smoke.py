@@ -7,8 +7,8 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
 
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
-     all started together); ptxas's registers and spills of K1, K2, K3
-     and K5;
+     all started together); ptxas's registers and spills of K1, K2, K3,
+     K5, K7 and K6;
   1. K1 (csrc/knn.cu) against its plain version on a 313,841 x 384 unit
      corpus (eps 1.31, k 25): its one launch over the whole corpus timed
      beside its bound (each of the N (N + 1) / 2 distinct pairs' products
@@ -62,8 +62,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      mode="subtile", mode="exact" and mode="int8" (its first call
      quantizes the corpus: 768 MB of int8) timed over 2 batches each, the
      subtile and int8 top-15 overlaps with exact on 1,024 queries at least
-     0.99, K3 alone (a batch of 16,384) and the peak device memory;
-     exact and subtile in turns over the 2 batches;
+     0.99, K3 alone (a batch of 16,384), K7 alone (a batch of 16,384, its
+     route and bound; ids and scores bit for bit its plain version's on
+     1,024 queries) and the peak device memory; exact and subtile in turns
+     over the 2 batches;
   8. blocked-IVF and certified serving on phase 3's index: enable_ivf()
      (the build's own clustering), then search_batch(mode="ivf_block") and
      mode="certified" (n_probe 8) over phase 3's 8 batches, each after a
@@ -72,7 +74,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      exact ids outside near-ties of 1e-5.  The base certification rate
      and the widened and escalated queries are counted (the corpus is
      isotropic, so few queries certify; the results are exact anyway); K6
-     against its plain version on the routed first batch, timed in turns;
+     against its plain version on the routed first batch, timed in turns,
+     beside its bound over the real rows of the probed clusters, the
+     tiles K6 walks (the 64-row tiles up to each probed cluster's last
+     real row) and the first version's bound over every probed cap row;
   9. certified serving at 1,000,000 x 768, batches of 16,384, on a mixture
      corpus made on the card (4,096 centres, rows centre + 0.35 N(0, 1),
      queries a unit corpus row + 0.25 / sqrt(768) N(0, 1), as
@@ -86,8 +91,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      memory;
   10. int8 serving on phase 3's index: search_batch(mode="int8") over
      phase 3's 8 batches after a warm-up, the counts reset before: K7
-     (csrc/scan_int8.cu) must have run; K7 against its plain version on
-     the first batch (ids identical, scores bit for bit), timed in turns;
+     (csrc/scan_int8.cu) must have run, on its tensor-core route; K7
+     against its plain version on the first batch (ids identical, scores
+     bit for bit), timed in turns, and its SIMT route (the same rows as a
+     strided view) bit for bit its tensor-core route, timed;
      the served ids equal phase 3's exact ids outside near-ties of 1e-5 on
      every query whose exact top-15 lies in K7's pool of 60;
   11. the bfloat16 serving view (as_serving) of that index: exact search
@@ -135,9 +142,12 @@ K1t and K1's options, phase 15's extend for seeded K1), its largest
 difference from the plain version, the kernel's and the plain version's
 times, its bound (the larger of its operations over the H100's peak for
 their type and its bytes over 3.35 TB/s, from this run's shapes; K5 and
-K6 count the rows this run's routing reads, seeded K1 the new columns)
-and the time of torch.topk where one PyTorch call computes the same
-function (K4a, K4b; null elsewhere).  K1 and K2 also carry product_ms:
+K6 count the rows this run's routing reads, K6 only the real rows of the
+probed clusters, seeded K1 the new columns) and the time
+of torch.topk where one PyTorch call computes the same function (K4a,
+K4b; null elsewhere).  K6 and K7 carry kernel_route (K7: "tensor-core"
+or "simt"; K6 has one route, "simt"), K7 simt_ms (its SIMT route on the
+same rows).  K1 and K2 also carry product_ms:
 one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
 library matmul on the same operands that the port never calls (it is not
 the same function: no mask, blend or top-k, and another summation order),
@@ -148,17 +158,21 @@ is {"ok": true, "device": {...}}.
 
 compares other checkouts of the repository (a parent's tree unpacked with
 git archive, say) with this one on the same card, instead of the phases:
-each tree's package runs this script's phases 0-3, 6b and 11 (with their
-checks) in a process of its own, in turns (the others, this tree, this
-tree, the others reversed), and each turn prints what those phases
+each tree's package runs this script's phases 0-3, 6b, 6c and 11 (with
+their checks) in a process of its own, in turns (the others, this tree,
+this tree, the others reversed), and each turn prints what those phases
 measured: K1 over the whole corpus, over 16,384 rows and at k 100, 200
 and 1,024, K2 at Q 4,096 over float32 and bfloat16 rows and at k 200 and
 1,024, the build seconds with the knn phase, exact QPS, K3 and K5 at
-phase 6's shapes and K3 over a 1,000,000 x 768 bf16 corpus made from a
-seeded generator with 16,384 queries (each K3 held against its plain
-version on 1,024 queries, not against this tree's bits).  Then every
-run's k-NN lists, lambdas and exact top-k ids must equal this tree's bit
-for bit.
+phase 6's shapes, K4a and torch.topk in turns on phase 6's pool, K3 over
+a 1,000,000 x 768 bf16 corpus made from a seeded generator with 16,384
+queries (each K3 held against its plain version on 1,024 queries, not
+against this tree's bits), K7 on phase 10's first batch and over a
+seeded 1,000,000 x 768 int8 corpus with 16,384 queries, and K6 on phase
+8's routed first batch and on phase 9's 1M mixture over float32 and
+bfloat16 slabs (each held against its plain version).  Then every run's
+k-NN lists, lambdas, exact top-k ids and K6 and K7 outputs (ids and
+scores) must equal this tree's bit for bit.
 """
 
 from __future__ import annotations
@@ -280,6 +294,7 @@ def _reset_launches() -> None:
                 scan_int8):
         mod.LAUNCHES = 0
     subtile_max.TC_LAUNCHES = gather_score.TC_LAUNCHES = 0
+    scan_int8.TC_LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
     knn.SEEDED_LAUNCHES = knn.DIAG_START_LAUNCHES = knn.PERM_LAUNCHES = 0
 
@@ -301,7 +316,8 @@ def _launches() -> dict:
             "gather_score": gather_score.LAUNCHES,
             "gather_score_tc": getattr(gather_score, "TC_LAUNCHES", 0),
             "ivf_scan": ivf_scan.LAUNCHES,
-            "scan_int8": scan_int8.LAUNCHES}
+            "scan_int8": scan_int8.LAUNCHES,
+            "scan_int8_tc": getattr(scan_int8, "TC_LAUNCHES", 0)}
 
 
 def _overlap(ids_a: np.ndarray, ids_b: np.ndarray) -> float:
@@ -606,6 +622,17 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
         xs, lam, qs, lamq, TAU, n_real), torch) for _ in range(2)) / 2
     k5_ms = sum(_events_ms(lambda: gather_score.gather_score(xs, qs, sel),
                            torch) for _ in range(2)) / 2
+    # K4a against torch.topk on phase 6's pool, in turns (topk, K4a, K4a,
+    # topk): the library call is the yardstick of the select.
+    score_b, cand = subtile_scan.phase_b_scores(
+        gather_score.gather_score(xs, qs, sel), sel, lam, lamq,
+        torch.tensor(TAU, dtype=f32), n_real)
+    m_pool = 2 * GP["topk"]
+    extract.extract_pool(score_b, cand, m_pool)
+    torch.topk(score_b, m_pool, dim=1)
+    k4a_ms, topk_ms = _in_turns(
+        lambda: torch.topk(score_b, m_pool, dim=1),
+        lambda: extract.extract_pool(score_b, cand, m_pool), torch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     n_pad = -(-N1M // 8192) * 8192
@@ -626,7 +653,10 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
         subtile_max.subtile_max_plain(x1, lam1, qc, lc, TAU, N1M)[:, :real1]
         .cpu().numpy())
     del x1, q1
-    results["subtile_ab"] = dict(k3_ms=k3_ms, k5_ms=k5_ms, k3_1m_ms=k3_1m_ms)
+    results["subtile_ab"] = dict(k3_ms=k3_ms, k5_ms=k5_ms, k3_1m_ms=k3_1m_ms,
+                                 k4a_ms=k4a_ms, k4a_topk_ms=topk_ms)
+    print(f"phase 6b: K4a {k4a_ms:.3f} ms, torch.topk {topk_ms:.3f} ms in "
+          f"turns on {tuple(score_b.shape)} -> {m_pool} {card}")
     print(f"phase 6b: K3 {k3_ms:.3f} ms, K5 {k5_ms:.3f} ms at Q={qs.shape[0]} "
           f"N_pad={xs.shape[0]} F={xs.shape[1]} (max_abs_err {err3:.3e} / "
           f"{err5:.3e}); K3 {N1M}x{F1M} bf16, Q={Q1M}: {k3_1m_ms:.3f} ms "
@@ -636,14 +666,122 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
                              f"{err3} {err5} {err1m}")
 
 
+def _twice_ms(torch, fn) -> float:
+    """Mean ms of two calls of fn (warm)."""
+    return sum(_events_ms(fn, torch) for _ in range(2)) / 2
+
+
+def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
+    """Phase 6c (--measure only): K7 and K6 of the tree under measure, each
+    timed twice, their outputs kept for the bitwise comparison across
+    trees: K7 on phase 10's first batch (the phase-3 index quantized, pool
+    60) and over a 1,000,000 x 768 int8 corpus made from a seeded generator
+    with 16,384 queries; K6 on phase 8's routed first batch and on phase
+    9's 1M mixture (its clustering, float32 and bfloat16 slabs, 16,384
+    routed queries, n_probe 8), each held against its plain version (K7
+    bit for bit; K6 on the first 1,024 queries at 1M)."""
+    import inspect
+    from pyarrowspace_tpu_torch.ops import ivf_scan as tis
+    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+    from pyarrowspace_tpu_torch.ops.cuda import scan_int8
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    from pyarrowspace_tpu_torch.ops.quantize import quantize_rows
+    f32 = torch.float32
+    topk, m = GP["topk"], 4 * GP["topk"]
+    out, dump, ok = {}, {}, True
+    route = getattr(scan_int8, "route_name", lambda x, q: "simt")
+
+    def k7(name, args):
+        nonlocal ok
+        i, sc = scan_int8.scan_int8(*args)
+        n_chk = min(args[3].shape[0], Q1M_CHECK)
+        chk = args[:3] + tuple(a[:n_chk] for a in args[3:6]) + args[6:]
+        ip, sp = scan_int8.scan_int8_plain(*chk)
+        same = (_bits_equal(torch, i[:n_chk], ip)
+                and _bits_equal(torch, sc[:n_chk], sp))
+        ok &= same
+        out[f"{name}_ms"] = _twice_ms(
+            torch, lambda: scan_int8.scan_int8(*args))
+        dump[f"{name}_ids"], dump[f"{name}_scores"] = (i.cpu().numpy(),
+                                                       sc.cpu().numpy())
+        print(f"phase 6c: {name} ({route(args[0], args[3])} route) "
+              f"{out[name + '_ms']:.3f} ms, Q={args[3].shape[0]} "
+              f"N={args[0].shape[0]} F={args[0].shape[1]}; bit for bit the "
+              f"plain version on {n_chk} queries: {same} {card}")
+
+    aspace.search_batch(batches[-1], gl, TAU, mode="int8")    # quantizes
+    xq, scales = aspace._quantized
+    qb = batches[0]
+    qq, qs = quantize_rows(unit_normalize(qb))
+    k7("k7", (xq, scales.to(f32).contiguous(),
+              aspace._lambdas.to(f32).contiguous(), qq, qs,
+              _query_lambdas32(torch, aspace, qb), TAU, m))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x1, s1 = quantize_rows(unit_normalize(torch.randn(
+        (N1M, F1M), generator=gen, device=dev)))
+    lam1 = torch.rand(N1M, generator=gen, device=dev)
+    q1, qs1 = quantize_rows(unit_normalize(torch.randn(
+        (Q1M, F1M), generator=gen, device=dev)))
+    lq1 = torch.rand(Q1M, generator=gen, device=dev)
+    k7("k7_1m", (x1, s1, lam1, q1, qs1, lq1, TAU, m))
+    del x1, q1
+
+    has_tiles = "tiles" in inspect.signature(k6.ivf_scan).parameters
+
+    def k6_scan(name, ivf, space, queries):
+        nonlocal ok
+        q32 = queries.to(f32)
+        lamq = _query_lambdas32(torch, space, q32)
+        r = tis.route(ivf, unit_normalize(q32), lamq, tis._f32(TAU), qb=16,
+                      n_probe=N_PROBE, use_bound=True)
+        args = (ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad,
+                r.lamq_pad, r.probe_tbl, TAU)
+        kw = dict(k=topk, q_block=16, cap=ivf.cap)
+        kw_k = dict(kw, tiles=ivf.slab_tiles) if has_tiles else kw
+        s_k, i_k = k6.ivf_scan(*args, **kw_k)
+        n_chk = min(r.qn_pad.shape[0], Q1M_CHECK)
+        chk = args[:3] + (r.qn_pad[:n_chk], r.lamq_pad[:n_chk],
+                          r.probe_tbl[:n_chk // 16], TAU)
+        s_p, i_p = k6.ivf_scan_plain(*chk, **kw)
+        bad = topk_disagreements(s_k[:n_chk].cpu().numpy(),
+                                 i_k[:n_chk].cpu().numpy(),
+                                 s_p.cpu().numpy(), i_p.cpu().numpy(), TOL)
+        ok &= not bad
+        out[f"{name}_ms"] = _twice_ms(torch,
+                                      lambda: k6.ivf_scan(*args, **kw_k))
+        dump[f"{name}_ids"], dump[f"{name}_scores"] = (i_k.cpu().numpy(),
+                                                       s_k.cpu().numpy())
+        print(f"phase 6c: {name} {out[name + '_ms']:.3f} ms, "
+              f"{r.qn_pad.shape[0]} routed queries x {N_PROBE} probes x "
+              f"cap {ivf.cap} x F {r.qn_pad.shape[1]} {ivf.slabs.dtype}; "
+              f"disagreeing with the plain version on {n_chk} queries: "
+              f"{len(bad)} {card}")
+
+    aspace.enable_ivf()
+    k6_scan("k6", aspace._ensure_ivf_blocked(), aspace, batches[0])
+    space, _, _, queries = _mixture_space(torch, dev)
+    space.enable_ivf(n_clusters=MIX_CLUSTERS)
+    k6_scan("k6_1m_f32", space._ensure_ivf_blocked(), space, queries[0])
+    space.enable_ivf(slab_dtype=torch.bfloat16)
+    k6_scan("k6_1m_bf16", space._ensure_ivf_blocked(), space, queries[0])
+    del space, queries
+    results["scans_ab"] = out
+    results["ab_dump"] = dump
+    if not ok:
+        raise AssertionError("K6 / K7 disagree with their plain versions")
+
+
 def _phase_north_star(torch, dev, card, results) -> None:
     """Phase 7: subtile and exact serving at 1,000,000 x 768, batches of
     16,384, from a serving state made on the card (no graph build)."""
     import pyarrowspace_tpu_torch as pt
     from pyarrowspace_tpu_torch.graph.feature import build_feature_laplacian
     from pyarrowspace_tpu_torch.ops import search as search_ops
-    from pyarrowspace_tpu_torch.ops.cuda import subtile_max
+    from pyarrowspace_tpu_torch.ops.cuda import scan_int8, subtile_max
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    from pyarrowspace_tpu_torch.ops.quantize import quantize_rows
     from pyarrowspace_tpu_torch.ops.rayleigh import (dispersion_batch,
                                                      rayleigh_batch)
     from pyarrowspace_tpu_torch.spectral.taumode import (
@@ -709,10 +847,35 @@ def _phase_north_star(torch, dev, card, results) -> None:
                             st["n_real"])
     k3_ms = _events_ms(lambda: subtile_max.subtile_max(
         st["xu_scan"], st["lambdas"], qs, lamq, TAU, st["n_real"]), torch)
+    # K7 alone at 1M, its route, its bound; held against its plain version
+    # (ids identical, scores bit for bit) on the first Q1M_CHECK queries.
+    xq, scales = aspace._quantized
+    lam32 = aspace._lambdas.to(torch.float32).contiguous()
+    sc32 = scales.to(torch.float32).contiguous()
+    qq, qsc = quantize_rows(unit_normalize(qb))
+    m = 4 * topk
+    k7_args = (xq, sc32, lam32, qq, qsc, lamq, TAU, m)
+    scan_int8.scan_int8(*k7_args)
+    k7_ms = _events_ms(lambda: scan_int8.scan_int8(*k7_args), torch)
+    chk = (xq, sc32, lam32, qq[:Q1M_CHECK], qsc[:Q1M_CHECK],
+           lamq[:Q1M_CHECK], TAU, m)
+    k7_same = _bits_equal(torch, scan_int8.scan_int8(*chk)[0],
+                          scan_int8.scan_int8_plain(*chk)[0]) and \
+        _bits_equal(torch, scan_int8.scan_int8(*chk)[1],
+                    scan_int8.scan_int8_plain(*chk)[1])
+    k7_route = scan_int8.route_name(xq, qq)
+    k7_bound = _bound(2.0 * Q1M * N1M * F1M, "int8",
+                      N1M * (F1M + 8) + Q1M * (F1M + 8) + Q1M * m * 8)
+    print(f"phase 7: K7 alone ({k7_route} route) {k7_ms:.3f} ms a batch of "
+          f"{Q1M}, pool {m}, bound {k7_bound['bound_ms']:.3f} ms "
+          f"({k7_bound['bound_by']}); ids and scores bit for bit the plain "
+          f"version's on {Q1M_CHECK} queries: {k7_same} {card}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     turns = _exact_vs_subtile(torch, aspace, queries[:2], dict(topk=topk))
     results["north_star"] = dict(qps=qps, overlap=overlap,
                                  overlap_int8=overlap_int8, k3_ms=k3_ms,
+                                 k7_ms=k7_ms, k7_route=k7_route,
+                                 k7_bound_ms=k7_bound["bound_ms"],
                                  peak_gib=peak, turns=turns)
     # The real subtiles' rows only, as in phase 6.
     rows_k3 = -(-st["n_real"] // 64) * 64
@@ -729,10 +892,12 @@ def _phase_north_star(torch, dev, card, results) -> None:
     ok = all(np.all(np.isfinite(v)) and i.shape == (Q1M, topk)
              and i.min() >= 0 and i.max() < N1M
              for outs in served.values() for i, v in outs)
-    del aspace, st, queries
-    if not ok or overlap < MIN_OVERLAP or overlap_int8 < MIN_OVERLAP:
+    del aspace, st, queries, xq, qq
+    if not ok or overlap < MIN_OVERLAP or overlap_int8 < MIN_OVERLAP \
+            or not k7_same or k7_route != "tensor-core":
         raise AssertionError(f"1M serving check failed: results ok {ok}, "
-                             f"overlap {overlap}, int8 {overlap_int8}")
+                             f"overlap {overlap}, int8 {overlap_int8}, K7 "
+                             f"bitwise {k7_same} on the {k7_route} route")
 
 
 class _CertifiedCounts:
@@ -778,6 +943,32 @@ class _CertifiedCounts:
                 "widened": self.widened, "escalated": self.escalated}
 
 
+def _k6_bound(torch, ivf, r, k) -> tuple[dict, dict, int, int]:
+    """K6's bound on the routed batch r: the function's least work, the
+    real rows (id >= 0) of each block's probed clusters, 2 F operations
+    for each of them and each query of the block, and the bytes of the
+    real rows of the distinct probed clusters read once.  Returns (bound,
+    the bound over every probed cap row, the first version's count, the
+    real rows over all blocks, the rows K6 walks: the 64-row tiles up to
+    each probed cluster's last real row)."""
+    q_pad, f = r.qn_pad.shape
+    n_blocks, n_probe = r.probe_tbl.shape
+    qb = q_pad // n_blocks
+    probe = r.probe_tbl.to(torch.int64)
+    probed = torch.unique(probe)
+    real = (ivf.slab_ids.view(-1, ivf.cap) >= 0).sum(1)
+    rows = int(real[probe].sum())                    # over all blocks
+    distinct = int(real[probed].sum())
+    walked = int(ivf.slab_tiles.to(torch.int64)[probe].sum()) * 64
+    elt = ivf.slabs.element_size()
+    rest = q_pad * (f * 4 + 4) + probe.numel() * 4 + q_pad * k * 8
+    bound = _bound(2.0 * qb * rows * f, "fp32",
+                   distinct * (f * elt + 8) + rest)
+    over_cap = _bound(2.0 * q_pad * n_probe * ivf.cap * f, "fp32",
+                      int(probed.numel()) * ivf.cap * (f * elt + 8) + rest)
+    return bound, over_cap, rows, walked
+
+
 def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
     """K6 against its plain version on the routed batch qb (the routing of
     the certified path: bound-ordered, blocks of 16), timed in turns.
@@ -794,26 +985,27 @@ def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
     args = (ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad, r.lamq_pad,
             r.probe_tbl, TAU)
     kw = dict(k=k, q_block=16, cap=ivf.cap)
-    s_k, i_k = k6.ivf_scan(*args, **kw)
+    kw_k = dict(kw, tiles=ivf.slab_tiles)
+    s_k, i_k = k6.ivf_scan(*args, **kw_k)
     s_p, i_p = k6.ivf_scan_plain(*args, **kw)
     s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
     s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
     err = max_abs_err(s_k, s_p)
     bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
     k_ms, p_ms = _in_turns(lambda: k6.ivf_scan_plain(*args, **kw),
-                           lambda: k6.ivf_scan(*args, **kw), torch)
+                           lambda: k6.ivf_scan(*args, **kw_k), torch)
     q_pad, f = r.qn_pad.shape
-    probed = int(torch.unique(r.probe_tbl).numel())
-    bound = _bound(2.0 * q_pad * N_PROBE * ivf.cap * f, "fp32",
-                   probed * ivf.cap * (f * ivf.slabs.element_size() + 8)
-                   + q_pad * (f * 4 + 4) + r.probe_tbl.numel() * 4
-                   + q_pad * k * 8)
-    print(f"{label}: K6 vs plain on {q_pad} routed queries x "
-          f"{N_PROBE} probes x cap {ivf.cap} x F {f} "
+    bound, over_cap, rows, walked = _k6_bound(torch, ivf, r, k)
+    cap_rows = q_pad // 16 * N_PROBE * ivf.cap
+    print(f"{label}: K6 (its one route, simt) vs plain on {q_pad} routed "
+          f"queries x {N_PROBE} probes x cap {ivf.cap} x F {f} "
           f"{ivf.slabs.dtype}, k {k}: max_abs_err {err:.3e}, disagreeing "
           f"queries {len(bad)}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-          f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
-          f"{probed} distinct slabs probed) {card}")
+          f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}; the "
+          f"{rows} real rows the probe table names, {rows / cap_rows:.3f} "
+          f"of the probed cap rows; K6 walks {walked // 64} tiles, "
+          f"{walked / cap_rows:.3f} of them; over every cap row, as "
+          f"before: {over_cap['bound_ms']:.3f} ms) {card}")
     if bad or err > TOL:
         raise AssertionError(f"K6 disagrees with its plain version: queries "
                              f"{bad[:10]}, err {err}")
@@ -865,7 +1057,8 @@ def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
     err, k_ms, p_ms, bound = _k6_against_plain(torch, ivf, aspace, batches[0],
                                                topk, "phase 8", card)
     results["ivf_scan"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                               library_ms=None, **bound)
+                               library_ms=None, kernel_route="simt",
+                               **bound)
     results["certified_313k"] = dict(qps=qps, overlap=overlap, **summary)
     checks = {
         "K6 launched on the certified path":
@@ -880,25 +1073,19 @@ def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
                              f"{[c for c, ok in checks.items() if not ok]}")
 
 
-def _phase_certified_1m(torch, dev, card, results) -> None:
-    """Phase 9: certified serving at 1,000,000 x 768, batches of 16,384, on
-    a mixture corpus made on the card, over float32 and bfloat16 slabs,
-    and the serving stream."""
+def _mixture_space(torch, dev):
+    """Phase 9's serving state: a 1,000,000 x 768 mixture corpus made on
+    the card (4,096 centres, rows centre + 0.35 N(0, 1)) in an ArrowSpace,
+    and 4 batches of 16,384 in-distribution queries (a unit corpus row +
+    0.25 / sqrt(768) N(0, 1)), as benchmarks/bench_serving.py makes them.
+    Returns (aspace, xu, lambdas, queries)."""
     import pyarrowspace_tpu_torch as pt
     from pyarrowspace_tpu_torch.graph.feature import build_feature_laplacian
-    from pyarrowspace_tpu_torch.ops import ivf_scan as tis
-    from pyarrowspace_tpu_torch.ops import search as search_ops
-    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
     from pyarrowspace_tpu_torch.ops.rayleigh import (dispersion_batch,
                                                      rayleigh_batch)
     from pyarrowspace_tpu_torch.spectral.taumode import (
         TAU_MIX, derive_tau_star, synthesize)
-    topk = GP["topk"]
-    f32 = torch.float32
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     centres = torch.randn((MIX_CLUSTERS, F1M), generator=gen, device=dev)
@@ -912,8 +1099,8 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
     tau_star = derive_tau_star(e, pt.TauMode.MEDIAN)
     lams = synthesize(e, dispersion_batch(x, w_f, e), tau_star, TAU_MIX)
     del x
-    params = pt.GraphParams(eps=GP["eps"], k=GP["k"], topk=topk, p=GP["p"],
-                            sigma=GP["sigma"])
+    params = pt.GraphParams(eps=GP["eps"], k=GP["k"], topk=GP["topk"],
+                            p=GP["p"], sigma=GP["sigma"])
     aspace = pt.ArrowSpace._from_build(
         data=xu, data_unit=xu, lambdas=lams, e_raw=e, lap_f=lap_f, w_f=w_f,
         tau_star=tau_star, params=params)
@@ -922,6 +1109,24 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
         rows = torch.randint(0, N1M, (Q1M,), generator=gen, device=dev)
         queries.append(xu[rows] + (Q_NOISE / F1M ** 0.5) * torch.randn(
             (Q1M, F1M), generator=gen, device=dev))
+    return aspace, xu, lams, queries
+
+
+def _phase_certified_1m(torch, dev, card, results) -> None:
+    """Phase 9: certified serving at 1,000,000 x 768, batches of 16,384, on
+    a mixture corpus made on the card, over float32 and bfloat16 slabs,
+    and the serving stream."""
+    from pyarrowspace_tpu_torch.ops import ivf_scan as tis
+    from pyarrowspace_tpu_torch.ops import search as search_ops
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    from pyarrowspace_tpu_torch.spectral.taumode import TAU_MIX
+    topk = GP["topk"]
+    f32 = torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    aspace, xu, lams, queries = _mixture_space(torch, dev)
     torch.cuda.synchronize()
     print(f"phase 9: mixture serving state {N1M}x{F1M} ({MIX_CLUSTERS} "
           f"centres) made in {time.perf_counter() - t0:.3f} s")
@@ -1073,12 +1278,26 @@ def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
     i_p, s_p = scan_int8.scan_int8_plain(*args)
     same_ids = torch.equal(i_k, i_p)
     err = float((s_k.double() - s_p.double()).abs().max())
+    same_bits = _bits_equal(torch, s_k, s_p)
     k_ms, p_ms = _in_turns(lambda: scan_int8.scan_int8_plain(*args),
                            lambda: scan_int8.scan_int8(*args), torch)
+    # The SIMT route (the first version's __dp4a kernel) on the same rows,
+    # as a view whose row stride is not F: bit for bit the tensor cores'.
+    route = scan_int8.route_name(xq, qq)
+    wide = torch.zeros((N, F + 16), dtype=torch.int8, device=xq.device)
+    wide[:, :F] = xq
+    simt_args = (wide[:, :F],) + args[1:]
+    simt_route = scan_int8.route_name(simt_args[0], qq)
+    i_s, s_s = scan_int8.scan_int8(*simt_args)
+    simt_same = _bits_equal(torch, i_s, i_k) and _bits_equal(torch, s_s, s_k)
+    simt_ms = sum(_events_ms(lambda: scan_int8.scan_int8(*simt_args), torch)
+                  for _ in range(2)) / 2
+    del wide, simt_args, i_s, s_s
     bound = _bound(2.0 * Q_BATCH * N * F, "int8",
                    N * (F + 8) + Q_BATCH * (F + 8) + Q_BATCH * m * 8)
     results["scan_int8"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                library_ms=None, **bound)
+                                library_ms=None, kernel_route=route,
+                                simt_ms=simt_ms, **bound)
     # Served == exact wherever the exact top-15 is in the K7 pool.
     covered = bad = 0
     for b, o, e in zip(batches, got, outs_exact):
@@ -1099,17 +1318,25 @@ def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
           f"{Q_BATCH} queries (exact {results['exact_qps']:.1f}); first "
           f"call with quantization {t_first:.3f} s; launches {launches} "
           f"{card}")
-    print(f"phase 10: K7 Q={Q_BATCH} N={N} F={F} k={m}: ids identical "
-          f"{same_ids}, scores max |diff| {err:.3e}; kernel {k_ms:.3f} ms, "
-          f"plain {p_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-          f"({bound['bound_by']}) {card}")
+    print(f"phase 10: K7 Q={Q_BATCH} N={N} F={F} k={m} ({route} route): "
+          f"ids identical {same_ids}, scores max |diff| {err:.3e}, bit for "
+          f"bit {same_bits}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); the "
+          f"{simt_route} route on the same rows {simt_ms:.3f} ms, bit for "
+          f"bit the {route} route's: {simt_same} {card}")
     print(f"phase 10: top-{topk} overlap with exact {overlap:.6f}; exact "
           f"top-{topk} inside the pool of {m} for {covered} of "
           f"{N_BATCHES * Q_BATCH} queries, of which served != exact beyond "
           f"near-ties: {bad}")
     checks = {
         "K7 launched on the int8 path": launches["scan_int8"] > 0,
-        "K7 ids == plain": same_ids, "K7 scores == plain": err == 0.0,
+        "K7 on its tensor-core route there": (
+            route == "tensor-core"
+            and launches["scan_int8_tc"] == launches["scan_int8"]),
+        "K7 ids == plain": same_ids,
+        "K7 scores == plain": err == 0.0 and same_bits,
+        "K7's SIMT route == its tensor-core route":
+            simt_same and simt_route == "simt",
         "served == exact where the pool holds it": bad == 0,
         "result shapes": all(o[0].shape == (Q_BATCH, topk)
                              and np.all(np.isfinite(o[1])) for o in got)}
@@ -1338,7 +1565,8 @@ def _phase_long_lists(torch, aspace, gl, xu, batches, card, results) -> None:
                          for _ in range(n_blocks)]).to(torch.int32)
     args = (slabs, slab_lam, slab_ids, qn, lq, probe, TAU)
     kw = dict(k=GP["topk"], q_block=qblk, cap=cap)
-    s_k, i_k = ivf_scan.ivf_scan(*args, **kw)
+    s_k, i_k = ivf_scan.ivf_scan(*args, **kw,
+                                 tiles=ivf_scan.slab_tiles(slab_ids, cap))
     s_p, i_p = ivf_scan.ivf_scan_plain(*args, **kw)
     s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
     err6 = max_abs_err(s_k, s_p)
@@ -1655,7 +1883,7 @@ def _measures(results: dict) -> dict:
             "build_s": results["build_s"],
             "knn_phase_s": results["knn_phase_s"],
             "exact_qps": results["exact_qps"],
-            **results["subtile_ab"]}
+            **results["subtile_ab"], **results["scans_ab"]}
 
 
 def _against(trees: list[str]) -> int:
@@ -1748,7 +1976,8 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name, secs in _build.load_all(KERNEL_SOURCES).items():
         print(f"phase 0: built csrc/{name}.cu in {secs:.3f} s {card}")
     print(f"phase 0: all kernels built in {time.perf_counter() - t0:.3f} s")
-    for name in ("knn", "scan_topk", "subtile_max", "gather_score"):
+    for name in ("knn", "scan_topk", "subtile_max", "gather_score",
+                 "scan_int8", "ivf_scan"):
         print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
 
     rng = np.random.default_rng(42)
@@ -2060,6 +2289,9 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             ("phase 6b (subtile kernels, --measure)",
              lambda: _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
                                        results)),
+            ("phase 6c (K7 and K6, --measure)",
+             lambda: _phase_scans_ab(torch, aspace, gl, batches, dev, card,
+                                     results)),
             ("phase 11 (bf16 serving view)",
              lambda: _phase_bf16_view(torch, aspace, gl, batches, outs, card,
                                       results)),
@@ -2077,9 +2309,11 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
                                       card, results)),
             ("phase 9 (1M x 768 certified serving)",
              lambda: _phase_certified_1m(torch, dev, card, results))):
-        # --measure runs phases 6b and 11 only; a full run all but 6b.
-        if (label.startswith("phase 6b ") if tree is None
-                else not label.startswith(("phase 6b ", "phase 11 "))):
+        # --measure runs phases 6b, 6c and 11 only; a full run all but 6b
+        # and 6c.
+        ab_only = ("phase 6b ", "phase 6c ")
+        if (label.startswith(ab_only) if tree is None
+                else not label.startswith(ab_only + ("phase 11 ",))):
             continue
         try:
             if aspace is None:
@@ -2096,7 +2330,7 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         np.savez(dump, knn_dist=aspace._knn_dist.cpu().numpy(),
                  knn_idx=aspace._knn_idx.cpu().numpy(),
                  lambdas=aspace._lambdas.cpu().numpy(),
-                 ids=np.stack([o[0] for o in outs]))
+                 ids=np.stack([o[0] for o in outs]), **results["ab_dump"])
         print(json.dumps(_measures(results)))
         return 0
 

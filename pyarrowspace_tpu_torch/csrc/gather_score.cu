@@ -49,6 +49,8 @@
 
 namespace {
 
+using TC = wg::Mma<__nv_bfloat16>;   // the bf16 product K3 and K5 share
+
 constexpr int SUBTILE = tile::TILE;
 constexpr int GROUP = tile::THREADS / SUBTILE;   // subtiles per pass
 
@@ -136,9 +138,9 @@ int launch(const void* xu, int f, const void* qn, const int* sel, int q,
 // -- the tensor-core route -------------------------------------------------
 
 constexpr int TC_STAGES = 2;
-constexpr int TC_STAGE_BYTES = wg::A_BYTES + wg::B_BYTES;   // 40 KB
+constexpr int TC_STAGE_BYTES = wg::A_BYTES + TC::B_BYTES;   // 40 KB
 constexpr size_t TC_SMEM = (size_t)TC_STAGES * TC_STAGE_BYTES +
-                           2 * wg::N * sizeof(int);
+                           2 * TC::N * sizeof(int);
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
@@ -160,7 +162,7 @@ __device__ __forceinline__ void load_stage(
   for (int e = 0; e < wg::M * CHUNKS / wg::THREADS; ++e) {
     const int idx = e * wg::THREADS + tid;
     const int r = idx / CHUNKS, c = idx % CHUNKS;
-    const int feat = kb * wg::KSTAGE + c * 8;
+    const int feat = kb * TC::KSTAGE + c * 8;
     const bool in = feat < f;
     const __nv_bfloat16* src =
         in ? xu + ((size_t)s * wg::M + r) * f + feat : xu;
@@ -169,7 +171,7 @@ __device__ __forceinline__ void load_stage(
   }
   for (int idx = tid; idx < len * CHUNKS; idx += wg::THREADS) {
     const int r = idx / CHUNKS, c = idx % CHUNKS;
-    const int feat = kb * wg::KSTAGE + c * 8;
+    const int feat = kb * TC::KSTAGE + c * 8;
     const bool in = feat < f;
     const __nv_bfloat16* src = in ? qn + (size_t)qrow[r] * f + feat : qn;
     cp_async16(wg::smem_addr(b + wg::swizzle_offset(r, c)), src,
@@ -190,16 +192,16 @@ __global__ void __launch_bounds__(wg::THREADS)
                            float* __restrict__ out) {
   extern __shared__ __align__(1024) uint8_t smem[];
   int* qrow = reinterpret_cast<int*>(smem + TC_STAGES * TC_STAGE_BYTES);
-  int* ocol = qrow + wg::N;
+  int* ocol = qrow + TC::N;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int s = blockIdx.x;
   const int lo = (int)edges[s], hi = (int)edges[s + 1];
-  const int nk = (f + wg::KSTAGE - 1) / wg::KSTAGE;
+  const int nk = (f + TC::KSTAGE - 1) / TC::KSTAGE;
   const size_t row_len = (size_t)s_keep * wg::M;
   const int r_a = 16 * warp + (lane >> 2);
 
-  for (int c0 = lo; c0 < hi; c0 += wg::N) {
-    const int len = min(wg::N, hi - c0);
+  for (int c0 = lo; c0 < hi; c0 += TC::N) {
+    const int len = min(TC::N, hi - c0);
     for (int i = tid; i < len; i += wg::THREADS) {
       const int64_t p = order[c0 + i];
       qrow[i] = (int)(p / s_keep);
@@ -207,7 +209,7 @@ __global__ void __launch_bounds__(wg::THREADS)
     }
     __syncthreads();
 
-    float acc[wg::ACC];
+    float acc[TC::ACC];
     load_stage(xu, qn, f, s, qrow, len, 0, smem, smem + wg::A_BYTES);
     for (int kb = 0; kb < nk; ++kb) {
       uint8_t* stage = smem + (kb % TC_STAGES) * TC_STAGE_BYTES;
@@ -223,14 +225,15 @@ __global__ void __launch_bounds__(wg::THREADS)
       // the tensor cores' (async) reads, then wait for everyone's.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
-      wg::mma_stage(acc, wg::smem_addr(stage),
-                    wg::smem_addr(stage + wg::A_BYTES), kb == 0);
+      wg::mma_stage<__nv_bfloat16>(acc, wg::smem_addr(stage),
+                                   wg::smem_addr(stage + wg::A_BYTES),
+                                   kb == 0);
       wg::wait<0>();
       __syncthreads();   // the stage is free for the load after next
     }
 
 #pragma unroll
-    for (int j = 0; j < wg::ACC / 4; ++j) {
+    for (int j = 0; j < TC::ACC / 4; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = 8 * j + 2 * (lane & 3) + h;
@@ -248,7 +251,7 @@ __global__ void __launch_bounds__(wg::THREADS)
 int launch_tc(const void* xu, int f, const void* qn, int s_keep, int n_sub,
               const int64_t* edges, const int64_t* order, float* out,
               cudaStream_t st) {
-  if (!wg::route_ok(xu, qn, f) || n_sub <= 0)
+  if (!wg::route_ok<__nv_bfloat16>(xu, qn, f) || n_sub <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       gather_score_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -18,29 +18,43 @@
 // one fmaf chain over features in ascending order (tile::dot_step), then
 // tile::blend: no TF32 or bf16 tensor cores here.
 //
-// What bounds it on the H100: each block reads n_probe x cap x F slab
-// values (12.6 MB in f32 at n_probe 8, cap 512, F 768); neighbouring sorted
-// blocks probe many of the same slabs, so much of that comes from L2.  At
-// 1M x 768, Q 16,384 the scan is about 1e11 flop, bound by bytes and
-// latency more than by the fp32 rate.
+// What bounds it on the H100: the fp32 FMA pipe (67 TFLOP/s; no tensor-core
+// format keeps the bits the certificates assume) over the rows that hold
+// an item.  The slab layout pads every cluster to cap rows (about half of
+// every slab), and a padded row scores -3e38 with id -1, so it never
+// displaces an unfilled slot (-3e38, -1): the kernel walks only the 64-row
+// tiles up to each probed cluster's last real row (the per-cluster tile
+// counts `tiles`, ops/cuda/ivf_scan.py::slab_tiles), which changes no
+// output.  At 313,841 x 384, 4,096 queries x 8 probes that is about 45
+// GFLOP (0.7 ms at the fp32 rate) against 90 at cap, and the probed
+// tiles' bytes, read once, about a fifth of that time; on the 1M x 768
+// mixture (16,384 queries, f32 slabs) the bytes bound it (1.0 ms).
 //
-// The simple design: one block of 256 threads per query block, so the
-// running lists are carried inside the block across its probes (the TPU's
-// sequential probe axis and its scalar prefetch become a loop that reads
-// the block's own probe row).  The block's qb <= 32 queries sit in shared
-// memory transposed, [F][4 * qpt] floats (48 KB at qb 16, F 768); when that
-// does not fit beside the tiles (F above 3,434 at qb 16), only the current
-// 32-feature slab of them does, [32][4 * qpt], staged beside the slab rows.
-// Per probe it walks the slab 64 rows at a time; per 32-feature slab it
-// stages the 64 rows in shared memory (16-byte loads when the rows are
-// 16-byte aligned), and thread t advances row t % 64's chains for its qpt
-// queries (t / 64) * qpt.. by 32 steps.  Either staging feeds each chain
-// the same products in the same order, so the scores are the same bits.  Then the scores of the 64 rows go to a
-// shared tile and one warp per query offers the improving ones to the
-// query's list (MaxLex: slab ids arrive in slab order, not ascending).
-// Lists of k <= 256 live in shared memory; longer ones (the rescored
-// certificate's pool doubles with every widening round) stay in place in
-// the output rows (tile_common.cuh offer_wide).
+// The design: one block of 256 threads per query block (qb <= 32), which
+// carries its running lists across its probes (the TPU's sequential probe
+// axis and its scalar prefetch become a walk over the block's own probe
+// row).  The block's real tiles, probe by probe, are taken 4 at a time: a
+// step of 256 slab rows.  Per step the product is register-tiled as in
+// ffma_tile.cuh: warp w owns rows 32 w .. 32 w + 31 of the step, lane
+// (r, g) = (lane % 8, lane / 8) rows 32 w + r + 8 j (j < 4) and queries g
+// + 4 i (i < qb_pad / 4); per 4 features a thread loads its 4 rows and
+// its qb_pad / 4 queries as 16-byte LDS.128 (the 8 rows of a load are 36
+// floats apart, so conflict-free; a query load is a broadcast), 8 loads
+// for 64 multiply-adds at qb 16.  Slab rows and the query block are staged
+// together a 32-feature slab at a time (so any F fits) in a two-stage ring
+// fed by register prefetch (16-byte loads where rows are 16-byte aligned),
+// converted to float on the way (bf16 and f16 exactly), one barrier a
+// slab; the next step's first slab is in flight under this step's last.
+// Each score is one fmaf chain over features 0..F-1 in ascending order
+// (tile::dot_step; the zero features past F leave it as it is, as in
+// ffma_tile.cuh), then tile::blend: the first version's bits.  The step's
+// scores go to a shared [qb][256] tile, and one warp per query merges
+// them into its list 64 at a time (tile::merge_row: a ballot against the
+// list's kth, then only the improving scores are offered), MaxLex: slab
+// ids arrive in slab order, not ascending.  Lists of k <= 256 live in
+// shared memory; longer ones (the rescored certificate's pool doubles with
+// every widening round) stay in place in the output rows
+// (tile_common.cuh offer_wide).
 
 #include <cstdint>
 
@@ -53,78 +67,177 @@
 namespace {
 
 constexpr float NEG_INF = -3.0e38f;
-constexpr int MAX_QPT = 8;                     // queries a thread
-constexpr int GROUPS = tile::THREADS / tile::TILE;
-constexpr int MAX_QB = GROUPS * MAX_QPT;       // 32 queries a block
+constexpr int THREADS = tile::THREADS;         // 256
+constexpr int TILE = tile::TILE;               // 64 slab rows
+constexpr int STEP_TILES = 4;
+constexpr int STEP = STEP_TILES * TILE;        // 256 rows a step
+constexpr int SLAB = 32;                       // features a stage
+constexpr int LD = SLAB + 4;                   // row stride of a stage
+constexpr int CPR = SLAB / 4;                  // 16-byte chunks a row
+constexpr int ROW_CHUNKS = STEP * CPR / THREADS;   // 8 a thread
+constexpr int SLD = STEP + 8;                  // row stride of the score tile
+constexpr int MAX_QB = 32;
 constexpr size_t SMEM_LIMIT = 232448;          // a block's most, sm_90
 
-// Stage features [f0, f0 + 32) of the 64 slab rows from row0 into Bs as
-// floats, zeros past f.  VEC: 16-byte loads (f * sizeof(T) and the slabs
-// 16-byte aligned); otherwise one value a load.
+// Four consecutive features of one row.
+template <class T>
+struct Quad {
+  alignas(4 * sizeof(T)) T v[4];
+};
+
+template <class T>
+__device__ __forceinline__ T zero_value() {
+  return T(0.0f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_value<__nv_bfloat16>() {
+  return __ushort_as_bfloat16((unsigned short)0);
+}
+template <>
+__device__ __forceinline__ __half zero_value<__half>() {
+  return __ushort_as_half((unsigned short)0);
+}
+
+// Features feat .. feat + 3 of the row at src (the row's feature 0), zeros
+// when !ok or past f.  VEC: one 16-byte (float) or 8-byte (bf16, f16) load.
 template <class T, bool VEC>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ slabs,
-                                           int f, size_t row0, int f0,
-                                           float (*Bs)[tile::PAD]) {
-  using namespace tile;
-  constexpr int V = VEC ? 16 / sizeof(T) : 1;   // values a load
-  constexpr int PER_ROW = SLAB / V;
-  constexpr int LOADS = TILE * PER_ROW;
+__device__ __forceinline__ void load_quad(const T* __restrict__ src, bool ok,
+                                          int feat, int f, Quad<T>& q) {
+  if (VEC && ok && feat < f) {
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float4*>(q.v) =
+          __ldg(reinterpret_cast<const float4*>(src + feat));
+    else
+      *reinterpret_cast<uint2*>(q.v) =
+          __ldg(reinterpret_cast<const uint2*>(src + feat));
+  } else {
 #pragma unroll
-  for (int e = 0; e < LOADS / THREADS; ++e) {
-    const int idx = e * THREADS + threadIdx.x;
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * V;
-    alignas(16) T v[V];
-    if (f0 + c < f) {
-      const T* src = slabs + (row0 + r) * f + f0 + c;
-      if constexpr (VEC)
-        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
-      else
-        v[0] = *src;
+    for (int e = 0; e < 4; ++e)
+      q.v[e] = (ok && feat + e < f) ? src[feat + e] : zero_value<T>();
+  }
+}
+
+// The block's walk over its real tiles: tile t of probe p next; `tiles`
+// of the current probe's cluster.  Every thread keeps the same cursor.
+struct Cursor {
+  int p, t, tiles;
+};
+
+// The first row of the cursor's next tile, or -1 when the walk is done.
+__device__ __forceinline__ int next_tile(Cursor& c, const int* probe_row,
+                                         const int* __restrict__ tiles,
+                                         int n_probe, int cap) {
+  while (c.p < n_probe && c.t >= c.tiles) {
+    ++c.p;
+    c.t = 0;
+    c.tiles = c.p < n_probe ? tiles[probe_row[c.p]] : 0;
+  }
+  if (c.p >= n_probe) return -1;
+  return probe_row[c.p] * cap + TILE * c.t++;
+}
+
+// A thread's share of one stage: 8 chunks of the step's slab rows and, for
+// the first QT * CPR threads, one chunk of the query block.
+template <class T, int QT, bool VEC>
+struct Stager {
+  Quad<T> r[ROW_CHUNKS];
+  Quad<float> q;
+
+  __device__ __forceinline__ void load(const T* __restrict__ slabs,
+                                       const int (&base)[STEP_TILES],
+                                       const float* __restrict__ qn,
+                                       size_t q0, int qb, int f, int f0) {
+    const int tid = threadIdx.x;
+    const int feat = f0 + 4 * (tid % CPR);
 #pragma unroll
-      for (int j = 0; j < V; ++j) Bs[c + j][r] = to_float(v[j]);
-    } else {
+    for (int p = 0; p < ROW_CHUNKS; ++p) {
+      const int row = tid / CPR + (THREADS / CPR) * p;   // of the step
+      const int b = base[row / TILE];
+      load_quad<T, VEC>(slabs + (size_t)(b < 0 ? 0 : b + row % TILE) * f,
+                        b >= 0, feat, f, r[p]);
+    }
+    if (tid < QT * CPR) {
+      const int qr = tid / CPR;
+      load_quad<float, VEC>(qn + (q0 + (qr < qb ? qr : 0)) * f, qr < qb,
+                             feat, f, q);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ stage) const {
+    const int tid = threadIdx.x;
+    const int part = 4 * (tid % CPR);
 #pragma unroll
-      for (int j = 0; j < V; ++j) Bs[c + j][r] = 0.0f;
+    for (int p = 0; p < ROW_CHUNKS; ++p) {
+      const int row = tid / CPR + (THREADS / CPR) * p;
+      *reinterpret_cast<float4*>(stage + row * LD + part) =
+          make_float4(tile::to_float(r[p].v[0]), tile::to_float(r[p].v[1]),
+                      tile::to_float(r[p].v[2]), tile::to_float(r[p].v[3]));
+    }
+    if (tid < QT * CPR)
+      *reinterpret_cast<float4*>(stage + (STEP + tid / CPR) * LD + part) =
+          make_float4(q.v[0], q.v[1], q.v[2], q.v[3]);
+  }
+};
+
+// acc[i][j] advanced by the SLAB features of a staged slab: query g + 4 i
+// of the stage's query rows against row 32 w + r + 8 j of its slab rows,
+// features in ascending order.
+template <int QPT>
+__device__ __forceinline__ void slab_product(const float* __restrict__ stage,
+                                             int row0, int g,
+                                             float (&acc)[QPT][4]) {
+  const float* rs = stage + row0 * LD;
+  const float* qs = stage + (STEP + g) * LD;
+#pragma unroll
+  for (int kq = 0; kq < SLAB; kq += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = *reinterpret_cast<const float4*>(rs + 8 * j * LD + kq);
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(qs + 4 * i * LD + kq);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float c = acc[i][j];
+        c = tile::dot_step(a.x, x[j].x, c);
+        c = tile::dot_step(a.y, x[j].y, c);
+        c = tile::dot_step(a.z, x[j].z, c);
+        c = tile::dot_step(a.w, x[j].w, c);
+        acc[i][j] = c;
+      }
     }
   }
 }
 
-// Q_SLAB: the query block is staged one 32-feature slab at a time (a
-// template parameter: the whole-block path carries no branch for it).
-template <class T, int W, bool VEC, bool Q_SLAB>
-__global__ void __launch_bounds__(tile::THREADS)
+// QT: the query block padded to a multiple of 4 (8, 16 or 32).
+template <class T, int QT, int W, bool VEC>
+__global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
     ivf_kernel(const T* __restrict__ slabs, const float* __restrict__ slab_lam,
-               const int* __restrict__ slab_ids, int f, int cap,
+               const int* __restrict__ slab_ids,
+               const int* __restrict__ tiles, int f, int cap,
                const float* __restrict__ qn, const float* __restrict__ lamq,
                const int* __restrict__ probe, int n_probe, int qb, float tau,
                int k, float* out_s, int* out_i) {
-  using namespace tile;
-  extern __shared__ float smem[];
-  const int qpt = (qb + GROUPS - 1) / GROUPS;
-  const int qstride = GROUPS * qpt;
-  auto Bs = reinterpret_cast<float(*)[PAD]>(smem);    // [SLAB][PAD]
-  float* Qt = smem + SLAB * PAD;   // [f][qstride], or [SLAB][qstride]
-  float* Ss = Qt + (size_t)(Q_SLAB ? SLAB : f) * qstride;   // [qb][TILE]
-  int* Is = reinterpret_cast<int*>(Ss + qb * TILE);   // [TILE]
-  float* lists = reinterpret_cast<float*>(Is + TILE); // [qb][k] x 2
+  constexpr int QPT = QT / 4;
+  constexpr int STAGE_FLOATS = (STEP + QT) * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                  // 2 stages
+  float* Ss = ring + 2 * STAGE_FLOATS;                 // [QT][SLD]
+  int* Is = reinterpret_cast<int*>(Ss + QT * SLD);     // [STEP]
+  float* lists = reinterpret_cast<float*>(Is + STEP);  // [qb][k] x 2
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int r = tid % TILE, q_first = (tid / TILE) * qpt;
+  const int r = lane & 7, g = lane >> 3;
+  const int row0 = 32 * warp + r;                      // j = 0's step row
   const size_t q0 = (size_t)blockIdx.x * qb;
   const int* my_probe = probe + (size_t)blockIdx.x * n_probe;
 
-  if (!Q_SLAB) {
-    for (int e = tid; e < f * qstride; e += THREADS) {
-      const int feat = e / qstride, qq = e % qstride;
-      Qt[e] = qq < qb ? qn[(q0 + qq) * f + feat] : 0.0f;
-    }
-  }
-  float lq[MAX_QPT];
+  float lq[QPT];
 #pragma unroll
-  for (int j = 0; j < MAX_QPT; ++j)
-    lq[j] = (j < qpt && q_first + j < qb) ? lamq[q0 + q_first + j] : 0.0f;
+  for (int i = 0; i < QPT; ++i)
+    lq[i] = g + 4 * i < qb ? lamq[q0 + g + 4 * i] : 0.0f;
   float* run_s = W == 0 ? out_s + q0 * k : lists;
   int* run_i = W == 0 ? out_i + q0 * k
                       : reinterpret_cast<int*>(lists + (size_t)qb * k);
@@ -133,55 +246,77 @@ __global__ void __launch_bounds__(tile::THREADS)
     run_i[e] = -1;
   }
   const float omt = 1.0f - tau;
+
+  Cursor cur{0, 0, n_probe > 0 ? tiles[my_probe[0]] : 0};
+  int base[STEP_TILES], next[STEP_TILES];
+#pragma unroll
+  for (int t = 0; t < STEP_TILES; ++t)
+    base[t] = next_tile(cur, my_probe, tiles, n_probe, cap);
+  const int n_slabs = (f + SLAB - 1) / SLAB;
+  Stager<T, QT, VEC> st;
+  if (base[0] >= 0) {
+    st.load(slabs, base, qn, q0, qb, f, 0);
+    st.store(ring);
+  }
   __syncthreads();
 
-  for (int p = 0; p < n_probe; ++p) {
-    const size_t base = (size_t)my_probe[p] * cap;
-    for (int r0 = 0; r0 < cap; r0 += TILE) {
-      float acc[MAX_QPT];
+  int stage = 0;
+  while (base[0] >= 0) {
 #pragma unroll
-      for (int j = 0; j < MAX_QPT; ++j) acc[j] = 0.0f;
-      for (int f0 = 0; f0 < f; f0 += SLAB) {
-        stage_rows<T, VEC>(slabs, f, base + r0, f0, Bs);
-        if (Q_SLAB) {
-          for (int e = tid; e < SLAB * qstride; e += THREADS) {
-            const int feat = f0 + e / qstride, qq = e % qstride;
-            Qt[e] = (qq < qb && feat < f) ? qn[(q0 + qq) * f + feat] : 0.0f;
-          }
-        }
-        __syncthreads();
-        const int nf = min(SLAB, f - f0);
-        const float* qcol =
-            Qt + (Q_SLAB ? (size_t)0 : (size_t)f0 * qstride) + q_first;
-#pragma unroll 4
-        for (int kk = 0; kk < nf; ++kk) {
-          const float x = Bs[kk][r];
+    for (int t = 0; t < STEP_TILES; ++t)
+      next[t] = next_tile(cur, my_probe, tiles, n_probe, cap);
+    float acc[QPT][4];
 #pragma unroll
-          for (int j = 0; j < MAX_QPT; ++j)
-            if (j < qpt) acc[j] = dot_step(qcol[kk * qstride + j], x, acc[j]);
-        }
-        __syncthreads();
+    for (int i = 0; i < QPT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int s = 0; s < n_slabs; ++s) {
+      // The next slab (of this step, or the next step's first) is in
+      // flight during this slab's multiply; its stage was last read before
+      // the previous barrier.
+      const bool more = s + 1 < n_slabs || next[0] >= 0;
+      if (more) {
+        if (s + 1 < n_slabs)
+          st.load(slabs, base, qn, q0, qb, f, (s + 1) * SLAB);
+        else
+          st.load(slabs, next, qn, q0, qb, f, 0);
       }
-      const size_t row = base + r0 + r;
-      const int id = slab_ids[row];
-      const float lam = slab_lam[row];
-#pragma unroll
-      for (int j = 0; j < MAX_QPT; ++j) {
-        const int qq = q_first + j;
-        if (j < qpt && qq < qb)
-          Ss[qq * TILE + r] =
-              id < 0 ? NEG_INF : blend(tau, omt, acc[j], lam, lq[j]);
-      }
-      if (tid < TILE) Is[r] = id;
+      slab_product<QPT>(ring + stage * STAGE_FLOATS, row0, g, acc);
+      if (more) st.store(ring + (stage ^ 1) * STAGE_FLOATS);
       __syncthreads();
-      for (int qq = warp; qq < qb; qq += WARPS)
-        merge_row<MaxLex, W>(Ss + qq * TILE, 0, run_s + (size_t)qq * k,
-                             run_i + (size_t)qq * k, k, lane, Is);
-      __syncthreads();
+      stage ^= 1;
     }
+
+    // Blend and mask this thread's 4 rows x QPT queries into the score
+    // tile; the rows of tile warp / 2 (or none past the walk's end).
+    const int b = base[warp >> 1];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int srow = row0 + 8 * j;
+      const size_t row = (size_t)(b < 0 ? 0 : b) + srow % TILE;
+      const int id = b < 0 ? -1 : slab_ids[row];
+      const float lam = b < 0 ? 0.0f : slab_lam[row];
+      if (g == 0) Is[srow] = id;
+#pragma unroll
+      for (int i = 0; i < QPT; ++i)
+        Ss[(g + 4 * i) * SLD + srow] =
+            id < 0 ? NEG_INF : tile::blend(tau, omt, acc[i][j], lam, lq[i]);
+    }
+    __syncthreads();
+    for (int qq = warp; qq < qb; qq += tile::WARPS)
+#pragma unroll
+      for (int c = 0; c < STEP_TILES; ++c)
+        tile::merge_row<tile::MaxLex, W>(
+            Ss + qq * SLD + c * TILE, 0, run_s + (size_t)qq * k,
+            run_i + (size_t)qq * k, k, lane, Is + c * TILE);
+    // The next write of Ss and Is comes after at least one barrier of the
+    // next step's slabs.
+#pragma unroll
+    for (int t = 0; t < STEP_TILES; ++t) base[t] = next[t];
   }
 
   if (W != 0) {
+    __syncthreads();
     for (int e = tid; e < qb * k; e += THREADS) {
       out_s[q0 * k + e] = run_s[e];
       out_i[q0 * k + e] = run_i[e];
@@ -189,57 +324,67 @@ __global__ void __launch_bounds__(tile::THREADS)
   }
 }
 
-// Shared memory of a block besides its lists: the slab tile, q_rows
-// feature rows of the transposed query block, the score tile and its ids.
-size_t fixed_smem(int qb, int q_rows) {
-  using namespace tile;
-  const int qpt = (qb + GROUPS - 1) / GROUPS;
-  return sizeof(float) * (SLAB * PAD + (size_t)q_rows * GROUPS * qpt +
-                          (size_t)qb * TILE) +
-         sizeof(int) * TILE;
+// Shared memory of a block besides its lists: the ring, the score tile and
+// its ids.
+size_t fixed_smem(int qt) {
+  return sizeof(float) * (2 * (size_t)(STEP + qt) * LD + (size_t)qt * SLD) +
+         sizeof(int) * STEP;
 }
 
-template <class T, bool VEC, bool Q_SLAB>
+template <class T, int QT, bool VEC>
 int launch_t(const void* slabs, const float* slab_lam, const int* slab_ids,
-             int f, int cap, const float* qn, const float* lamq,
-             const int* probe, int n_blocks, int n_probe, int qb, float tau,
-             int k, float* out_s, int* out_i, cudaStream_t st) {
-  using namespace tile;
-  const size_t fixed = fixed_smem(qb, Q_SLAB ? SLAB : f);
+             const int* tiles, int f, int cap, const float* qn,
+             const float* lamq, const int* probe, int n_blocks, int n_probe,
+             int qb, float tau, int k, float* out_s, int* out_i,
+             cudaStream_t st) {
+  const size_t fixed = fixed_smem(QT);
   const size_t narrow = (size_t)qb * k * (sizeof(float) + sizeof(int));
-  int words = list_words(k);
-  // Narrow lists that do not fit beside the queries go wide.
+  int words = tile::list_words(k);
+  // Narrow lists that do not fit beside the stages go wide.
   if (words > 0 && fixed + narrow > SMEM_LIMIT) words = 0;
   const size_t smem = fixed + (words == 0 ? 0 : narrow);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = &ivf_kernel<T, 0, VEC, Q_SLAB>;
-  if (words == 2) kernel = &ivf_kernel<T, 2, VEC, Q_SLAB>;
-  if (words == 4) kernel = &ivf_kernel<T, 4, VEC, Q_SLAB>;
-  if (words == 8) kernel = &ivf_kernel<T, 8, VEC, Q_SLAB>;
+  auto kernel = words == 2   ? &ivf_kernel<T, QT, 2, VEC>
+                : words == 4 ? &ivf_kernel<T, QT, 4, VEC>
+                : words == 8 ? &ivf_kernel<T, QT, 8, VEC>
+                             : &ivf_kernel<T, QT, 0, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_blocks, THREADS, smem, st>>>(
-      static_cast<const T*>(slabs), slab_lam, slab_ids, f, cap, qn, lamq,
-      probe, n_probe, qb, tau, k, out_s, out_i);
+      static_cast<const T*>(slabs), slab_lam, slab_ids, tiles, f, cap, qn,
+      lamq, probe, n_probe, qb, tau, k, out_s, out_i);
   return (int)cudaGetLastError();
+}
+
+// VEC: 16-byte (float) or 8-byte (bf16, f16) loads of four features, for
+// F % 4 == 0 with slab rows and query rows so aligned; else one value a
+// load.
+template <class T, int QT>
+int launch_q(const void* slabs, const float* slab_lam, const int* slab_ids,
+             const int* tiles, int f, int cap, const float* qn,
+             const float* lamq, const int* probe, int n_blocks, int n_probe,
+             int qb, float tau, int k, float* out_s, int* out_i,
+             cudaStream_t st) {
+  const bool vec =
+      f % 4 == 0 &&
+      reinterpret_cast<std::uintptr_t>(slabs) % (4 * sizeof(T)) == 0 &&
+      reinterpret_cast<std::uintptr_t>(qn) % 16 == 0;
+  auto fn = vec ? &launch_t<T, QT, true> : &launch_t<T, QT, false>;
+  return fn(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq, probe,
+            n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
 }
 
 template <class T>
 int launch(const void* slabs, const float* slab_lam, const int* slab_ids,
-           int f, int cap, const float* qn, const float* lamq,
-           const int* probe, int n_blocks, int n_probe, int qb, float tau,
-           int k, float* out_s, int* out_i, cudaStream_t st) {
-  const bool vec = (f * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<std::uintptr_t>(slabs) % 16 == 0;
-  // The whole query block when it fits beside the tiles, else one slab.
-  const bool q_slab = fixed_smem(qb, f) > SMEM_LIMIT;
-  auto fn = vec ? (q_slab ? &launch_t<T, true, true>
-                          : &launch_t<T, true, false>)
-                : (q_slab ? &launch_t<T, false, true>
-                          : &launch_t<T, false, false>);
-  return fn(slabs, slab_lam, slab_ids, f, cap, qn, lamq, probe, n_blocks,
-            n_probe, qb, tau, k, out_s, out_i, st);
+           const int* tiles, int f, int cap, const float* qn,
+           const float* lamq, const int* probe, int n_blocks, int n_probe,
+           int qb, float tau, int k, float* out_s, int* out_i,
+           cudaStream_t st) {
+  auto fn = qb <= 8    ? &launch_q<T, 8>
+            : qb <= 16 ? &launch_q<T, 16>
+                       : &launch_q<T, 32>;
+  return fn(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq, probe,
+            n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
 }
 
 }  // namespace
@@ -247,16 +392,18 @@ int launch(const void* slabs, const float* slab_lam, const int* slab_ids,
 extern "C" {
 
 // Slabs [n_clusters * cap, f] (dtype 0 float, 1 bf16, 2 f16) with their
-// lambdas and ids [n_clusters * cap], queries qn [n_blocks * qb, f] and
-// lamq [n_blocks * qb] (float), the probe table [n_blocks, n_probe] (each
-// entry in [0, n_clusters)) -> out_s / out_i [n_blocks * qb, k].  cap is a
-// multiple of 64, qb <= 32, k >= 1.  Runs on the given device and
+// lambdas and ids [n_clusters * cap] and each cluster's count of 64-row
+// tiles up to its last real row, tiles [n_clusters] (every real row of
+// cluster c lies in its first tiles[c] tiles), queries qn [n_blocks * qb,
+// f] and lamq [n_blocks * qb] (float), the probe table [n_blocks, n_probe]
+// (each entry in [0, n_clusters)) -> out_s / out_i [n_blocks * qb, k].
+// cap is a multiple of 64, qb <= 32, k >= 1.  Runs on the given device and
 // stream; returns the CUDA error code (0 on success).
 int ivf_scan_launch(const void* slabs, int dtype, const float* slab_lam,
-                    const int* slab_ids, int f, int cap, const float* qn,
-                    const float* lamq, const int* probe, int n_blocks,
-                    int n_probe, int qb, float tau, int k, float* out_s,
-                    int* out_i, int device, void* stream) {
+                    const int* slab_ids, const int* tiles, int f, int cap,
+                    const float* qn, const float* lamq, const int* probe,
+                    int n_blocks, int n_probe, int qb, float tau, int k,
+                    float* out_s, int* out_i, int device, void* stream) {
   if (f <= 0 || cap <= 0 || cap % tile::TILE != 0 || n_blocks <= 0 ||
       n_probe <= 0 || qb <= 0 || qb > MAX_QB || tile::list_words(k) < 0 ||
       dtype < 0 || dtype > 2)
@@ -265,14 +412,15 @@ int ivf_scan_launch(const void* slabs, int dtype, const float* slab_lam,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(slabs, slab_lam, slab_ids, f, cap, qn, lamq,
-                                 probe, n_blocks, n_probe, qb, tau, k, out_s,
-                                 out_i, st);
+    return launch<__nv_bfloat16>(slabs, slab_lam, slab_ids, tiles, f, cap, qn,
+                                 lamq, probe, n_blocks, n_probe, qb, tau, k,
+                                 out_s, out_i, st);
   if (dtype == 2)
-    return launch<__half>(slabs, slab_lam, slab_ids, f, cap, qn, lamq, probe,
-                          n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
-  return launch<float>(slabs, slab_lam, slab_ids, f, cap, qn, lamq, probe,
-                       n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
+    return launch<__half>(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq,
+                          probe, n_blocks, n_probe, qb, tau, k, out_s, out_i,
+                          st);
+  return launch<float>(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq,
+                       probe, n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
 }
 
 const char* ivf_scan_error_string(int err) {

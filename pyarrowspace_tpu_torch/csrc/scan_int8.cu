@@ -13,31 +13,68 @@
 // -3e38; rows come out descending by score.
 //
 // The int32 sums are exact in any order, and the epilogue rounds op by op
-// in the order above (__fmul_rn, tile::blend: no fma contraction), so the
-// kernel equals its plain version (ops/cuda/scan_int8.py) bit for bit, ids
-// and scores.  That also frees a later version to move the product to the
-// int8 tensor cores (mma.sync / wgmma on s8) without changing one result.
+// in the order above (__fmul_rn, then tile::blend or its branch-free twin
+// tile::blend_fast: no fma contraction), so both routes equal the plain
+// version (ops/cuda/scan_int8.py) bit for bit, ids and scores.
 //
 // What bounds it on the H100: the products.  At 313,841 x 384 and 4,096
-// queries they are 4.9e11 int8 multiply-adds; the int8 tensor cores would
-// take 0.5 ms for them and the corpus read (120 MB) 0.04 ms.  This first
-// version runs them as __dp4a (four multiply-adds an instruction) outside
-// the tensor cores, fed by 32-bit shared-memory loads: a right and simple
-// kernel, not yet a fast one.
+// queries they are 4.9e11 int8 multiply-adds: 0.5 ms on the int8 tensor
+// cores, against 0.04 ms for the corpus read (120 MB).  Beside them each
+// of the 1.3e9 scores needs about 15 SIMT instructions of epilogue (one
+// int-to-float conversion and one reciprocal among them, both on the
+// quarter-rate pipe), comparable to the products' tensor time, and each
+// query's running list takes about k ln(n / k) insertions a corpus split.
 //
-// The design is K2's (scan_topk.cu).  Launch 1: one block of 256 threads per
-// (64-query block, corpus split); per 64-item tile, a shared-memory tiled
-// product of 4 x 4 int32 accumulators a thread over slabs of 32 words
-// (128 features: rows are packed as 32-bit words, F padded with zeros to a
-// multiple of 4 by the caller), the epilogue into a shared 64 x 64 score
-// tile, and one warp per query offers the improving scores to its running
-// list (tile_common.cuh; narrow lists in shared memory, wide ones in place
-// in the partial lists).  Launch 2 (tile::merge_splits) merges the splits'
+// Two routes, chosen by the wrapper from shapes and pointers alone
+// (ops/cuda/scan_int8.py::tensor_core_route); a failed build or launch
+// raises, and neither route falls back to the other.
+//
+// The tensor-core route (F % 16 == 0, F <= 1,024, 16-byte-aligned bases):
+// the products run as wgmma m64n128k32 s32.s8.s8 on wgmma_tile.cuh's
+// stages, the tile K3 and K5 use for bf16 (a 128-feature int8 stage is one
+// 128-byte row, as a 64-feature bf16 stage is).  One block of two consumer
+// warpgroups and a producer warp per (128-query block, corpus split): the
+// block's queries are loaded once by TMA into shared memory (A: 16 KB a
+// stage, 48 KB at F 384), and the corpus streams through a ring of 128-row
+// stages (B), 2 to 6 deep, that the producer keeps full by TMA; both
+// warpgroups read each stage, so a stage is released when both are done
+// with it.  Warpgroup g multiplies its 64 queries against each 128-item
+// tile, the two taking turns on the tensor cores when the ring holds a
+// whole tile (two named barriers), so that one's epilogue runs under the
+// other's products; its thread then holds the int32 sums of two query
+// rows and 32 items, and the epilogue runs in place in those registers:
+// the scales
+// and the blend on every element (the fast reciprocal when every lambda
+// of the warp's elements is under 2^62 in magnitude, else tile::blend),
+// items >= n masked, and a score goes on only if it reaches its query's
+// current kth (read once a tile).  A warp owns the lists of its 16
+// queries, so the merge needs no block barrier: the survivors are
+// compacted by ballot into the warp's buffer in shared memory and offered
+// to their query's list, MaxLex (the walk does not deliver a query's
+// items in ascending order).  Narrow lists (k <= 256 when they fit beside
+// the stages) live in shared memory, wide ones in place in the partial
+// lists.  The merge, not the products, is most of the time: each query
+// and split takes about k ln(n / k) insertions, each a warp-wide offer
+// whose latency nothing hides.
+//
+// The SIMT route (ragged F, unaligned bases, F > 1,024): the first
+// version's kernel, kept as the in-tree witness of the int32 sums.  One
+// block of 256 threads per (64-query block, corpus split); per 64-item
+// tile, a shared-memory tiled product of 4 x 4 int32 accumulators a thread
+// as __dp4a over 32-bit words (F padded with zeros to a multiple of 4 by
+// the caller), the epilogue into a shared 64 x 64 score tile, and one warp
+// per query offers the improving scores to its running list (Max, items
+// in ascending order).
+//
+// On both routes a second launch (tile::merge_splits) merges the splits'
 // partial lists in split order.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "tile_common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -165,6 +202,338 @@ __global__ void __launch_bounds__(tile::THREADS)
   }
 }
 
+// The second launch of both routes: the splits' partial lists [splits, q,
+// k] merged into out_s / out_i [q, k].
+int launch_merge(const float* part_s, const int* part_i, int q, int k,
+                 int splits, float* out_s, int* out_i, cudaStream_t st) {
+  const int words = tile::list_words(k);
+  auto merge = words == 2   ? &tile::merge_splits<2>
+               : words == 4 ? &tile::merge_splits<4>
+               : words == 8 ? &tile::merge_splits<8>
+                            : &tile::merge_splits<0>;
+  const size_t smem =
+      words == 0 ? 0 : (size_t)tile::WARPS * k * (sizeof(float) + sizeof(int));
+  merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem, st>>>(
+      part_s, part_i, q, k, splits, out_s, out_i);
+  return (int)cudaGetLastError();
+}
+
+// -- the tensor-core route -------------------------------------------------
+
+using I8 = wg::Mma<int8_t>;
+constexpr int TC_QB = 2 * wg::M;                  // queries a block
+constexpr int TC_NB = I8::N;                      // items a tile
+constexpr int TC_CONSUMERS = 2 * wg::THREADS;     // a warpgroup each 64
+constexpr int TC_THREADS = TC_CONSUMERS + 32;     // and a producer warp
+constexpr int TC_WARPS = TC_CONSUMERS / 32;
+constexpr int A_STAGE_BYTES = TC_QB * wg::ROW_BYTES;   // 16 KB
+constexpr int TC_MAX_F = 1024;                    // queries resident: 128 KB
+constexpr int BUF = 256;                          // survivors a warp stages
+constexpr int MAX_STAGES = 6;
+constexpr size_t SMEM_LIMIT = 232448;             // a block's most, sm_90
+
+// Shared memory of a block: the queries (nk stages), the ring, the warps'
+// survivor buffers, the narrow lists (none for wide ones), the barriers.
+struct TcLayout {
+  int stages;
+  bool turns;      // the warpgroups take turns (the ring holds a tile)
+  size_t ring, buf, lists, bars, total;
+};
+
+inline TcLayout tc_layout(int nk, int stages, size_t list_bytes) {
+  TcLayout l;
+  l.stages = stages;
+  l.turns = stages >= nk;
+  l.ring = (size_t)nk * A_STAGE_BYTES;
+  l.buf = l.ring + (size_t)stages * I8::B_BYTES;
+  l.lists = l.buf + (size_t)TC_WARPS * BUF * (sizeof(float) + sizeof(int));
+  l.bars = l.lists + list_bytes;
+  l.total = l.bars + (1 + 2 * (size_t)stages) * sizeof(uint64_t);
+  return l;
+}
+
+// The two warpgroups take turns on the tensor cores, tile by tile, so that
+// one's epilogue runs under the other's products: warpgroup g waits on
+// named barrier 1 + g, which the other warpgroup arrives at when its own
+// products of the tile are done.  A warpgroup's turn consumes all nk
+// stages of a tile before the other releases any of them, so the turns
+// need a ring of at least nk stages (TcLayout::turns); a shallower ring
+// (F 768 beside narrow lists) runs the two in step.
+__device__ __forceinline__ void turn_wait(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(TC_CONSUMERS)
+               : "memory");
+}
+__device__ __forceinline__ void turn_pass(int g) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - g), "n"(TC_CONSUMERS)
+               : "memory");
+}
+
+// Offer the warp's count staged survivors (score, key) to their queries'
+// lists: key = item offset in the tile | (the query's row among the
+// warp's 16) << 8.  All 32 lanes read the same entry.
+template <int W>
+__device__ __noinline__ void drain(const float* bv, const int* bk,
+                                   int count, int c0, float* run_s,
+                                   int* run_i, int k, int row0, int lane) {
+  for (int e = 0; e < count; ++e) {
+    const int key = bk[e];
+    const size_t row = (size_t)(row0 + (key >> 8)) * k;
+    tile::offer<tile::MaxLex, W>(run_s + row, run_i + row, k, bv[e],
+                                 c0 + (key & 255), lane);
+  }
+  __syncwarp();
+}
+
+// The blended scores of a thread's two rows (sums acc[i], rows r_a for
+// i % 4 < 2, r_b otherwise) against the tile's 32 items of the thread,
+// written back in place as float bits; bit i of the result is set where
+// the score reaches its row's kth (and the item is < n, the row real).
+template <bool FAST>
+__device__ __forceinline__ unsigned long long score_tile(
+    int (&acc)[I8::ACC], const float4 (&cv)[16], int col0, int n,
+    float tau, float omt, float qs_a, float qs_b, float lq_a, float lq_b,
+    float kth_a, float kth_b, bool ok_a, bool ok_b) {
+  unsigned long long bits = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sr = h ? cv[j].z : cv[j].x;
+      const float lc = h ? cv[j].w : cv[j].y;
+      const bool in = col0 + 8 * j + h < n;
+      const int ia = 4 * j + h, ib = 4 * j + 2 + h;
+      const float ca =
+          __fmul_rn(__fmul_rn(__int2float_rn(acc[ia]), qs_a), sr);
+      const float cb =
+          __fmul_rn(__fmul_rn(__int2float_rn(acc[ib]), qs_b), sr);
+      const float sa = FAST ? tile::blend_fast(tau, omt, ca, lc, lq_a)
+                            : tile::blend(tau, omt, ca, lc, lq_a);
+      const float sb = FAST ? tile::blend_fast(tau, omt, cb, lc, lq_b)
+                            : tile::blend(tau, omt, cb, lc, lq_b);
+      acc[ia] = __float_as_int(sa);
+      acc[ib] = __float_as_int(sb);
+      bits |= (unsigned long long)(in && ok_a && sa >= kth_a) << ia;
+      bits |= (unsigned long long)(in && ok_b && sb >= kth_b) << ib;
+    }
+  }
+  return bits;
+}
+
+// cols: [n_tiles * 64] float4, item pairs (srow_c, lam_c, srow_c+1,
+// lam_c+1), zeros past n.  Lists: [128][k] in shared memory (W > 0) or
+// the block's rows of part_s / part_i (W == 0).
+template <int W>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    scan_int8_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_q,
+                        const float4* __restrict__ cols, int n, int nk,
+                        TcLayout lay, const float* __restrict__ qscale,
+                        const float* __restrict__ lamq, int q, float tau,
+                        int k, int tiles_per_split, float* part_s,
+                        int* part_i) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  uint8_t* ring = tc_smem + lay.ring;
+  float* buf_v = reinterpret_cast<float*>(tc_smem + lay.buf);
+  int* buf_k = reinterpret_cast<int*>(buf_v + TC_WARPS * BUF);
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(tc_smem + lay.bars);
+  uint64_t* full = a_full + 1;
+  uint64_t* empty = full + lay.stages;
+
+  const int tid = threadIdx.x;
+  const int grp = tid / wg::THREADS, wtid = tid % wg::THREADS;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * TC_QB;
+  const int split = blockIdx.y;
+  const int n_tiles = (n + TC_NB - 1) / TC_NB;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int n_rows = min(TC_QB, q - q0);
+
+  float* run_s = reinterpret_cast<float*>(tc_smem + lay.lists);
+  int* run_i = reinterpret_cast<int*>(run_s + TC_QB * k);
+  if (W == 0) {
+    run_s = part_s + ((size_t)split * q + q0) * k;
+    run_i = part_i + ((size_t)split * q + q0) * k;
+  }
+  for (int e = tid; e < n_rows * k; e += TC_THREADS) {
+    run_s[e] = tile::NEG_SCORE;
+    run_i[e] = -1;
+  }
+  if (tid == 0) {
+    wg::bar_init(a_full, 1);
+    for (int i = 0; i < lay.stages; ++i) {
+      wg::bar_init(&full[i], 1);
+      wg::bar_init(&empty[i], 2);
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS) {
+    // The producer: the block's queries once, then load ld = stage kb of
+    // tile t_begin + ld / nk into slot ld % stages, once both warpgroups
+    // have released the slot's previous use.
+    if (tid == TC_CONSUMERS) {
+      wg::bar_expect(a_full, nk * A_STAGE_BYTES);
+      for (int kb = 0; kb < nk; ++kb)
+        wg::tma_load(tc_smem + kb * A_STAGE_BYTES, &map_q, a_full,
+                     kb * I8::KSTAGE, q0);
+      const int total = (t_end - t_begin) * nk;
+      for (int ld = 0; ld < total; ++ld) {
+        const int slot = ld % lay.stages;
+        if (ld >= lay.stages)
+          wg::bar_wait(&empty[slot], ((ld / lay.stages) + 1) & 1);
+        wg::bar_expect(&full[slot], I8::B_BYTES);
+        wg::tma_load(ring + slot * I8::B_BYTES, &map_x, &full[slot],
+                     (ld % nk) * I8::KSTAGE, (t_begin + ld / nk) * TC_NB);
+      }
+    }
+    return;
+  }
+
+  // This thread's rows of the block: r_a and r_b = r_a + 8.
+  const int row0 = grp * wg::M + 16 * warp;      // the warp's first row
+  const int r_a = row0 + (lane >> 2), r_b = r_a + 8;
+  const bool ok_a = r_a < n_rows, ok_b = r_b < n_rows;
+  const float qs_a = ok_a ? qscale[q0 + r_a] : 0.0f;
+  const float qs_b = ok_b ? qscale[q0 + r_b] : 0.0f;
+  const float lq_a = ok_a ? lamq[q0 + r_a] : 0.0f;
+  const float lq_b = ok_b ? lamq[q0 + r_b] : 0.0f;
+  const bool lq_fast = fabsf(lq_a) < 0x1p62f && fabsf(lq_b) < 0x1p62f;
+  const float omt = __fsub_rn(1.0f, tau);
+  float* bv = buf_v + (tid >> 5) * BUF;
+  int* bk = buf_k + (tid >> 5) * BUF;
+  const uint32_t a_addr = wg::smem_addr(tc_smem + grp * wg::A_BYTES);
+  const unsigned lane_lt = (1u << lane) - 1u;
+
+  wg::bar_wait(a_full, 0);
+  if (lay.turns && grp == 1) turn_pass(1);   // warpgroup 0 goes first
+  int cons = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    int acc[I8::ACC];
+    if (lay.turns) turn_wait(grp);
+    for (int kb = 0; kb < nk; ++kb, ++cons) {
+      const int slot = cons % lay.stages;
+      wg::bar_wait(&full[slot], (cons / lay.stages) & 1);
+      __syncwarp();
+      wg::mma_stage<int8_t>(acc, a_addr + kb * A_STAGE_BYTES,
+                            wg::smem_addr(ring + slot * I8::B_BYTES),
+                            kb == 0);
+      wg::wait<1>();
+      if (kb > 0 && wtid == 0)
+        wg::bar_arrive(&empty[(cons - 1) % lay.stages]);
+    }
+    wg::wait<0>();
+    if (wtid == 0) wg::bar_arrive(&empty[(cons - 1) % lay.stages]);
+    if (lay.turns && (grp == 0 || t + 1 < t_end)) turn_pass(grp);
+
+    // The epilogue, in place in the sums.
+    const int c0 = t * TC_NB;
+    const int col0 = c0 + 2 * (lane & 3);          // item of cv[j].x - 8 j
+    float4 cv[16];
+    bool lam_fast = lq_fast;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      cv[j] = __ldg(cols + (col0 >> 1) + 4 * j);
+      lam_fast &= fabsf(cv[j].y) < 0x1p62f && fabsf(cv[j].w) < 0x1p62f;
+    }
+    const float kth_a = ok_a ? run_s[(size_t)r_a * k + k - 1] : 0.0f;
+    const float kth_b = ok_b ? run_s[(size_t)r_b * k + k - 1] : 0.0f;
+    // Lambdas under 2^62 keep 1 + |lam_i - lam_q| below 2^64, the fast
+    // reciprocal's range; otherwise the warp blends with tile::blend.
+    const unsigned long long bits =
+        __all_sync(tile::FULL, lam_fast)
+            ? score_tile<true>(acc, cv, col0, n, tau, omt, qs_a, qs_b, lq_a,
+                               lq_b, kth_a, kth_b, ok_a, ok_b)
+            : score_tile<false>(acc, cv, col0, n, tau, omt, qs_a, qs_b,
+                                lq_a, lq_b, kth_a, kth_b, ok_a, ok_b);
+    if (!__any_sync(tile::FULL, bits != 0)) continue;
+    // Survivors, compacted by ballot in groups of 4 sums (one column pair
+    // of both rows), merged whenever the buffer may not take the next
+    // group.
+    int count = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const unsigned nib = (unsigned)(bits >> (4 * j)) & 15u;
+      if (__ballot_sync(tile::FULL, nib != 0) == 0) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool p = (nib >> e) & 1u;
+        const unsigned m = __ballot_sync(tile::FULL, p);
+        if (p) {
+          const int pos = count + __popc(m & lane_lt);
+          bv[pos] = __int_as_float(acc[4 * j + e]);
+          bk[pos] = (8 * j + 2 * (lane & 3) + (e & 1)) |
+                    (((lane >> 2) + 8 * (e >> 1)) << 8);
+        }
+        count += __popc(m);
+      }
+      if (count > BUF - 4 * 32) {
+        __syncwarp();
+        drain<W>(bv, bk, count, c0, run_s, run_i, k, row0, lane);
+        count = 0;
+      }
+    }
+    __syncwarp();
+    drain<W>(bv, bk, count, c0, run_s, run_i, k, row0, lane);
+  }
+
+  if (W != 0) {
+    // The warp's 16 lists to the partial lists.
+    for (int r = row0; r < row0 + 16 && r < n_rows; ++r) {
+      float* o_s = part_s + ((size_t)split * q + q0 + r) * k;
+      int* o_i = part_i + ((size_t)split * q + q0 + r) * k;
+      for (int e = lane; e < k; e += 32) {
+        o_s[e] = run_s[(size_t)r * k + e];
+        o_i[e] = run_i[(size_t)r * k + e];
+      }
+    }
+  }
+}
+
+int launch_tc(const int8_t* xq, const float4* cols, int n, int f,
+              const int8_t* qq, const float* qscale, const float* lamq, int q,
+              float tau, int k, int splits, float* part_s, int* part_i,
+              float* out_s, int* out_i, cudaStream_t st) {
+  if (!wg::route_ok<int8_t>(xq, qq, f) || f > TC_MAX_F ||
+      reinterpret_cast<uintptr_t>(cols) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n + TC_NB - 1) / TC_NB;
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
+    return (int)cudaErrorInvalidValue;
+  const int nk = (f + I8::KSTAGE - 1) / I8::KSTAGE;
+  // Narrow lists in shared memory when they fit beside two stages, with
+  // as deep a ring as fits; else wide lists in place.
+  int words = tile::list_words(k);
+  const size_t narrow = (size_t)TC_QB * k * (sizeof(float) + sizeof(int));
+  if (words > 0 && tc_layout(nk, 2, narrow).total > SMEM_LIMIT) words = 0;
+  const size_t lists = words == 0 ? 0 : narrow;
+  int stages = MAX_STAGES;
+  while (stages > 2 && tc_layout(nk, stages, lists).total > SMEM_LIMIT)
+    --stages;
+  const TcLayout lay = tc_layout(nk, stages, lists);
+  if (lay.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_x, map_q;
+  if (!wg::make_map<int8_t>(&map_x, xq, n, f, TC_NB) ||
+      !wg::make_map<int8_t>(&map_q, qq, q, f, TC_QB))
+    return (int)cudaErrorInvalidValue;
+  auto scan = words == 2   ? &scan_int8_tc_kernel<2>
+              : words == 4 ? &scan_int8_tc_kernel<4>
+              : words == 8 ? &scan_int8_tc_kernel<8>
+                           : &scan_int8_tc_kernel<0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((q + TC_QB - 1) / TC_QB, splits);
+  scan<<<grid, TC_THREADS, lay.total, st>>>(
+      map_x, map_q, cols, n, nk, lay, qscale, lamq, q, tau, k,
+      tiles_per_split, part_s, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_merge(part_s, part_i, q, k, splits, out_s, out_i, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -192,18 +561,10 @@ int scan_int8_launch(const int* xq, const float* srow, const float* lam,
       words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
   const size_t smem =
       (size_t)tile::TILE_FLOATS * sizeof(float) + tile::TILE * list_bytes;
-  auto scan = &scan_int8_kernel<0>;
-  auto merge = &tile::merge_splits<0>;
-  if (words == 2) {
-    scan = &scan_int8_kernel<2>;
-    merge = &tile::merge_splits<2>;
-  } else if (words == 4) {
-    scan = &scan_int8_kernel<4>;
-    merge = &tile::merge_splits<4>;
-  } else if (words == 8) {
-    scan = &scan_int8_kernel<8>;
-    merge = &tile::merge_splits<8>;
-  }
+  auto scan = words == 2   ? &scan_int8_kernel<2>
+              : words == 4 ? &scan_int8_kernel<4>
+              : words == 8 ? &scan_int8_kernel<8>
+                           : &scan_int8_kernel<0>;
   err = cudaFuncSetAttribute(
       scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -214,10 +575,30 @@ int scan_int8_launch(const int* xq, const float* srow, const float* lam,
                                           part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = tile::WARPS * list_bytes;
-  merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
-      part_s, part_i, q, k, splits, out_s, out_i);
-  return (int)cudaGetLastError();
+  return launch_merge(part_s, part_i, q, k, splits, out_s, out_i, st);
+}
+
+// The tensor-core route: int8 rows xq [n, f] and qq [q, f] (f % 16 == 0,
+// f <= 1,024, 16-byte-aligned bases), the item pairs cols [ceil(n / 128)
+// * 64] float4 (srow, lam of an even item, then of the next; zeros past
+// n), qscale and lamq [q] -> out_s / out_i [q, k]; part_s / part_i are
+// scratch of [splits, q, k].  Runs on the given device and stream;
+// returns the CUDA error code (0 on success).
+int scan_int8_tc_launch(const void* xq, const void* cols, int n, int f,
+                        const void* qq, const float* qscale,
+                        const float* lamq, int q, float tau, int k,
+                        int splits, float* part_s, int* part_i, float* out_s,
+                        int* out_i, int device, void* stream) {
+  if (n <= 0 || f <= 0 || q <= 0 || tile::list_words(k) < 0 || k > n ||
+      splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return launch_tc(static_cast<const int8_t*>(xq),
+                   static_cast<const float4*>(cols), n, f,
+                   static_cast<const int8_t*>(qq), qscale, lamq, q, tau, k,
+                   splits, part_s, part_i, out_s, out_i,
+                   (cudaStream_t)stream);
 }
 
 const char* scan_int8_error_string(int err) {

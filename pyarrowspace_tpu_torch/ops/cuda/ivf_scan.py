@@ -11,6 +11,11 @@ bfloat16 or float16: rows are upcast exactly and queries stay float32, the
 precision the certificates assume.  On CPU tensors it runs
 ``ivf_scan_plain``; on CUDA tensors it launches ``csrc/ivf_scan.cu`` (built
 at first use) or raises.
+
+A padded row scores -3e38 with id -1 and so never displaces an unfilled
+slot: the kernel walks, in each probed cluster, only the 64-row tiles up to
+the cluster's last real row (``slab_tiles``), and its results are those of
+the whole slabs.
 """
 
 from __future__ import annotations
@@ -36,18 +41,36 @@ LAUNCHES = 0
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
+def slab_tiles(slab_ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """int32 [K]: for each cluster of the slab layout (ids [K x cap], -1 on
+    padding), the number of 64-row tiles up to and including its last real
+    row, ceil((last + 1) / 64), 0 for an empty cluster.  The last real row,
+    not the count of real rows: overflow items may sit in any free slot."""
+    ids2 = slab_ids.view(-1, cap)
+    pos = torch.arange(1, cap + 1, dtype=torch.int32, device=ids2.device)
+    last = torch.amax(torch.where(ids2 >= 0, pos, 0), dim=1)
+    return torch.div(last + (_CAP_MULTIPLE - 1), _CAP_MULTIPLE,
+                     rounding_mode="floor").to(torch.int32)
+
+
 def ivf_scan_plain(slabs, slab_lambdas, slab_ids, qn, lamq, probe, tau, *,
-                   k: int, q_block: int, cap: int):
+                   k: int, q_block: int, cap: int, tiles=None):
     """Gather each block's probed slabs, multiply in float32, blend, mask,
     and take the lexicographic top-k (a sort by id, then a stable
-    descending sort by score).  Returns (scores [Q_pad, k] float32,
-    ids [Q_pad, k] int32)."""
+    descending sort by score).  With ``tiles`` (int32 [K]) only the first
+    tiles[c] 64-row tiles of each probed cluster c are candidates, as in
+    the kernel.  Returns (scores [Q_pad, k] float32, ids [Q_pad, k]
+    int32)."""
     n_blocks, n_probe = probe.shape
     f = slabs.shape[1]
     f32 = torch.float32
     slabs3 = slabs.view(-1, cap, f)
     lam2 = slab_lambdas.view(-1, cap)
     ids2 = slab_ids.view(-1, cap)
+    if tiles is not None:
+        walked = (torch.arange(cap, device=slabs.device)[None, :]
+                  < _CAP_MULTIPLE * tiles.to(torch.int64)[:, None])
+        ids2 = torch.where(walked, ids2, -1)
     tau_t = torch.as_tensor(tau, dtype=f32, device=slabs.device)
     width = n_probe * cap
     step = max(1, _PLAIN_CHUNK_ELEMS // (width * f))
@@ -79,21 +102,24 @@ def _lib():
     lib.ivf_scan_launch.restype = ctypes.c_int
     lib.ivf_scan_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
 def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
              slab_ids: torch.Tensor, qn: torch.Tensor, lamq: torch.Tensor,
-             probe: torch.Tensor, tau, *, k: int, q_block: int, cap: int):
+             probe: torch.Tensor, tau, *, k: int, q_block: int, cap: int,
+             tiles: torch.Tensor):
     """(scores [Q_pad, k] float32, ids [Q_pad, k] int32) of the sorted,
     padded queries qn [Q_pad, F] / lamq [Q_pad] (Q_pad = n_blocks x
     q_block) over the slabs [K x cap, F] with their lambdas and ids
     [K x cap], block b probing the clusters probe[b] ([n_blocks, n_probe],
-    each in [0, K), as the routing makes them)."""
+    each in [0, K), as the routing makes them).  tiles: the layout's
+    ``slab_tiles`` (``BlockedIVF.slab_tiles``), int32 [K] on the slabs'
+    device."""
     global LAUNCHES
     if slabs.dim() != 2 or qn.dim() != 2 or qn.shape[1] != slabs.shape[1]:
         raise ValueError(f"shapes slabs {tuple(slabs.shape)} / qn "
@@ -117,9 +143,14 @@ def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
     device = slabs.device
+    if (tiles.shape != (rows // cap,) or tiles.dtype != torch.int32
+            or tiles.device != device or not tiles.is_contiguous()):
+        raise ValueError(f"tiles must be a contiguous int32 [{rows // cap}] "
+                         f"on {device}")
     if device.type == "cpu":
         return ivf_scan_plain(slabs, slab_lambdas, slab_ids, qn, lamq, probe,
-                              tau, k=k, q_block=q_block, cap=cap)
+                              tau, k=k, q_block=q_block, cap=cap,
+                              tiles=tiles)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if slabs.dtype not in _DTYPE_CODES:
@@ -147,9 +178,10 @@ def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ivf_scan_launch(
         slabs.data_ptr(), _DTYPE_CODES[slabs.dtype], slab_lambdas.data_ptr(),
-        slab_ids.data_ptr(), f, cap, qn.data_ptr(), lamq.data_ptr(),
-        probe.data_ptr(), n_blocks, n_probe, q_block, float(tau), k,
-        out_s.data_ptr(), out_i.data_ptr(), device.index or 0, stream)
+        slab_ids.data_ptr(), tiles.data_ptr(), f, cap, qn.data_ptr(),
+        lamq.data_ptr(), probe.data_ptr(), n_blocks, n_probe, q_block,
+        float(tau), k, out_s.data_ptr(), out_i.data_ptr(),
+        device.index or 0, stream)
     _build.check(lib, "ivf_scan", err)
     LAUNCHES += 1
     return out_s, out_i

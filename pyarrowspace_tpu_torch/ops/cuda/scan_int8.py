@@ -9,11 +9,21 @@ keeps, per query, the k = max(1, min(cand_k, N)) largest
     cos   = (float(qq . xq_i) * qscale_q) * srow_i
     score = tau * cos + (1 - tau) / (1 + |lam_i - lam_q|)
 
-in (score desc, id asc) order.  On CPU tensors it runs ``scan_int8_plain``;
-on CUDA tensors it launches ``csrc/scan_int8.cu`` (built at first use) or
-raises.  The int8 products are exact integers either way, and both round
-the epilogue op by op in the same order, so kernel and plain version agree
-bit for bit.
+in (score desc, id asc) order; a score that is NaN (lambdas inf - inf) or
+at or below -3e38 enters no list, and a list short of k entries ends in
+(-3e38, -1).  (The JAX package's kernel differs on NaN: its query takes
+nothing of the corpus tile, up to 1,024 items, that holds the NaN.)  On
+CPU tensors it runs ``scan_int8_plain``; on CUDA tensors it launches
+``csrc/scan_int8.cu`` (built at first use) or raises.  The int8 products
+are exact integers either way, and both round the epilogue op by op in
+the same order, so kernel and plain version agree bit for bit.
+
+Two routes on the card, chosen by ``tensor_core_route`` from dtype, shape
+and alignment alone: the int8 tensor-core kernel (``wgmma`` s8, on
+``csrc/wgmma_tile.cuh``) for contiguous int8 rows with F % 16 == 0, F <=
+1,024 and 16-byte-aligned bases, else the SIMT kernel (``__dp4a``), which
+stays as the witness of the int32 sums.  A failed build or launch raises;
+nothing falls back to the other route or to the plain version.
 """
 
 from __future__ import annotations
@@ -27,25 +37,60 @@ from ... import _build
 from ..quantize import quantize_rows
 from .scan_topk import fit_scratch, sm_count
 
-# Queries per block and corpus items per tile of the kernel.
+# Queries per block and corpus items per tile: of the SIMT kernel, and of
+# the tensor-core kernel.
 _TILE = 64
+_TC_TILE = 128
+# The tensor-core kernel keeps its block's 128 query rows in shared memory.
+TC_MAX_F = 1024
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it): all
+# of them, and those of the tensor-core route.
 LAUNCHES = 0
+TC_LAUNCHES = 0
+
+# The unfilled slot's score (its id is -1).
+NEG_SCORE = -3.0e38
 
 # Plain version: queries per chunk keep the [queries, N] score block near
 # this many elements.
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
-def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
-    """K7's (splits, queries a launch): at least about two 64-query blocks
-    per SM, every split holding at least one 64-item tile, then
-    ``scan_topk.fit_scratch``."""
+def plan_splits(n: int, q: int, k: int, device,
+                tensor_core: bool = False) -> tuple[int, int]:
+    """K7's (splits, queries a launch), then ``scan_topk.fit_scratch``.
+    SIMT route: at least about two 64-query blocks per SM, every split
+    holding at least one 64-item tile.  Tensor-core route (one block an
+    SM): the fewest corpus splits whose grid of 128-query blocks fills its
+    last wave to 90% or more, as K2 plans."""
+    sms = sm_count(device.index or 0)
+    if tensor_core:
+        n_tiles, n_qblocks = -(-n // _TC_TILE), -(-q // _TC_TILE)
+        want = next((s for s in range(1, n_tiles + 1)
+                     if 10 * n_qblocks * s
+                     >= 9 * sms * -(-n_qblocks * s // sms)), n_tiles)
+        return fit_scratch(n_tiles, want, q, k)
     n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
-    want = min(n_tiles, max(1, -(-2 * sm_count(device.index or 0)
-                                 // n_qblocks)))
+    want = min(n_tiles, max(1, -(-2 * sms // n_qblocks)))
     return fit_scratch(n_tiles, want, q, k)
+
+
+def tensor_core_route(xq: torch.Tensor, qq: torch.Tensor) -> bool:
+    """Whether K7 runs its int8 tensor-core kernel on the corpus xq [N, F]
+    and queries qq [Q, F]: both contiguous int8, F a positive multiple of
+    16 (16-byte rows, TMA's stride rule) up to TC_MAX_F, and both base
+    addresses 16-byte aligned.  Otherwise it runs its SIMT kernel."""
+    f = xq.shape[-1]
+    return (xq.dtype == torch.int8 and qq.dtype == torch.int8
+            and 0 < f <= TC_MAX_F and f % 16 == 0
+            and xq.is_contiguous() and qq.is_contiguous()
+            and xq.data_ptr() % 16 == 0 and qq.data_ptr() % 16 == 0)
+
+
+def route_name(xq: torch.Tensor, qq: torch.Tensor) -> str:
+    """"tensor-core" or "simt": the route tensor_core_route picks."""
+    return "tensor-core" if tensor_core_route(xq, qq) else "simt"
 
 
 def scan_int8_plain(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
@@ -53,12 +98,14 @@ def scan_int8_plain(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
                     lamq: torch.Tensor, tau, k: int):
     """The int8 products in float64 (exact: |acc| <= 16,129 F < 2^53),
     converted to int32, then the float32 epilogue and a stable descending
-    sort.  Returns (idx [Q, k] int32, scores [Q, k] float32)."""
+    sort of the scores above -3e38.  Returns (idx [Q, k] int32, scores
+    [Q, k] float32)."""
     f32 = torch.float32
     n = xq.shape[0]
     xt = xq.to(torch.float64).T
     srow32, lam32 = srow.to(f32), lam.to(f32)
     tau_t = torch.as_tensor(tau, dtype=f32, device=xq.device)
+    neg = torch.tensor(NEG_SCORE, dtype=f32, device=xq.device)
     step = max(1, _PLAIN_CHUNK_ELEMS // max(n, 1))
     out_i, out_s = [], []
     for s in range(0, qq.shape[0], step):
@@ -68,9 +115,16 @@ def scan_int8_plain(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
         prox = 1.0 / (1.0 + torch.abs(lam32[None, :]
                                       - lamq[s:s + step].to(f32)[:, None]))
         score = tau_t * cos + (1.0 - tau_t) * prox
+        # As in both kernels, a score enters a list only if it beats the
+        # unfilled slot (-3e38, -1): a NaN (an inf - inf lambda gap) or a
+        # score at or below -3e38 never does, and a list short of k such
+        # scores ends in (-3e38, -1).
+        score = torch.where(score > neg, score, neg)
         vals, order = torch.sort(score, dim=1, descending=True, stable=True)
-        out_i.append(order[:, :k].to(torch.int32))
-        out_s.append(vals[:, :k])
+        vals = vals[:, :k]
+        out_i.append(torch.where(vals > neg, order[:, :k], -1)
+                     .to(torch.int32))
+        out_s.append(vals)
     if not out_i:
         return (torch.empty((0, k), dtype=torch.int32, device=xq.device),
                 torch.empty((0, k), dtype=f32, device=xq.device))
@@ -86,7 +140,26 @@ def _lib():
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p]
+    lib.scan_int8_tc_launch.restype = ctypes.c_int
+    lib.scan_int8_tc_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     return lib
+
+
+def _item_pairs(srow: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's per-item operands: (srow, lam) of every
+    item, [N_pad, 2] float32 with N_pad a multiple of its tile, zeros past
+    N, so that a thread reads an item pair's four values as one float4."""
+    n = srow.shape[0]
+    out = torch.zeros((-(-n // _TC_TILE) * _TC_TILE, 2), dtype=torch.float32,
+                      device=srow.device)
+    out[:n, 0] = srow
+    out[:n, 1] = lam
+    return out
 
 
 def _words(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +180,7 @@ def scan_int8(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
     qq [Q, F] int8 with scales qscale [Q] and lambdas lamq [Q] over the
     corpus xq [N, F] int8 with row scales srow [N] and lambdas lam [N];
     1 <= k <= N."""
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     if xq.dim() != 2 or qq.dim() != 2 or qq.shape[1] != xq.shape[1]:
         raise ValueError(f"shapes xq {tuple(xq.shape)} / qq "
                          f"{tuple(qq.shape)} do not match")
@@ -142,13 +215,18 @@ def scan_int8(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
                              f"{name}")
     if n >= 2 ** 31 // f or q >= 2 ** 31 // max(f, k):
         raise ValueError(f"unsupported shapes N={n}, Q={q}, F={f}")
-    xw, qw = _words(xq), _words(qq)
-    fw = xw.shape[1]
     out_i = torch.empty((q, k), dtype=torch.int32, device=device)
     out_s = torch.empty((q, k), dtype=torch.float32, device=device)
     if q == 0:
         return out_i, out_s
-    splits, q_chunk = plan_splits(n, q, k, device)
+    tc = tensor_core_route(xq, qq)
+    if tc:
+        xa, qa, fa = xq, qq, f
+        cols = _item_pairs(srow, lam)
+    else:
+        xa, qa = _words(xq), _words(qq)
+        fa = xa.shape[1]
+    splits, q_chunk = plan_splits(n, q, k, device, tc)
     part_s = torch.empty((splits, min(q, q_chunk), k), dtype=torch.float32,
                          device=device)
     part_i = torch.empty_like(part_s, dtype=torch.int32)
@@ -156,14 +234,23 @@ def scan_int8(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     for s in range(0, q, q_chunk):
         qc = min(q_chunk, q - s)
-        err = lib.scan_int8_launch(
-            xw.data_ptr(), srow.data_ptr(), lam.data_ptr(), n, fw,
-            qw[s:].data_ptr(), qscale[s:].data_ptr(), lamq[s:].data_ptr(),
-            qc, float(tau), k, splits, part_s.data_ptr(), part_i.data_ptr(),
-            out_s[s:].data_ptr(), out_i[s:].data_ptr(), device.index or 0,
-            stream)
+        if tc:
+            err = lib.scan_int8_tc_launch(
+                xa.data_ptr(), cols.data_ptr(), n, fa, qa[s:].data_ptr(),
+                qscale[s:].data_ptr(), lamq[s:].data_ptr(), qc, float(tau),
+                k, splits, part_s.data_ptr(), part_i.data_ptr(),
+                out_s[s:].data_ptr(), out_i[s:].data_ptr(),
+                device.index or 0, stream)
+        else:
+            err = lib.scan_int8_launch(
+                xa.data_ptr(), srow.data_ptr(), lam.data_ptr(), n, fa,
+                qa[s:].data_ptr(), qscale[s:].data_ptr(),
+                lamq[s:].data_ptr(), qc, float(tau), k, splits,
+                part_s.data_ptr(), part_i.data_ptr(), out_s[s:].data_ptr(),
+                out_i[s:].data_ptr(), device.index or 0, stream)
         _build.check(lib, "scan_int8", err)
         LAUNCHES += 1
+        TC_LAUNCHES += tc
     return out_i, out_s
 
 

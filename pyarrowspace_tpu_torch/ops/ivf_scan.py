@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .cuda.ivf_scan import NEG_INF, ivf_scan
+from .cuda.ivf_scan import NEG_INF, ivf_scan, slab_tiles
 from .distance import unit_normalize
 from .search import query_lambdas
 
@@ -55,6 +55,9 @@ class BlockedIVF(NamedTuple):
     slab_lambdas: torch.Tensor     # [K * cap] float32 (+inf on padding)
     slab_ids: torch.Tensor         # [K * cap] int32 item ids (-1 padding)
     cap: int
+    # Per-slab count of 64-row tiles up to its last real row (int32, the
+    # probe scan walks only those; cuda/ivf_scan.py::slab_tiles).
+    slab_tiles: torch.Tensor       # [K]
     # Certification state (None when built with certify=False): per-slab
     # covering radius around the unit centroid, lambda interval and
     # non-emptiness.
@@ -159,8 +162,9 @@ def build_blocked_ivf(xu: torch.Tensor, lambdas: torch.Tensor,
         slabs = cast
     ids = torch.as_tensor(np.where(slot >= 0, slot, -1).astype(np.int32),
                           device=dev)
-    return BlockedIVF(cu, slabs, lam, ids, cap, radii=radii, lam_lo=lam_lo,
-                      lam_hi=lam_hi, nonempty=nonempty, res_eps=res_eps)
+    return BlockedIVF(cu, slabs, lam, ids, cap, slab_tiles(ids, cap),
+                      radii=radii, lam_lo=lam_lo, lam_hi=lam_hi,
+                      nonempty=nonempty, res_eps=res_eps)
 
 
 def _cluster_chunks(k: int, cap: int, f: int):
@@ -328,7 +332,7 @@ def _route_scan_core(ivf: BlockedIVF, qn32, lamq32, tau, *, k: int, qb: int,
               use_bound=use_bound)
     s, i = ivf_scan(ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad,
                     r.lamq_pad, r.probe_tbl, float(tau), k=k, q_block=qb,
-                    cap=ivf.cap)
+                    cap=ivf.cap, tiles=ivf.slab_tiles)
     return (i, s, r.inv, r.order, r.lamq_pad[:qn32.shape[0]], r.probe_tbl,
             r.bound)
 

@@ -56,13 +56,17 @@ def _scan_case(dev, seed, n, q, f):
 @pytest.mark.parametrize("k", [15, 60, 300, K_LONG])
 @pytest.mark.parametrize("f", [384, 385, 768])
 def test_scan_int8_kernel_equals_plain(dev, k, f):
+    """F 384 and 768 take the tensor-core route, F 385 the SIMT route."""
     xu, qn, lam, lamq = _scan_case(dev, k + f, 6000, 70, f)
     xq, sc = quantize_rows(xu)
     qq, qs = quantize_rows(qn)
-    launches = scan_int8.LAUNCHES
+    tc = f % 16 == 0
+    assert scan_int8.tensor_core_route(xq, qq) is tc
+    launches, tc_launches = scan_int8.LAUNCHES, scan_int8.TC_LAUNCHES
     i, s = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, TAU, k)
     torch.cuda.synchronize()
     assert scan_int8.LAUNCHES == launches + 1
+    assert scan_int8.TC_LAUNCHES == tc_launches + tc
     ip, sp = scan_int8.scan_int8_plain(xq, sc, lam, qq, qs, lamq, TAU, k)
     assert i.shape == (70, k) and i.dtype == torch.int32
     assert torch.equal(i, ip)
@@ -83,6 +87,111 @@ def test_scan_int8_kernel_exact_ties_and_entry_point(dev):
     ip, sp = scan_int8.scan_int8_plain(xq, sc, lam, *quantize_rows(qn),
                                        lamq, 0.5, 60)
     assert torch.equal(i, ip) and torch.equal(s, sp)
+
+
+def _simt_view(x):
+    """The same int8 rows as a view with a row stride past F: K7 takes its
+    SIMT route on it."""
+    wide = torch.zeros((x.shape[0], x.shape[1] + 16), dtype=x.dtype,
+                       device=x.device)
+    wide[:, :x.shape[1]] = x
+    return wide[:, :x.shape[1]]
+
+
+def _both_routes(xq, sc, lam, qq, qs, lamq, k):
+    """K7 on its tensor-core route and on its SIMT route, and the plain
+    version, on the same values."""
+    assert scan_int8.route_name(xq, qq) == "tensor-core"
+    xs = _simt_view(xq)
+    assert scan_int8.route_name(xs, qq) == "simt"
+    tc = scan_int8.TC_LAUNCHES
+    got = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, TAU, k)
+    simt = scan_int8.scan_int8(xs, sc, lam, qq, qs, lamq, TAU, k)
+    torch.cuda.synchronize()
+    assert scan_int8.TC_LAUNCHES == tc + 1
+    plain = scan_int8.scan_int8_plain(xq, sc, lam, qq, qs, lamq, TAU, k)
+    return got, simt, plain
+
+
+def _bitwise(a, b):
+    return (torch.equal(a[0], b[0])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
+@pytest.mark.parametrize("k", [15, 60, 300, K_LONG])
+@pytest.mark.parametrize("f", [384, 768])
+def test_scan_int8_tensor_core_route_equals_simt(dev, k, f):
+    xu, qn, lam, lamq = _scan_case(dev, 3 * k + f, 9000, 300, f)
+    xq, sc = quantize_rows(xu)
+    qq, qs = quantize_rows(qn)
+    got, simt, plain = _both_routes(xq, sc, lam, qq, qs, lamq, k)
+    assert _bitwise(got, plain) and _bitwise(got, simt)
+
+
+def test_scan_int8_tensor_core_ties_at_the_kth(dev):
+    """200 copies of each of 50 rows with equal lambdas: the kth slot cuts
+    through a group of equal scores, across tiles and splits; the
+    smallest ids win on both routes."""
+    rng = np.random.default_rng(12)
+    base = _unit(rng, 50, 384)
+    xu = torch.from_numpy(np.repeat(base, 200, axis=0)).to(dev)
+    lam = torch.full((10_000,), 0.25, device=dev)
+    qn = torch.from_numpy(np.concatenate([base, base, base[:30]])).to(dev)
+    lamq = torch.full((130,), 0.25, device=dev)
+    xq, sc = quantize_rows(xu)
+    qq, qs = quantize_rows(qn)
+    for k in (60, 250, 700):
+        got, simt, plain = _both_routes(xq, sc, lam, qq, qs, lamq, k)
+        assert _bitwise(got, plain) and _bitwise(got, simt)
+
+
+def test_scan_int8_tensor_core_lambdas_off_the_fast_path(dev):
+    """Lambdas of +-1.5 * 2^63 (1 + |lam_i - lam_q| past 2^64, beyond the
+    fast reciprocal) and +-inf take tile::blend's division in the warps
+    that meet them; the bits stay the plain version's.  (inf - inf:
+    test_scan_int8_nan_scores_enter_no_list.)"""
+    xu, qn, lam, lamq = _scan_case(dev, 5, 5000, 200, 384)
+    lam[::97] = 1.5 * 2.0 ** 63
+    lam[7::401] = -float("inf")
+    lamq[3] = -1.5 * 2.0 ** 63
+    lamq[150] = float("inf")
+    xq, sc = quantize_rows(xu)
+    qq, qs = quantize_rows(qn)
+    got, simt, plain = _both_routes(xq, sc, lam, qq, qs, lamq, 60)
+    assert _bitwise(got, plain) and _bitwise(got, simt)
+
+
+@pytest.mark.parametrize("k", [60, 4997])
+def test_scan_int8_nan_scores_enter_no_list(dev, k):
+    """Lambdas +inf on 52 items and on queries 3 and 150: inf - inf gives
+    NaN scores, which enter no list on either route nor in the plain
+    version; at k 4,997 those two queries' lists end in 49 unfilled slots
+    (-3e38, -1)."""
+    xu, qn, lam, lamq = _scan_case(dev, 5, 5000, 200, 384)
+    lam[::97] = float("inf")
+    lamq[[3, 150]] = float("inf")
+    xq, sc = quantize_rows(xu)
+    qq, qs = quantize_rows(qn)
+    got, simt, plain = _both_routes(xq, sc, lam, qq, qs, lamq, k)
+    assert _bitwise(got, plain) and _bitwise(got, simt)
+    assert not torch.isnan(got[1]).any()
+    tail = max(0, k - (5000 - 52))
+    assert int((got[0] < 0).sum()) == 2 * tail
+
+
+def test_scan_int8_tensor_core_query_chunks(dev, monkeypatch):
+    """Partial lists past the scratch budget: one split, then chunks of
+    130 queries (a partial 128-query block each), one launch each."""
+    xu, qn, lam, lamq = _scan_case(dev, 8, 5000, 300, 384)
+    xq, sc = quantize_rows(xu)
+    qq, qs = quantize_rows(qn)
+    monkeypatch.setattr(scan_topk, "SCRATCH_BYTES", 130 * 60 * 8)
+    launches = scan_int8.TC_LAUNCHES
+    got = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, TAU, 60)
+    torch.cuda.synchronize()
+    assert scan_int8.TC_LAUNCHES - launches == 3
+    plain = scan_int8.scan_int8_plain(xq, sc, lam, qq, qs, lamq, TAU, 60)
+    assert _bitwise(got, plain)
 
 
 # -- K2 over a bfloat16 corpus ---------------------------------------------------
@@ -123,7 +232,8 @@ def _ivf_both(dev, rng, n_clusters, cap, f, dtype, qb, n_probe, k,
         [rng.permutation(n_clusters)[:n_probe] for _ in range(n_blocks)])
         .astype(np.int32)).to(dev)
     args = (slabs, lam, ids, qn, lamq, probe, TAU)
-    s, i = ivf_scan.ivf_scan(*args, k=k, q_block=qb, cap=cap)
+    s, i = ivf_scan.ivf_scan(*args, k=k, q_block=qb, cap=cap,
+                             tiles=ivf_scan.slab_tiles(ids, cap))
     torch.cuda.synchronize()
     sp, ip = ivf_scan.ivf_scan_plain(*args, k=k, q_block=qb, cap=cap)
     return s.cpu(), i.cpu(), sp.cpu(), ip.cpu()

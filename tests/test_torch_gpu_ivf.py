@@ -64,7 +64,8 @@ def _queries(rng, n_blocks, qb, n_clusters, n_probe, f, dev):
 def _scan_both(slabs, lam, ids, qn, lamq, probe, k, qb, cap):
     launches = ivf_scan.LAUNCHES
     s, i = ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU, k=k,
-                             q_block=qb, cap=cap)
+                             q_block=qb, cap=cap,
+                             tiles=ivf_scan.slab_tiles(ids, cap))
     torch.cuda.synchronize()
     assert ivf_scan.LAUNCHES == launches + 1
     sp, ip = ivf_scan.ivf_scan_plain(slabs, lam, ids, qn, lamq, probe, TAU,
@@ -108,6 +109,63 @@ def test_ivf_scan_kernel_shapes(dev, f, qb, n_probe, cap, k, dt):
     assert np.all((i < 0) == (s <= -3.0e38))
 
 
+def _padding_heavy(rng, cap, f, dtype, dev):
+    """Six clusters: one real row at the front (0), one real row in the
+    last slot only (1), none (2), a full slab (3), 40 real rows and an
+    overflow item in a tail slot (4), half a slab (5)."""
+    rows = 6 * cap
+    real = np.zeros(rows, bool)
+    real[0] = real[2 * cap - 1] = real[5 * cap - 5] = True
+    real[3 * cap:4 * cap] = real[4 * cap:4 * cap + 40] = True
+    real[5 * cap:5 * cap + cap // 2] = True
+    slabs = torch.from_numpy(_unit(rng, rows, f)).to(dtype)
+    ids = np.where(real, rng.permutation(4 * rows)[:rows], -1)
+    lam = rng.uniform(0.05, 0.3, rows).astype(np.float32)
+    lam[~real] = np.inf
+    return (slabs.to(dev), torch.from_numpy(lam).to(dev),
+            torch.from_numpy(ids.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("k", [15, 300])
+@pytest.mark.parametrize("qb", [8, 16, 32])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+def test_ivf_scan_kernel_padding_heavy(dev, k, qb, dt):
+    """Slabs that are mostly padding: the kernel walks only the tiles up to
+    each cluster's last real row, and its lists are the plain version's
+    over whole slabs; walking every tile gives the same bits."""
+    rng = np.random.default_rng(k + qb)
+    cap, f = 256, 96
+    slabs, lam, ids = _padding_heavy(rng, cap, f, DTYPES[dt], dev)
+    tiles = ivf_scan.slab_tiles(ids, cap)
+    assert tiles.tolist() == [1, 4, 0, 4, 4, 2]
+    qn, lamq, _ = _queries(rng, 4, qb, 6, 6, f, dev)
+    probe = torch.from_numpy(np.stack([rng.permutation(6) for _ in range(4)])
+                             .astype(np.int32)).to(dev)
+    s, i, sp, ip = _scan_both(slabs, lam, ids, qn, lamq, probe, k, qb, cap)
+    np.testing.assert_allclose(s, sp, rtol=0, atol=TOL)
+    assert topk_disagreements(s, i, sp, ip, TOL) == []
+    assert np.all((i < 0) == (s <= -3.0e38))
+    every = torch.full_like(tiles, cap // 64)
+    s2, i2 = ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU, k=k,
+                               q_block=qb, cap=cap, tiles=every)
+    assert np.array_equal(i2.cpu().numpy(), i)
+    assert np.array_equal(s2.cpu().numpy().view(np.int32), s.view(np.int32))
+
+
+@pytest.mark.parametrize("qb,dt", [(8, "f16"), (16, "f32"), (32, "bf16")])
+def test_ivf_scan_kernel_padding_heavy_f4096(dev, qb, dt):
+    rng = np.random.default_rng(qb)
+    cap, f = 128, 4096
+    slabs, lam, ids = _padding_heavy(rng, cap, f, DTYPES[dt], dev)
+    qn, lamq, _ = _queries(rng, 2, qb, 6, 6, f, dev)
+    probe = torch.from_numpy(np.stack([rng.permutation(6)[:4]
+                                       for _ in range(2)])
+                             .astype(np.int32)).to(dev)
+    s, i, sp, ip = _scan_both(slabs, lam, ids, qn, lamq, probe, 15, qb, cap)
+    np.testing.assert_allclose(s, sp, rtol=0, atol=TOL)
+    assert topk_disagreements(s, i, sp, ip, TOL) == []
+
+
 def _tied_unit(rng, n, f):
     """Rows with four entries of +-0.5: unit norm and dot products exact in
     float32 whatever the summation order."""
@@ -141,16 +199,20 @@ def test_ivf_scan_kernel_rejects(dev):
     rng = np.random.default_rng(0)
     slabs, lam, ids = _slabs(rng, 40, 128, 16, torch.float32, dev)
     qn, lamq, probe = _queries(rng, 2, 8, 40, 33, 16, dev)
+    tiles = ivf_scan.slab_tiles(ids, 128)
     with pytest.raises(ValueError, match="must be in"):
         ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU,
-                          k=33 * 128 + 1, q_block=8, cap=128)
+                          k=33 * 128 + 1, q_block=8, cap=128, tiles=tiles)
     with pytest.raises(TypeError):
         ivf_scan.ivf_scan(slabs.double(), lam, ids, qn, lamq, probe, TAU,
-                          k=5, q_block=8, cap=128)
+                          k=5, q_block=8, cap=128, tiles=tiles)
     with pytest.raises(ValueError, match="q_block"):
         qn2, lamq2, probe2 = _queries(rng, 1, 40, 40, 2, 16, dev)
         ivf_scan.ivf_scan(slabs, lam, ids, qn2, lamq2, probe2, TAU, k=5,
-                          q_block=40, cap=128)
+                          q_block=40, cap=128, tiles=tiles)
+    with pytest.raises(ValueError, match="tiles"):
+        ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU, k=5,
+                          q_block=8, cap=128, tiles=tiles.long())
 
 
 # -- the repair: lists wider than 256 --------------------------------------------

@@ -180,3 +180,41 @@ def test_search_batch_int8_matches_reference(built, tau, topk):
     np.testing.assert_array_equal(i, e_i)
     np.testing.assert_allclose(s, e_s, rtol=0, atol=TOL)
     assert ta._quantized is not None
+
+
+def test_k7_nan_scores_against_the_pallas_kernel():
+    """Lambdas +inf on items 5 and 200 and on query 1 give query 1 two NaN
+    scores.  The port drops those two entries (as its kernels do); the
+    Pallas merge's tile maximum is NaN there, so query 1 takes nothing of
+    the two 128-item tiles that hold them.  Held: the other queries' lists
+    equal the Pallas kernel's; query 1's Pallas list is the port's over
+    the NaN-free tile (items 256-299), and the port's is its own over
+    every item but 5 and 200."""
+    xu, qn, lam, lam_q = _case(0, 300, 4, 32)
+    lam[[5, 200]] = np.inf
+    lam_q[1] = np.inf
+    xq, sc = quantize_rows(_t(xu))
+    args = (xq, sc, _t(lam), _t(qn), _t(lam_q), TAU, 10)
+    i, s = scan_int8.lambda_search_quantized(*args)
+    i_ref, s_ref = lambda_search_quantized(
+        jnp.asarray(xq.numpy()), jnp.asarray(sc.numpy()), jnp.asarray(lam),
+        jnp.asarray(qn), jnp.asarray(lam_q), TAU, 10, col_tile=128)
+    i_ref, s_ref = np.asarray(i_ref), np.asarray(s_ref)
+    assert not np.isnan(s.numpy()).any()
+    for r in (0, 2, 3):
+        np.testing.assert_array_equal(i[r].numpy(), i_ref[r])
+        np.testing.assert_allclose(s[r].numpy(), s_ref[r], rtol=0, atol=TOL)
+
+    def sub(rows):
+        rows = torch.as_tensor(rows)
+        si, ss = scan_int8.lambda_search_quantized(
+            xq[rows], sc[rows], _t(lam)[rows], _t(qn[1:2]), _t(lam_q[1:2]),
+            TAU, 10)
+        return rows[si[0].long()].numpy(), ss[0].numpy()
+
+    tile_i, tile_s = sub(np.arange(256, 300))
+    np.testing.assert_array_equal(i_ref[1], tile_i)
+    np.testing.assert_allclose(s_ref[1], tile_s, rtol=0, atol=TOL)
+    rest_i, rest_s = sub(np.setdiff1d(np.arange(300), [5, 200]))
+    np.testing.assert_array_equal(i[1].numpy(), rest_i)
+    np.testing.assert_array_equal(s[1].numpy(), rest_s)

@@ -344,7 +344,8 @@ def _scan_both(x, lam, ids, qn, lamq, probe, dt, k, qb=8, cap=128):
     ts, ti = k6.ivf_scan(torch.from_numpy(x).to(tdt), torch.from_numpy(lam),
                          torch.from_numpy(ids), torch.from_numpy(qn),
                          torch.from_numpy(lamq), torch.from_numpy(probe),
-                         TAU, k=k, q_block=qb, cap=cap)
+                         TAU, k=k, q_block=qb, cap=cap,
+                         tiles=k6.slab_tiles(torch.from_numpy(ids), cap))
     return (ts.numpy(), ti.numpy()), (np.asarray(js), np.asarray(ji))
 
 
