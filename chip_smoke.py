@@ -50,11 +50,14 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   6. K3 (csrc/subtile_max.cu), K4b and K4a (csrc/extract_topm.cu) and K5
      (csrc/gather_score.cu) against their plain versions at the shapes of
      phase 5 (maxima and cosines within 1e-5, ids identical), timed in
-     turns, each with its route and ptxas's registers and spills, K5 with
-     its no-reuse read (each query reading its subtiles' rows itself, the
-     old design's floor) beside its bound; and the block-max check: for
-     every query and each of its selected subtiles, the best of phase b's
-     blended scores equals K3's maximum bit for bit;
+     turns (K4b and K4a by device time alone, _device_ms: their calls last
+     tens of microseconds, under the host's launch overhead), each with
+     its route and ptxas's registers and spills, K5 with its no-reuse read
+     (each query reading its subtiles' rows itself, the old design's
+     floor) beside its bound; the block-max check: for every query and
+     each of its selected subtiles, the best of phase b's blended scores
+     equals K3's maximum bit for bit; and K4b and K4a at m 1,024 against
+     their plain versions and in turns with torch.topk;
   7. the north-star serving shape, 1,000,000 x 768 with batches of 16,384:
      a serving state made on the card (N(0, 1) rows from a seeded
      torch.Generator, the feature Laplacian of the first 65,536 rows with
@@ -62,10 +65,13 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      mode="subtile", mode="exact" and mode="int8" (its first call
      quantizes the corpus: 768 MB of int8) timed over 2 batches each, the
      subtile and int8 top-15 overlaps with exact on 1,024 queries at least
-     0.99, K3 alone (a batch of 16,384), K7 alone (a batch of 16,384, its
-     route and bound; ids and scores bit for bit its plain version's on
-     1,024 queries) and the peak device memory; exact and subtile in turns
-     over the 2 batches;
+     0.99, K3 alone (a batch of 16,384), K4b on its maxima (16,384 x
+     15,744 -> 16) and K4a on phase b's scores (16,384 x 1,024 -> 30), each
+     with its ids against its plain version's on 1,024 queries, its bound
+     and torch.topk in turns, K7 alone (a batch of 16,384, its route and
+     bound; ids and scores bit for bit its plain version's on 1,024
+     queries) and the peak device memory; exact and subtile in turns over
+     the 2 batches;
   8. blocked-IVF and certified serving on phase 3's index: enable_ivf()
      (the build's own clustering), then search_batch(mode="ivf_block") and
      mode="certified" (n_probe 8) over phase 3's 8 batches, each after a
@@ -145,9 +151,10 @@ their type and its bytes over 3.35 TB/s, from this run's shapes; K5 and
 K6 count the rows this run's routing reads, K6 only the real rows of the
 probed clusters, seeded K1 the new columns) and the time
 of torch.topk where one PyTorch call computes the same function (K4a,
-K4b; null elsewhere).  K6 and K7 carry kernel_route (K7: "tensor-core"
-or "simt"; K6 has one route, "simt"), K7 simt_ms (its SIMT route on the
-same rows).  K1 and K2 also carry product_ms:
+K4b; null elsewhere).  K4a, K4b, K6 and K7 carry kernel_route (K4:
+"narrow", "radix" or "device" and, for the first two, how a row comes
+in, "bulk" or "scalar"; K7: "tensor-core" or "simt"; K6 has one route,
+"simt"), K7 simt_ms (its SIMT route on the same rows).  K1 and K2 also carry product_ms:
 one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
 library matmul on the same operands that the port never calls (it is not
 the same function: no mask, blend or top-k, and another summation order),
@@ -164,15 +171,17 @@ this tree, the others reversed), and each turn prints what those phases
 measured: K1 over the whole corpus, over 16,384 rows and at k 100, 200
 and 1,024, K2 at Q 4,096 over float32 and bfloat16 rows and at k 200 and
 1,024, the build seconds with the knn phase, exact QPS, K3 and K5 at
-phase 6's shapes, K4a and torch.topk in turns on phase 6's pool, K3 over
-a 1,000,000 x 768 bf16 corpus made from a seeded generator with 16,384
-queries (each K3 held against its plain version on 1,024 queries, not
-against this tree's bits), K7 on phase 10's first batch and over a
+phase 6's shapes, K3 over a 1,000,000 x 768 bf16 corpus made from a
+seeded generator with 16,384 queries (each K3 held against its plain
+version on 1,024 queries, not against this tree's bits), K4b and K4a at
+phase 6's shapes and on that corpus's maxima and phase b (each in turns
+with torch.topk) and at m 1,024 (in turns with their plain versions), K7
+on phase 10's first batch and over a
 seeded 1,000,000 x 768 int8 corpus with 16,384 queries, and K6 on phase
 8's routed first batch and on phase 9's 1M mixture over float32 and
 bfloat16 slabs (each held against its plain version).  Then every run's
-k-NN lists, lambdas, exact top-k ids and K6 and K7 outputs (ids and
-scores) must equal this tree's bit for bit.
+k-NN lists, lambdas, exact top-k ids, K4b and K4a ids and K6 and K7
+outputs (ids and scores) must equal this tree's bit for bit.
 """
 
 from __future__ import annotations
@@ -202,6 +211,7 @@ F_WIDE = 4096                                 # K6's query block per slab
 N_MIX, N_EXTEND = 65_536, 9_416   # the variants' mixture corpus; a 3% append
 OTHER_BATCHES, ENERGY_QUERIES, ENERGY_TOKENS = 2, 64, 40
 MIN_BF16_OVERLAP = 0.9   # the bf16 view has no float32 rescore
+SPIN_CYCLES = 2_000_000   # _device_ms's spin, ~1 ms: longer than the enqueue
 KERNEL_SOURCES = ("knn", "knn_t", "scan_topk", "subtile_max", "extract_topm",
                   "gather_score", "ivf_scan", "scan_int8")
 # The H100 SXM's published peaks at 700 W (dense): float32 outside the
@@ -234,6 +244,42 @@ def _in_turns(plain, kernel, torch) -> tuple[float, float]:
     k2 = _events_ms(kernel, torch)
     p2 = _events_ms(plain, torch)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _device_ms(fn, torch, reps: int = 10) -> float:
+    """Device time of one call of fn in ms: the mean of reps calls (warm)
+    enqueued behind a spin of the card (torch.cuda._sleep), so that the
+    host's launch overhead is not counted, as it is by _events_ms; for the
+    selects, whose calls last tens of microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _device_turns(plain, kernel, torch) -> tuple[float, float]:
+    """_in_turns with _device_ms: (kernel ms, plain ms)."""
+    p1 = _device_ms(plain, torch)
+    k1 = _device_ms(kernel, torch)
+    k2 = _device_ms(kernel, torch)
+    p2 = _device_ms(plain, torch)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _select_route(extract, score, m) -> str:
+    """K4's route and way in for [rows, len] -> m ("simt" for a package
+    that has one route)."""
+    if not hasattr(extract, "route_name"):
+        return "simt"
+    route = extract.route_name(score.shape[1], m)
+    return route if route == "device" else f"{route}/{extract.load_name(score)}"
 
 
 def _bound(ops: float, kind: str, nbytes: float) -> dict:
@@ -490,13 +536,13 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
                                                   n_real),
             lambda: subtile_max.subtile_max(xs, lam, qs, lamq, TAU, n_real),
             torch),
-        "extract_ids": _in_turns(
+        "extract_ids": _device_turns(
             lambda: extract.extract_ids_plain(sub, s_keep),
             lambda: extract.extract_ids(sub, s_keep), torch),
         "gather_score": _in_turns(
             lambda: gather_score.gather_score_plain(xs, qs, sel),
             lambda: gather_score.gather_score(xs, qs, sel), torch),
-        "extract_pool": _in_turns(
+        "extract_pool": _device_turns(
             lambda: extract.extract_pool_plain(score_b, cand, m_pool),
             lambda: extract.extract_pool(score_b, cand, m_pool), torch),
     }
@@ -505,11 +551,9 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     # One PyTorch call computes the selects' function (torch.topk); none
     # computes a blended max per subtile or a gather-and-score.
     library = {"subtile_max": None, "gather_score": None}
-    torch.topk(sub, s_keep, dim=1)
-    library["extract_ids"] = _events_ms(
+    library["extract_ids"] = _device_ms(
         lambda: torch.topk(sub, s_keep, dim=1), torch)
-    torch.topk(score_b, m_pool, dim=1)
-    library["extract_pool"] = _events_ms(
+    library["extract_pool"] = _device_ms(
         lambda: torch.topk(score_b, m_pool, dim=1), torch)
     n_pad, f = xs.shape
     n_sub, elt = n_pad // 64, xs.element_size()
@@ -533,11 +577,14 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     no_reuse_ms = (q * s_keep * 64 * f * elt) / HBM_BYTES_PER_S * 1e3
     route = subtile_max.route_name(xs, qs)
     routes = {"subtile_max": route, "gather_score": route,
-              "extract_ids": "simt", "extract_pool": "simt"}
+              "extract_ids": _select_route(extract, sub, s_keep),
+              "extract_pool": _select_route(extract, score_b, m_pool)}
     from pyarrowspace_tpu_torch import _build
     for name, (k_ms, p_ms) in times.items():
         results[name] = dict(max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms,
                              library_ms=library[name], **bounds[name])
+        if name.startswith("extract"):
+            results[name]["kernel_route"] = routes[name]
         src = "extract_topm" if name.startswith("extract") else name
         print(f"phase 6: {name} Q={q} N_pad={xs.shape[0]} F={xs.shape[1]} "
               f"{xs.dtype}: {routes[name]} route, kernel {k_ms:.3f} ms, "
@@ -567,22 +614,35 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
             extract.extract_pool(sub, cand, K_WIDEST),
             extract.extract_pool_plain(sub, cand, K_WIDEST))}
     wide_times = {
-        "extract_ids": _in_turns(
+        "extract_ids": _device_turns(
             lambda: extract.extract_ids_plain(sub, K_WIDEST),
             lambda: extract.extract_ids(sub, K_WIDEST), torch),
-        "extract_pool": _in_turns(
+        "extract_pool": _device_turns(
             lambda: extract.extract_pool_plain(sub, cand, K_WIDEST),
             lambda: extract.extract_pool(sub, cand, K_WIDEST), torch)}
-    narrow = {"extract_ids": _events_ms(
+    wide_topk = {
+        "extract_ids": _device_turns(
+            lambda: torch.topk(sub, K_WIDEST, dim=1),
+            lambda: extract.extract_ids(sub, K_WIDEST), torch),
+        "extract_pool": _device_turns(
+            lambda: torch.topk(sub, K_WIDEST, dim=1),
+            lambda: extract.extract_pool(sub, cand, K_WIDEST), torch)}
+    narrow = {"extract_ids": _device_ms(
                   lambda: extract.extract_ids(sub, s_keep), torch),
-              "extract_pool": _events_ms(
+              "extract_pool": _device_ms(
                   lambda: extract.extract_pool(sub, cand, m_pool), torch)}
     for name, (k_ms, p_ms) in wide_times.items():
+        k2_ms, topk_ms = wide_topk[name]
         results.setdefault("wide", {})[name] = dict(
-            k=K_WIDEST, ms=k_ms, plain_ms=p_ms, narrow_ms=narrow[name])
-        print(f"phase 6: {name} at m={K_WIDEST} on {tuple(sub.shape)}: ids "
+            k=K_WIDEST, ms=k_ms, plain_ms=p_ms, narrow_ms=narrow[name],
+            library_ms=topk_ms, library_turn_ms=k2_ms,
+            kernel_route=_select_route(extract, sub, K_WIDEST))
+        print(f"phase 6: {name} at m={K_WIDEST} on {tuple(sub.shape)} "
+              f"({_select_route(extract, sub, K_WIDEST)} route): ids "
               f"identical {wide_same[name]}; kernel {k_ms:.3f} ms (narrow "
-              f"{narrow[name]:.3f} ms), plain {p_ms:.3f} ms {card}")
+              f"{narrow[name]:.3f} ms), plain {p_ms:.3f} ms; in turns with "
+              f"torch.topk: kernel {k2_ms:.3f} ms, torch.topk {topk_ms:.3f} "
+              f"ms {card}")
     if not (err3 <= TOL and sentinels and sel_same and err5 <= TOL
             and pool_same and bitwise and n_checked == q * s_keep
             and all(wide_same.values()) and route == "tensor-core"):
@@ -595,7 +655,11 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
     """Phase 6b (--measure only): K3 and K5 of the tree under measure at
     phase 6's shapes, and K3 over a 1,000,000 x 768 bf16 corpus made from
     a seeded generator against 16,384 queries, each timed twice and held
-    against its plain version (at 1M on the first 1,024 queries)."""
+    against its plain version (at 1M on the first 1,024 queries); K4b and
+    K4a (device times, _device_ms) at phase 6's shapes and on that 1M
+    corpus's maxima and phase b, each in turns with torch.topk, and at m
+    1,024 in turns with their plain versions, their ids held against the
+    plain versions and kept for the comparison across trees."""
     from pyarrowspace_tpu_torch.ops import subtile_scan
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
                                                  subtile_max)
@@ -622,18 +686,39 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
         xs, lam, qs, lamq, TAU, n_real), torch) for _ in range(2)) / 2
     k5_ms = sum(_events_ms(lambda: gather_score.gather_score(xs, qs, sel),
                            torch) for _ in range(2)) / 2
-    # K4a against torch.topk on phase 6's pool, in turns (topk, K4a, K4a,
-    # topk): the library call is the yardstick of the select.
+    # The selects at phase 6's shapes, K4b and K4a each in turns with
+    # torch.topk (the library call, their yardstick), and at m 1,024 in
+    # turns with their plain versions (one stable torch.sort).
+    tau32 = torch.tensor(TAU, dtype=f32)
     score_b, cand = subtile_scan.phase_b_scores(
-        gather_score.gather_score(xs, qs, sel), sel, lam, lamq,
-        torch.tensor(TAU, dtype=f32), n_real)
+        gather_score.gather_score(xs, qs, sel), sel, lam, lamq, tau32, n_real)
     m_pool = 2 * GP["topk"]
-    extract.extract_pool(score_b, cand, m_pool)
-    torch.topk(score_b, m_pool, dim=1)
-    k4a_ms, topk_ms = _in_turns(
-        lambda: torch.topk(score_b, m_pool, dim=1),
-        lambda: extract.extract_pool(score_b, cand, m_pool), torch)
     gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    perm = torch.argsort(torch.rand(sub.shape, generator=gen, device=dev),
+                         dim=1).to(torch.int32)
+    k4, dump, same = {}, {}, {}
+
+    def k4_turns(name, kernel, other, plain):
+        out = kernel()
+        dump[f"{name}_ids"] = out.cpu().numpy()
+        same[name] = torch.equal(out, plain())
+        k4[f"{name}_ms"], k4[f"{name}_{other[0]}_ms"] = _device_turns(
+            other[1], kernel, torch)
+
+    k4_turns("k4b", lambda: extract.extract_ids(sub, s_keep),
+             ("topk", lambda: torch.topk(sub, s_keep, dim=1)),
+             lambda: extract.extract_ids_plain(sub, s_keep))
+    k4_turns("k4a", lambda: extract.extract_pool(score_b, cand, m_pool),
+             ("topk", lambda: torch.topk(score_b, m_pool, dim=1)),
+             lambda: extract.extract_pool_plain(score_b, cand, m_pool))
+    k4_turns("k4b_k1024", lambda: extract.extract_ids(sub, K_WIDEST),
+             ("plain", lambda: extract.extract_ids_plain(sub, K_WIDEST)),
+             lambda: extract.extract_ids_plain(sub, K_WIDEST))
+    k4_turns("k4a_k1024", lambda: extract.extract_pool(sub, perm, K_WIDEST),
+             ("plain", lambda: extract.extract_pool_plain(sub, perm,
+                                                          K_WIDEST)),
+             lambda: extract.extract_pool_plain(sub, perm, K_WIDEST))
     gen.manual_seed(5)
     n_pad = -(-N1M // 8192) * 8192
     x1 = unit_normalize(torch.randn((n_pad, F1M), generator=gen,
@@ -652,18 +737,37 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
         .cpu().numpy(),
         subtile_max.subtile_max_plain(x1, lam1, qc, lc, TAU, N1M)[:, :real1]
         .cpu().numpy())
-    del x1, q1
+    # The selects at the 1M shape, on this corpus's K3 maxima and phase b.
+    sub1 = subtile_max.subtile_max(x1, lam1, q1, lq1, TAU, N1M)
+    s1 = subtile_scan.subtiles_kept(GP["topk"], sub1.shape[1])
+    sel1 = extract.extract_ids(sub1, s1)
+    score1, cand1 = subtile_scan.phase_b_scores(
+        gather_score.gather_score(x1, q1, sel1), sel1, lam1, lq1, tau32, N1M)
+    k4_turns("k4b_1m", lambda: extract.extract_ids(sub1, s1),
+             ("topk", lambda: torch.topk(sub1, s1, dim=1)),
+             lambda: extract.extract_ids_plain(sub1, s1))
+    k4_turns("k4a_1m", lambda: extract.extract_pool(score1, cand1, m_pool),
+             ("topk", lambda: torch.topk(score1, m_pool, dim=1)),
+             lambda: extract.extract_pool_plain(score1, cand1, m_pool))
+    del x1, q1, sub1, score1, cand1
     results["subtile_ab"] = dict(k3_ms=k3_ms, k5_ms=k5_ms, k3_1m_ms=k3_1m_ms,
-                                 k4a_ms=k4a_ms, k4a_topk_ms=topk_ms)
-    print(f"phase 6b: K4a {k4a_ms:.3f} ms, torch.topk {topk_ms:.3f} ms in "
-          f"turns on {tuple(score_b.shape)} -> {m_pool} {card}")
+                                 **k4)
+    results.setdefault("ab_dump", {}).update(dump)
+    for name in ("k4b", "k4a", "k4b_1m", "k4a_1m"):
+        print(f"phase 6b: {name} {k4[name + '_ms']:.4f} ms, torch.topk "
+              f"{k4[name + '_topk_ms']:.4f} ms in turns; ids identical to "
+              f"the plain version's: {same[name]} {card}")
+    for name in ("k4b_k1024", "k4a_k1024"):
+        print(f"phase 6b: {name} {k4[name + '_ms']:.4f} ms, plain "
+              f"{k4[name + '_plain_ms']:.4f} ms in turns; ids identical: "
+              f"{same[name]} {card}")
     print(f"phase 6b: K3 {k3_ms:.3f} ms, K5 {k5_ms:.3f} ms at Q={qs.shape[0]} "
           f"N_pad={xs.shape[0]} F={xs.shape[1]} (max_abs_err {err3:.3e} / "
           f"{err5:.3e}); K3 {N1M}x{F1M} bf16, Q={Q1M}: {k3_1m_ms:.3f} ms "
           f"(max_abs_err {err1m:.3e} on {Q1M_CHECK} queries) {card}")
-    if max(err3, err5, err1m) > TOL:
+    if max(err3, err5, err1m) > TOL or not all(same.values()):
         raise AssertionError(f"K3 / K5 disagree with their plain versions: "
-                             f"{err3} {err5} {err1m}")
+                             f"{err3} {err5} {err1m}, or K4: {same}")
 
 
 def _twice_ms(torch, fn) -> float:
@@ -768,7 +872,7 @@ def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
     k6_scan("k6_1m_bf16", space._ensure_ivf_blocked(), space, queries[0])
     del space, queries
     results["scans_ab"] = out
-    results["ab_dump"] = dump
+    results.setdefault("ab_dump", {}).update(dump)
     if not ok:
         raise AssertionError("K6 / K7 disagree with their plain versions")
 
@@ -779,7 +883,9 @@ def _phase_north_star(torch, dev, card, results) -> None:
     import pyarrowspace_tpu_torch as pt
     from pyarrowspace_tpu_torch.graph.feature import build_feature_laplacian
     from pyarrowspace_tpu_torch.ops import search as search_ops
-    from pyarrowspace_tpu_torch.ops.cuda import scan_int8, subtile_max
+    from pyarrowspace_tpu_torch.ops import subtile_scan
+    from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
+                                                 scan_int8, subtile_max)
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
     from pyarrowspace_tpu_torch.ops.quantize import quantize_rows
     from pyarrowspace_tpu_torch.ops.rayleigh import (dispersion_batch,
@@ -843,10 +949,13 @@ def _phase_north_star(torch, dev, card, results) -> None:
                                     rayleigh_normalized=False,
                                     tau_mix=TAU_MIX).contiguous()
     qs = unit_normalize(qb).to(st["xu_scan"].dtype).contiguous()
-    subtile_max.subtile_max(st["xu_scan"], st["lambdas"], qs, lamq, TAU,
-                            st["n_real"])
+    sub = subtile_max.subtile_max(st["xu_scan"], st["lambdas"], qs, lamq,
+                                  TAU, st["n_real"])
     k3_ms = _events_ms(lambda: subtile_max.subtile_max(
         st["xu_scan"], st["lambdas"], qs, lamq, TAU, st["n_real"]), torch)
+    k4 = _selects_1m(torch, extract, gather_score, subtile_scan, st, qs,
+                     lamq, sub, card)
+    del sub
     # K7 alone at 1M, its route, its bound; held against its plain version
     # (ids identical, scores bit for bit) on the first Q1M_CHECK queries.
     xq, scales = aspace._quantized
@@ -876,7 +985,7 @@ def _phase_north_star(torch, dev, card, results) -> None:
                                  overlap_int8=overlap_int8, k3_ms=k3_ms,
                                  k7_ms=k7_ms, k7_route=k7_route,
                                  k7_bound_ms=k7_bound["bound_ms"],
-                                 peak_gib=peak, turns=turns)
+                                 peak_gib=peak, turns=turns, **k4)
     # The real subtiles' rows only, as in phase 6.
     rows_k3 = -(-st["n_real"] // 64) * 64
     k3_bound = _bound(2.0 * Q1M * rows_k3 * F1M, "bf16", 0.0)
@@ -894,10 +1003,60 @@ def _phase_north_star(torch, dev, card, results) -> None:
              for outs in served.values() for i, v in outs)
     del aspace, st, queries, xq, qq
     if not ok or overlap < MIN_OVERLAP or overlap_int8 < MIN_OVERLAP \
-            or not k7_same or k7_route != "tensor-core":
+            or not k7_same or k7_route != "tensor-core" \
+            or not (k4["k4b_same"] and k4["k4a_same"]):
         raise AssertionError(f"1M serving check failed: results ok {ok}, "
                              f"overlap {overlap}, int8 {overlap_int8}, K7 "
-                             f"bitwise {k7_same} on the {k7_route} route")
+                             f"bitwise {k7_same} on the {k7_route} route, "
+                             f"K4b / K4a ids {k4['k4b_same']} / "
+                             f"{k4['k4a_same']}")
+
+
+def _selects_1m(torch, extract, gather_score, subtile_scan, st, qs, lamq,
+                sub, card) -> dict:
+    """Phase 7's K4b (the top-S select over K3's maxima [Q, n_sub]) and
+    K4a (the pool cut over phase b's scores [Q, S x 64]) at the 1M shape:
+    ids against the plain version on the first Q1M_CHECK queries, device
+    times in turns with torch.topk, and the bounds."""
+    q, n_sub = sub.shape
+    topk = GP["topk"]
+    s_keep = subtile_scan.subtiles_kept(topk, n_sub)
+    m_pool = 2 * topk
+    sel = extract.extract_ids(sub, s_keep)
+    k4b_same = torch.equal(sel[:Q1M_CHECK], extract.extract_ids_plain(
+        sub[:Q1M_CHECK].contiguous(), s_keep))
+    k4b_ms, k4b_topk = _device_turns(
+        lambda: torch.topk(sub, s_keep, dim=1),
+        lambda: extract.extract_ids(sub, s_keep), torch)
+    cos = gather_score.gather_score(st["xu_scan"], qs, sel)
+    score_b, cand = subtile_scan.phase_b_scores(
+        cos, sel, st["lambdas"], lamq, torch.tensor(TAU, dtype=torch.float32),
+        st["n_real"])
+    del cos
+    pool = extract.extract_pool(score_b, cand, m_pool)
+    k4a_same = torch.equal(pool[:Q1M_CHECK], extract.extract_pool_plain(
+        score_b[:Q1M_CHECK].contiguous(), cand[:Q1M_CHECK].contiguous(),
+        m_pool))
+    k4a_ms, k4a_topk = _device_turns(
+        lambda: torch.topk(score_b, m_pool, dim=1),
+        lambda: extract.extract_pool(score_b, cand, m_pool), torch)
+    width = score_b.shape[1]
+    k4b_bound = _bound(q * n_sub, "fp32", q * n_sub * 4 + q * s_keep * 4)
+    k4a_bound = _bound(q * width, "fp32", q * width * 8 + q * m_pool * 4)
+    print(f"phase 7: K4b ({_select_route(extract, sub, s_keep)} route) "
+          f"{k4b_ms:.4f} ms on {tuple(sub.shape)} -> {s_keep}, torch.topk "
+          f"{k4b_topk:.4f} ms in turns, bound {k4b_bound['bound_ms']:.4f} ms "
+          f"({k4b_bound['bound_by']}); ids identical to the plain version's "
+          f"on {Q1M_CHECK} queries: {k4b_same} {card}")
+    print(f"phase 7: K4a ({_select_route(extract, score_b, m_pool)} route) "
+          f"{k4a_ms:.4f} ms on {tuple(score_b.shape)} -> {m_pool}, torch.topk "
+          f"{k4a_topk:.4f} ms in turns, bound {k4a_bound['bound_ms']:.4f} ms "
+          f"({k4a_bound['bound_by']}); ids identical to the plain version's "
+          f"on {Q1M_CHECK} queries: {k4a_same} {card}")
+    return dict(k4b_ms=k4b_ms, k4b_topk_ms=k4b_topk,
+                k4b_bound_ms=k4b_bound["bound_ms"], k4b_same=k4b_same,
+                k4a_ms=k4a_ms, k4a_topk_ms=k4a_topk,
+                k4a_bound_ms=k4a_bound["bound_ms"], k4a_same=k4a_same)
 
 
 class _CertifiedCounts:
@@ -1548,8 +1707,9 @@ def _phase_long_lists(torch, aspace, gl, xu, batches, card, results) -> None:
     checks["K4b / K4a m 5000 == plain"] = ids_same and pool_same
     print(f"phase 13: K1 k={K_LONG} on {K1_LONG_ROWS} rows of {N}: "
           f"{t_k1:.3f} s, disagreeing rows {len(bad_k1)}; K4b / K4a at "
-          f"m={K_LONG} over {tuple(score.shape)}: ids identical {ids_same} / "
-          f"{pool_same} {card}")
+          f"m={K_LONG} over {tuple(score.shape)} "
+          f"({_select_route(extract, score, K_LONG)} route): ids identical "
+          f"{ids_same} / {pool_same} {card}")
     # K6 at F 4,096: the query block no longer fits beside the tiles.
     n_clusters, cap, qblk, n_probe, n_blocks = 16, 256, 16, 4, 8
     slabs = unit_normalize(torch.randn((n_clusters * cap, F_WIDE),

@@ -59,8 +59,9 @@ def ivf_scan_plain(slabs, slab_lambdas, slab_ids, qn, lamq, probe, tau, *,
     and take the lexicographic top-k (a sort by id, then a stable
     descending sort by score).  With ``tiles`` (int32 [K]) only the first
     tiles[c] 64-row tiles of each probed cluster c are candidates, as in
-    the kernel.  Returns (scores [Q_pad, k] float32, ids [Q_pad, k]
-    int32)."""
+    the kernel.  As in the kernel, a score enters a list only if it beats
+    the unfilled slot (-3e38, -1): a NaN (lambdas inf - inf) never does.
+    Returns (scores [Q_pad, k] float32, ids [Q_pad, k] int32)."""
     n_blocks, n_probe = probe.shape
     f = slabs.shape[1]
     f32 = torch.float32
@@ -86,13 +87,15 @@ def ivf_scan_plain(slabs, slab_lambdas, slab_ids, qn, lamq, probe, tau, *,
         lq = lamq[b0 * q_block:(b0 + nb) * q_block].view(nb, q_block, 1)
         prox = 1.0 / (1.0 + torch.abs(lam - lq.to(f32)))
         score = tau_t * cos + (1.0 - tau_t) * prox
-        score = torch.where(ids < 0, NEG_INF, score)
+        score = torch.where((ids >= 0) & (score > NEG_INF), score, NEG_INF)
         by_id = torch.sort(ids, dim=2, stable=True).indices
         s1 = torch.gather(score, 2, by_id.expand(-1, q_block, -1))
         i1 = torch.gather(ids, 2, by_id).expand(-1, q_block, -1)
         vals, pos = torch.sort(s1, dim=2, descending=True, stable=True)
-        out_s.append(vals[:, :, :k].reshape(nb * q_block, k))
-        out_i.append(torch.gather(i1, 2, pos[:, :, :k])
+        vals = vals[:, :, :k]
+        top = torch.gather(i1, 2, pos[:, :, :k])
+        out_s.append(vals.reshape(nb * q_block, k))
+        out_i.append(torch.where(vals > NEG_INF, top, -1)
                      .reshape(nb * q_block, k).to(torch.int32))
     return torch.cat(out_s), torch.cat(out_i)
 

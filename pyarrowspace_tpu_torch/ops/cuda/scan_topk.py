@@ -33,6 +33,8 @@ SCRATCH_BYTES = 1 << 30
 
 # Kernel launches since import (or since the caller last reset it).
 LAUNCHES = 0
+# The kernel's unfilled slot (tile::NEG_SCORE), rounded to float32.
+NEG_SCORE = -3.0e38
 
 # Plain version: queries per chunk keep the [queries, N] score block near
 # this many elements.
@@ -43,8 +45,11 @@ def scan_plain(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
                lam_q: torch.Tensor, tau, k: int, queries=None):
     """Matmul + blend + stable sort.  ``queries`` selects the queries to
     answer (a slice or an index tensor; default all).  A bfloat16 corpus
-    scores ``qn.bfloat16().float() @ xu.float().T``.  Returns
-    (idx [Q, k] int32, scores [Q, k])."""
+    scores ``qn.bfloat16().float() @ xu.float().T``.  As in the kernel, a
+    score enters a list only if it beats the unfilled slot (-3e38, -1): a
+    NaN (lambdas inf - inf) or a score at or below -3e38 never does, and a
+    list short of k such scores ends in (-3e38, -1).  Returns (idx [Q, k]
+    int32, scores [Q, k])."""
     if queries is not None:
         qn, lam_q = qn[queries], lam_q[queries]
     n = xu.shape[0]
@@ -60,9 +65,14 @@ def scan_plain(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
         prox = 1.0 / (1.0 + torch.abs(lam.to(cos.dtype)[None, :]
                                       - lamq_c[:, None]))
         score = tau_t * cos + (1.0 - tau_t) * prox
+        neg = torch.tensor(NEG_SCORE, dtype=torch.float32,
+                           device=cos.device).to(cos.dtype)
+        score = torch.where(score > neg, score, neg)
         vals, order = torch.sort(score, dim=1, descending=True, stable=True)
-        out_i.append(order[:, :k].to(torch.int32))
-        out_s.append(vals[:, :k])
+        vals = vals[:, :k]
+        out_i.append(torch.where(vals > neg, order[:, :k], -1)
+                     .to(torch.int32))
+        out_s.append(vals)
     if not out_i:
         return (torch.empty((0, k), dtype=torch.int32, device=xu.device),
                 torch.empty((0, k), dtype=xt.dtype, device=xu.device))

@@ -149,6 +149,30 @@ def test_scan_kernel_exact_ties(dev):
     assert torch.equal(i, ip) and torch.equal(s, sp)
 
 
+@pytest.mark.parametrize("k", [15, 4990])
+def test_scan_kernel_nan_scores_enter_no_list(dev, k):
+    """Lambdas +inf on 52 items and on queries 3 and 100: inf - inf gives
+    NaN scores, which enter no list in the kernel nor in the plain version;
+    at k 4,990 those two queries' lists end in 42 unfilled slots (-3e38,
+    -1)."""
+    rng = np.random.default_rng(97)
+    n, q, f = 5000, 130, 64
+    xu = torch.from_numpy(_unit(rng, n, f)).to(dev)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev)
+    lam = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+    lamq = torch.from_numpy(rng.uniform(0, 1, q).astype(np.float32)).to(dev)
+    lam[::97] = float("inf")
+    lamq[[3, 100]] = float("inf")
+    i, s = scan_topk.lambda_search(xu, lam, qn, lamq, 0.62, k)
+    torch.cuda.synchronize()
+    ip, sp = scan_topk.scan_plain(xu, lam, qn, lamq, 0.62, k)
+    assert not torch.isnan(s).any() and not torch.isnan(sp).any()
+    assert topk_disagreements(s.cpu(), i.cpu(), sp.cpu(), ip.cpu(),
+                              TOL) == []
+    tail = max(0, k - (n - 52))
+    assert int((i < 0).sum()) == int((ip < 0).sum()) == 2 * tail
+
+
 def test_kernel_wrappers_reject_unsupported(dev):
     xu = torch.ones((10, 4), device=dev)
     with pytest.raises(TypeError):

@@ -195,6 +195,25 @@ def test_ivf_scan_kernel_exact_ties(dev):
     assert np.array_equal(i, ip) and np.array_equal(s, sp)
 
 
+@pytest.mark.parametrize("k", [60, 1200])
+def test_ivf_scan_kernel_nan_scores_enter_no_list(dev, k):
+    """Lambdas +inf on every 13th slab row and on queries 3 and 40: inf -
+    inf gives NaN scores, which enter no list in the kernel nor in the
+    plain version; at k 1,200 lists run short of real rows and end in
+    unfilled slots (-3e38, -1) on both sides."""
+    rng = np.random.default_rng(13)
+    n_clusters, cap, f, n_probe, qb = 24, 256, 96, 6, 16
+    slabs, lam, ids = _slabs(rng, n_clusters, cap, f, torch.float32, dev)
+    lam[::13] = float("inf")
+    qn, lamq, probe = _queries(rng, 9, qb, n_clusters, n_probe, f, dev)
+    lamq[[3, 40]] = float("inf")
+    s, i, sp, ip = _scan_both(slabs, lam, ids, qn, lamq, probe, k, qb, cap)
+    assert not np.isnan(s).any() and not np.isnan(sp).any()
+    np.testing.assert_allclose(s, sp, rtol=0, atol=TOL)
+    assert topk_disagreements(s, i, sp, ip, TOL) == []
+    assert np.array_equal(i < 0, ip < 0)
+
+
 def test_ivf_scan_kernel_rejects(dev):
     rng = np.random.default_rng(0)
     slabs, lam, ids = _slabs(rng, 40, 128, 16, torch.float32, dev)

@@ -145,32 +145,101 @@ def _tied_scores(rng, rows, cols, n_sentinel):
     return s
 
 
+def _k4_scores(rng, rows, cols, case):
+    """Rows of one kind: "tied" (a grid of eighths with sentinels), "zeros"
+    (-0.0, +0.0 and +-0.5, so that the two zeros tie), "special" (the tied
+    grid with +-inf and NaN entries, and a row of NaN only), "equal" (each
+    row one value) or "random" (distinct values: no ties)."""
+    if case == "tied":
+        return _tied_scores(rng, rows, cols, cols // 8)
+    if case == "zeros":
+        return rng.choice(np.array([-0.0, 0.0, 0.5, -0.5], np.float32),
+                          (rows, cols))
+    if case == "special":
+        s = _tied_scores(rng, rows, cols, cols // 16)
+        for v in (np.inf, -np.inf, np.nan):
+            s[rng.random((rows, cols)) < 0.05] = v
+        s[-1] = np.nan
+        return s
+    if case == "equal":
+        return np.repeat((np.arange(rows) / 8.0).astype(np.float32)[:, None],
+                         cols, axis=1)
+    return rng.standard_normal((rows, cols)).astype(np.float32)
+
+
+K4_CASES = ["tied", "zeros", "special", "equal", "random"]
+# Beside the path's shapes: m = 1 and m = len, m 1,024 and 5,000, odd len
+# (rows not 16-byte aligned: no bulk copy) and a 70,000-column row, past
+# shared memory (the device route).
+K4_LONG = [(4, 4992, 1024), (2, 16384, 5000), (3, 1001, 1001),
+           (7, 999, 30), (2, 70000, 16), (2, 70000, 700)]
+
+
+def _routed(fn, score, m):
+    """fn() after a check that its one launch took route_name's route and
+    load_name's way in."""
+    route = extract.route_name(score.shape[1], m)
+    before = dict(extract.ROUTE_LAUNCHES)
+    got = fn()
+    torch.cuda.synchronize()
+    after = dict(extract.ROUTE_LAUNCHES)
+    assert after == dict(before, **{route: before[route] + 1})
+    return got
+
+
+@pytest.mark.parametrize("case", K4_CASES)
 @pytest.mark.parametrize("rows,cols,m", [
     (1, 64, 1), (9, 1000, 16), (300, 4992, 16), (5, 16384, 64),
-    (33, 700, 100), (8, 300, 256)])
-def test_extract_ids_kernel_matches_plain(dev, rows, cols, m):
+    (33, 700, 100), (8, 300, 256)] + K4_LONG)
+def test_extract_ids_kernel_matches_plain(dev, rows, cols, m, case):
     rng = np.random.default_rng(rows * cols + m)
-    score = torch.from_numpy(_tied_scores(rng, rows, cols, cols // 8)).to(dev)
-    got = extract.extract_ids(score, m)
-    torch.cuda.synchronize()
+    score = torch.from_numpy(_k4_scores(rng, rows, cols, case)).to(dev)
+    got = _routed(lambda: extract.extract_ids(score, m), score, m)
     assert torch.equal(got, extract.extract_ids_plain(score, m))
 
 
+@pytest.mark.parametrize("case", K4_CASES)
 @pytest.mark.parametrize("rows,cols,m", [
     (1, 64, 1), (9, 1024, 30), (300, 1024, 30), (17, 128, 48),
-    (4, 4096, 200), (6, 300, 256)])
-def test_extract_pool_kernel_matches_plain(dev, rows, cols, m):
+    (4, 4096, 200), (6, 300, 256)] + K4_LONG)
+def test_extract_pool_kernel_matches_plain(dev, rows, cols, m, case):
+    """Ids distinct within a row, in no order, negative ones among them; a
+    masked entry's sentinel made from its id, as subtile_search makes it."""
     rng = np.random.default_rng(rows * cols + m + 1)
-    score = _tied_scores(rng, rows, cols, cols // 8)
-    cand = np.stack([rng.permutation(4 * cols)[:cols] for _ in range(rows)])
-    cand = cand.astype(np.int32)
-    masked = score < -1.0e5
+    score = _k4_scores(rng, rows, cols, case)
+    cand = np.stack([rng.permutation(4 * cols)[:cols] - 2 * cols
+                     for _ in range(rows)]).astype(np.int32)
+    masked = (score < -1.0e5) & np.isfinite(score)
     score[masked] = np.float32(-1.0e6) - cand[masked].astype(np.float32)
     score_t = torch.from_numpy(score).to(dev)
     cand_t = torch.from_numpy(cand).to(dev)
-    got = extract.extract_pool(score_t, cand_t, m)
-    torch.cuda.synchronize()
+    got = _routed(lambda: extract.extract_pool(score_t, cand_t, m), score_t,
+                  m)
     assert torch.equal(got, extract.extract_pool_plain(score_t, cand_t, m))
+
+
+def test_extract_routes_each_run(dev):
+    """Every route and both ways in run at least once, and the narrow
+    route's overflow (more tied candidates than its buffer) lands on the
+    plain version's ids: a constant row makes every entry a candidate."""
+    shapes = {"narrow": (300, 4992, 16), "radix": (4, 4992, 1024),
+              "device": (2, 70000, 16)}
+    for route, (rows, cols, m) in shapes.items():
+        assert extract.route_name(cols, m) == route
+        for width in (cols, cols - 1):          # bulk copy, then 4-byte loads
+            rng = np.random.default_rng(width)
+            score = torch.from_numpy(_k4_scores(rng, rows, width,
+                                                "random")).to(dev)
+            if route != "device":
+                assert extract.load_name(score) == (
+                    "bulk" if width == cols else "scalar")
+            got = _routed(lambda: extract.extract_ids(score, m), score, m)
+            assert torch.equal(got, extract.extract_ids_plain(score, m))
+    flat = torch.full((3, 4096), 0.25, device=dev)
+    assert extract.route_name(4096, 16) == "narrow"
+    assert torch.equal(extract.extract_ids(flat, 16),
+                       torch.arange(16, dtype=torch.int32,
+                                    device=dev).expand(3, 16))
 
 
 # -- K5 -------------------------------------------------------------------------
