@@ -15,10 +15,17 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      once: d(i, j) == d(j, i)); 2,048 random rows, distances within 1e-5
      and ids equal up to near-ties; d(i, j) == d(j, i) bitwise on 10,000
      kept mutual pairs; on the 16,384 timed rows K1's lists equal K1t's
-     (csrc/knn_t.cu, the older product) bit for bit; kernel and plain
+     (csrc/knn_t.cu, on K1's product) bit for bit, and every distance K1
+     returns equals K5's (csrc/gather_score.cu's SIMT route, the older
+     product: compare.py::k5_distance) bit for bit; kernel and plain
      timed on those rows, with one torch.mm of the same fp32 product (TF32
-     off) as a yardstick; the same check at k 100 (the 4-word list) on
-     2,048 rows, and K1 at k 100 and k 200 timed on the 16,384 rows;
+     off) as a yardstick, and K1t timed on them; K1 on the last 9,416 rows
+     (the extend's new-row scan: 74 row blocks, a split walk), bitwise the
+     whole scan's rows; the same check at k 100 (the 4-word list) on
+     2,048 rows; K1 at k 100 timed on the 16,384 rows, at k 200 (the wide
+     route, csrc/knn_wide.cuh) on them and at k 1,024 on 2,048 rows in
+     turns with its plain version, k 200 and k 1,024 beside their bounds
+     and routes (narrow or wide, and the column splits);
   3. the main path: ArrowSpaceBuilder.build at 313,841 x 384 with the CVE
      graph params (a warm-up build, then a timed one), search_batch(
      mode="exact") over 8 batches of 4,096 queries, 3 single searches.
@@ -121,9 +128,11 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      staged a feature slab at a time), each against its plain version;
   14. the k-NN variants (ARROWSPACE_KNN_VARIANT): K1t (csrc/knn_t.cu) and
      K1's rotated walk (diagstart) and its permuted walk over the
-     projection-sorted corpus (reorder), each against its plain version on 2,048 rows and bit for bit against phase
-     3's lists on the 16,384 timed rows, timed in turns with its plain
-     version; each against K1 in turns (and bit for bit) over a 65,536 x
+     projection-sorted corpus (reorder), each against its plain version
+     on 2,048 rows and bit for bit against phase 3's lists on the 16,384
+     timed rows, timed in turns with its plain version and in turns with
+     K1 on those rows (K1t also at k 100, its one-owner route); each
+     against K1 in turns (and bit for bit) over a 65,536 x
      384 mixture corpus (4,096 centres); the 313,841 x 384 build under each
      of the four, whose lists, Laplacian and lambdas must be phase 3's bit
      for bit, with its build and knn seconds and its launches;
@@ -151,7 +160,11 @@ their type and its bytes over 3.35 TB/s, from this run's shapes; K5 and
 K6 count the rows this run's routing reads, K6 only the real rows of the
 probed clusters, seeded K1 the new columns) and the time
 of torch.topk where one PyTorch call computes the same function (K4a,
-K4b; null elsewhere).  K4a, K4b, K6 and K7 carry kernel_route (K4:
+K4b; null elsewhere).  K1's rows and K1t's carry kernel_route (K1:
+"narrow" or "wide" and "/S" with the column splits; K1t: "owners2",
+"owners1" or K1's wide route), and K1's its wide lists (k 200 on 16,384
+rows, k 1,024 on 2,048, each with its bound and route).  K4a, K4b, K6
+and K7 carry kernel_route (K4:
 "narrow", "radix" or "device" and, for the first two, how a row comes
 in, "bulk" or "scalar"; K7: "tensor-core" or "simt"; K6 has one route,
 "simt"), K7 simt_ms (its SIMT route on the same rows).  K1 and K2 also carry product_ms:
@@ -168,8 +181,9 @@ git archive, say) with this one on the same card, instead of the phases:
 each tree's package runs this script's phases 0-3, 6b, 6c and 11 (with
 their checks) in a process of its own, in turns (the others, this tree,
 this tree, the others reversed), and each turn prints what those phases
-measured: K1 over the whole corpus, over 16,384 rows and at k 100, 200
-and 1,024, K2 at Q 4,096 over float32 and bfloat16 rows and at k 200 and
+measured: K1 over the whole corpus, over 16,384 rows, over the last 9,416
+rows and at k 100, 200 and 1,024, K1t at k 25 over 16,384 rows, K2 at Q
+4,096 over float32 and bfloat16 rows and at k 200 and
 1,024, the build seconds with the knn phase, exact QPS, K3 and K5 at
 phase 6's shapes, K3 over a 1,000,000 x 768 bf16 corpus made from a
 seeded generator with 16,384 queries (each K3 held against its plain
@@ -180,8 +194,10 @@ on phase 10's first batch and over a
 seeded 1,000,000 x 768 int8 corpus with 16,384 queries, and K6 on phase
 8's routed first batch and on phase 9's 1M mixture over float32 and
 bfloat16 slabs (each held against its plain version).  Then every run's
-k-NN lists, lambdas, exact top-k ids, K4b and K4a ids and K6 and K7
-outputs (ids and scores) must equal this tree's bit for bit.
+k-NN lists (phase 3's, and phase 1's K1t lists at k 25 and K1's over the
+last 9,416 rows and at k 200 and 1,024), lambdas, exact top-k ids, K4b
+and K4a ids and K6 and K7 outputs (ids and scores) must equal this tree's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -331,6 +347,13 @@ def _k1_pairs(rows: int, n: int) -> float:
     return rows * n - rows * (rows - 1) / 2
 
 
+def _route(mod, rows: int, n: int, k: int, device) -> str:
+    """K1's or K1t's route for a launch over rows of an [n, F] corpus
+    ("single" for a package whose scans have one route)."""
+    fn = getattr(mod, "route_name", None)
+    return fn(rows, n, k, device) if fn else "single"
+
+
 def _reset_launches() -> None:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
                                                  ivf_scan, knn, knn_t,
@@ -343,6 +366,7 @@ def _reset_launches() -> None:
     scan_int8.TC_LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
     knn.SEEDED_LAUNCHES = knn.DIAG_START_LAUNCHES = knn.PERM_LAUNCHES = 0
+    knn.SPLIT_LAUNCHES = knn_t.SPLIT_LAUNCHES = 0
 
 
 def _launches() -> dict:
@@ -354,6 +378,8 @@ def _launches() -> dict:
             "knn_seeded": knn.SEEDED_LAUNCHES,
             "knn_diagstart": knn.DIAG_START_LAUNCHES,
             "knn_reorder": knn.PERM_LAUNCHES,
+            "knn_split": getattr(knn, "SPLIT_LAUNCHES", 0),
+            "knn_t_split": getattr(knn_t, "SPLIT_LAUNCHES", 0),
             "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
             "subtile_max_tc": getattr(subtile_max, "TC_LAUNCHES", 0),
@@ -1790,7 +1816,7 @@ def _phase_variants(torch, items, xu, aspace, gl, card, results) -> None:
     against K1 in turns on a 65,536 x 384 mixture corpus; the 313,841 x
     384 build under each variant, bitwise phase 3's."""
     import pyarrowspace_tpu_torch as pt
-    from pyarrowspace_tpu_torch.ops.cuda import knn
+    from pyarrowspace_tpu_torch.ops.cuda import knn, knn_t
     from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
                                                          topk_disagreements)
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
@@ -1813,17 +1839,41 @@ def _phase_variants(torch, items, xu, aspace, gl, card, results) -> None:
         del d, i
         k_ms, p_ms = _in_turns(lambda: plain(K1_TIME_ROWS),
                                lambda: kernel(K1_TIME_ROWS), torch)
+        v_ms, k1_ms = _in_turns(
+            lambda: knn.knn_scan(xu, k, eps, 0, K1_TIME_ROWS),
+            lambda: kernel(K1_TIME_ROWS), torch)
+        route = _route(knn_t if name == "knn_t" else knn, K1_TIME_ROWS, N, k,
+                       xu.device)
         results[name] = dict(
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
             **_bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
-                     N * F * 4 + K1_TIME_ROWS * k * 8))
+                     N * F * 4 + K1_TIME_ROWS * k * 8),
+            kernel_route=route, turns_ms=v_ms, k1_ms=k1_ms)
         print(f"phase 14: {name} on {K1_CHECK_ROWS} rows vs plain: "
               f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; on "
               f"{K1_TIME_ROWS} rows: kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms, bitwise K1: {not diff} {card}")
+              f"{p_ms:.3f} ms, bitwise K1: {not diff}; in turns with K1 "
+              f"{v_ms:.3f} ms against {k1_ms:.3f} ms ({v_ms / k1_ms:.3f}x), "
+              f"route {route} {card}")
         if bad or err > TOL or diff:
             failed.append(name)
     del scans
+    # K1t's one-owner route (k 65 to 128) at k 100, in turns with K1.
+    dt, it = knn_t.knn_scan_t(xu, K1_WIDE, eps, 0, K1_TIME_ROWS)
+    d1, i1 = knn.knn_scan(xu, K1_WIDE, eps, 0, K1_TIME_ROWS)
+    same = not _same(torch, [("d", dt, d1), ("i", it, i1)])
+    del dt, it, d1, i1
+    t_ms, k1_ms = _in_turns(
+        lambda: knn.knn_scan(xu, K1_WIDE, eps, 0, K1_TIME_ROWS),
+        lambda: knn_t.knn_scan_t(xu, K1_WIDE, eps, 0, K1_TIME_ROWS), torch)
+    route = _route(knn_t, K1_TIME_ROWS, N, K1_WIDE, xu.device)
+    results["knn_t"].update(k100_ms=t_ms, k1_k100_ms=k1_ms,
+                            k100_route=route)
+    print(f"phase 14: knn_t at k={K1_WIDE} on {K1_TIME_ROWS} rows: {t_ms:.3f}"
+          f" ms against K1's {k1_ms:.3f} ms in turns ({t_ms / k1_ms:.3f}x), "
+          f"route {route}, bitwise K1: {same} {card}")
+    if not same:
+        failed.append(f"knn_t k {K1_WIDE}")
 
     # A clustered corpus: the regime the locality variants were built for.
     gen = torch.Generator(device=xu.device)
@@ -1961,7 +2011,8 @@ def _phase_lifecycle(torch, items, aspace, gl, batches, card,
     results["knn_seeded"] = dict(
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
         **_bound(2.0 * K1_TIME_ROWS * N_EXTEND * F, "fp32",
-                 N_EXTEND * F * 4 + K1_TIME_ROWS * (F * 4 + 2 * k * 8)))
+                 N_EXTEND * F * 4 + K1_TIME_ROWS * (F * 4 + 2 * k * 8)),
+        kernel_route=_route(knn, K1_TIME_ROWS, N_EXTEND, k, xu_all.device))
     print(f"phase 15: seeded K1 on {K1_CHECK_ROWS} old rows vs plain: "
           f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; on "
           f"{K1_TIME_ROWS} rows x {N_EXTEND} new columns: kernel "
@@ -2033,6 +2084,8 @@ def _measures(results: dict) -> dict:
     wide = results["wide"]
     return {"k1_full_ms": results["knn"]["full_ms"],
             "k1_ms": results["knn"]["ms"],
+            "k1t_ms": results["knn"]["k1t_ms"],
+            "k1_9416_rows_ms": results["knn"]["tail_ms"],
             "k1_k100_ms": wide["knn_k100"]["ms"],
             "k1_k200_ms": wide["knn_k200"]["ms"],
             "k1_k1024_ms": wide["knn"]["ms"],
@@ -2172,14 +2225,35 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         t = back[mutual][:10_000].argmax(axis=1)
         sym = np.array_equal(d_np[r, s].view(np.uint32),
                              d_np[j, t].view(np.uint32))
-        # The witness: K1t keeps tile_common.cuh's product.
+        # The witnesses: K1t's lists, and K5's cosine (its SIMT route keeps
+        # tile_common.cuh's product) for every id of K1's lists.
         dt, it = knn_t.knn_scan_t(xu, k, eps, 0, K1_TIME_ROWS)
         witness = (_bits_equal(torch, d[:K1_TIME_ROWS], dt)
                    and _bits_equal(torch, i[:K1_TIME_ROWS], it))
+        k1_dump = {"k1t_d": dt.cpu().numpy(), "k1t_i": it.cpu().numpy()}
         del dt, it
+        keep = i[:K1_TIME_ROWS] >= 0
+        k5 = _own_compare().k5_distance(xu, slice(0, K1_TIME_ROWS),
+                                        i[:K1_TIME_ROWS])
+        witness_k5 = bool(keep.any()) and torch.equal(
+            d[:K1_TIME_ROWS].view(torch.int32)[keep],
+            k5.view(torch.int32)[keep])
+        del k5, keep
         k_ms, p_ms = _in_turns(
             lambda: knn.knn_plain(xu, k, eps, rows=slice(0, K1_TIME_ROWS)),
             lambda: knn.knn_scan(xu, k, eps, 0, K1_TIME_ROWS), torch)
+        k1t_ms = sum(_events_ms(lambda: knn_t.knn_scan_t(
+            xu, k, eps, 0, K1_TIME_ROWS), torch) for _ in range(2)) / 2
+        # The extend's new-row scan shape: 9,416 rows (74 row blocks).
+        tail = slice(N - N_EXTEND, N)
+        dtl, itl = knn.knn_scan(xu, k, eps, N - N_EXTEND, N_EXTEND)
+        k1_dump.update(k1_tail_d=dtl.cpu().numpy(),
+                       k1_tail_i=itl.cpu().numpy())
+        tail_same = (_bits_equal(torch, dtl, d[tail])
+                     and _bits_equal(torch, itl, i[tail]))
+        del dtl, itl
+        tail_ms = sum(_events_ms(lambda: knn.knn_scan(
+            xu, k, eps, N - N_EXTEND, N_EXTEND), torch) for _ in range(2)) / 2
         mm_ms = _product_ms(torch, xu[:K1_TIME_ROWS], xu)
         full_bound = _bound(2.0 * _k1_pairs(N, N) * F, "fp32",
                             N * F * 4 + N * k * 8)
@@ -2187,8 +2261,13 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
             **_bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
                      N * F * 4 + K1_TIME_ROWS * k * 8),
+            kernel_route=_route(knn, K1_TIME_ROWS, N, k, dev),
             product_ms=mm_ms, full_ms=full_ms,
-            full_bound_ms=full_bound["bound_ms"])
+            full_bound_ms=full_bound["bound_ms"], k1t_ms=k1t_ms,
+            tail_ms=tail_ms, tail_rows=N_EXTEND,
+            tail_route=_route(knn, N_EXTEND, N, k, dev),
+            tail_bound_ms=_bound(2.0 * _k1_pairs(N_EXTEND, N) * F, "fp32",
+                                 N * F * 4 + N_EXTEND * k * 8)["bound_ms"])
         print(f"phase 1: K1 full corpus {N}x{F} k={k}: {full_ms:.3f} ms, "
               f"bound {full_bound['bound_ms']:.3f} ms "
               f"({full_bound['bound_by']}); {K1_TIME_ROWS} rows: kernel "
@@ -2197,7 +2276,11 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
               f"[{K1_TIME_ROWS},{F}]x[{F},{N}] fp32 (not called by the "
               f"port) {mm_ms:.3f} ms {card}")
         print(f"phase 1: K1 == K1t bit for bit on {K1_TIME_ROWS} rows: "
-              f"{witness}")
+              f"{witness}; K1 == K5 distance bit for bit: {witness_k5}; K1t "
+              f"{k1t_ms:.3f} ms ({_route(knn_t, K1_TIME_ROWS, N, k, dev)}); K1"
+              f" on the {N_EXTEND} last rows {tail_ms:.3f} ms "
+              f"({results['knn']['tail_route']}), bitwise the whole scan's: "
+              f"{tail_same} {card}")
         print(f"phase 1: K1 vs plain on {K1_CHECK_ROWS} rows: "
               f"max_abs_err {err:.3e}, disagreeing rows {len(bad)}; "
               f"bitwise d(i,j)==d(j,i) on {r.size} mutual pairs: {sym}")
@@ -2213,7 +2296,7 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
               f"max_abs_err {err_w:.3e}, disagreeing rows {len(bad_w)}; on "
               f"{K1_TIME_ROWS} rows {k_wide_ms:.3f} ms (k={k}: {k_ms:.3f} ms)"
               f" {card}")
-        # The wide list (k > 256), in place in the output rows.
+        # The wide route (k > 128) at k 1,024 on 2,048 rows: a split walk.
         dx, ix = knn.knn_scan(xu, K_WIDEST, eps, 0, K1_CHECK_ROWS)
         dxp, ixp = knn.knn_plain(xu, K_WIDEST, eps,
                                  rows=slice(0, K1_CHECK_ROWS))
@@ -2226,28 +2309,53 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             lambda: knn.knn_scan(xu, K_WIDEST, eps, 0, K1_CHECK_ROWS), torch)
         narrow_ms = _events_ms(
             lambda: knn.knn_scan(xu, k, eps, 0, K1_CHECK_ROWS), torch)
-        k_device_ms = sum(_events_ms(lambda: knn.knn_scan(
-            xu, K1_DEVICE_LIST, eps, 0, K1_TIME_ROWS), torch)
-            for _ in range(2)) / 2
-        results["wide"] = {"knn": dict(k=K_WIDEST, ms=wide_ms,
-                                       plain_ms=wide_plain_ms,
-                                       narrow_ms=narrow_ms),
-                           "knn_k100": dict(k=K1_WIDE, rows=K1_TIME_ROWS,
-                                            ms=k_wide_ms),
-                           "knn_k200": dict(k=K1_DEVICE_LIST,
-                                            rows=K1_TIME_ROWS,
-                                            ms=k_device_ms)}
+        d2, i2 = knn.knn_scan(xu, K1_DEVICE_LIST, eps, 0, K1_TIME_ROWS)
+        k1_dump.update(k1_k200_d=d2.cpu().numpy(),
+                       k1_k200_i=i2.cpu().numpy(),
+                       k1_k1024_d=dx.cpu().numpy(),
+                       k1_k1024_i=ix.cpu().numpy())
+        del d2, i2
+        k_device_ms, k200_plain_ms = _in_turns(
+            lambda: knn.knn_plain(xu, K1_DEVICE_LIST, eps,
+                                  rows=slice(0, K1_TIME_ROWS)),
+            lambda: knn.knn_scan(xu, K1_DEVICE_LIST, eps, 0, K1_TIME_ROWS),
+            torch)
+        bound_200 = _bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
+                           N * F * 4 + K1_TIME_ROWS * K1_DEVICE_LIST * 8)
+        bound_x = _bound(2.0 * _k1_pairs(K1_CHECK_ROWS, N) * F, "fp32",
+                         N * F * 4 + K1_CHECK_ROWS * K_WIDEST * 8)
+        results["wide"] = {
+            "knn": dict(k=K_WIDEST, rows=K1_CHECK_ROWS, ms=wide_ms,
+                        plain_ms=wide_plain_ms, narrow_ms=narrow_ms,
+                        kernel_route=_route(knn, K1_CHECK_ROWS, N, K_WIDEST,
+                                            dev), **bound_x),
+            "knn_k100": dict(k=K1_WIDE, rows=K1_TIME_ROWS, ms=k_wide_ms),
+            "knn_k200": dict(k=K1_DEVICE_LIST, rows=K1_TIME_ROWS,
+                             ms=k_device_ms, plain_ms=k200_plain_ms,
+                             k25_ms=k_ms,
+                             kernel_route=_route(knn, K1_TIME_ROWS, N,
+                                                 K1_DEVICE_LIST, dev),
+                             **bound_200)}
         print(f"phase 1: K1 at k={K1_DEVICE_LIST} on {K1_TIME_ROWS} rows "
-              f"{k_device_ms:.3f} ms {card}")
+              f"{k_device_ms:.3f} ms ({k_device_ms / k_ms:.3f}x K1 at k={k})"
+              f", plain {k200_plain_ms:.3f} ms, bound "
+              f"{bound_200['bound_ms']:.3f} ms "
+              f"({bound_200['bound_by']}), route "
+              f"{results['wide']['knn_k200']['kernel_route']} {card}")
         print(f"phase 1: K1 at k={K_WIDEST} vs plain on {K1_CHECK_ROWS} "
               f"rows: max_abs_err {err_x:.3e}, disagreeing rows "
               f"{len(bad_x)}; kernel {wide_ms:.3f} ms (k={k}: "
-              f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms {card}")
+              f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms, bound "
+              f"{bound_x['bound_ms']:.3f} ms ({bound_x['bound_by']}), route "
+              f"{results['wide']['knn']['kernel_route']} {card}")
+        results["k1_dump"] = k1_dump
         results["knn"]["max_abs_err"] = max(err, err_w, err_x)
         if bad or err > TOL or not sym or r.size < 10_000 or bad_w \
-                or err_w > TOL or bad_x or err_x > TOL or not witness:
+                or err_w > TOL or bad_x or err_x > TOL or not witness \
+                or not witness_k5 or not tail_same:
             raise AssertionError(f"K1 check failed: rows {bad[:10]}, "
                                  f"err {err}, symmetric {sym}, K1t {witness}, "
+                                 f"K5 {witness_k5}, tail {tail_same}, "
                                  f"pairs {r.size}, k={K1_WIDE} rows "
                                  f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
                                  f"rows {bad_x[:10]} err {err_x}")
@@ -2490,7 +2598,8 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         np.savez(dump, knn_dist=aspace._knn_dist.cpu().numpy(),
                  knn_idx=aspace._knn_idx.cpu().numpy(),
                  lambdas=aspace._lambdas.cpu().numpy(),
-                 ids=np.stack([o[0] for o in outs]), **results["ab_dump"])
+                 ids=np.stack([o[0] for o in outs]), **results["ab_dump"],
+                 **results["k1_dump"])
         print(json.dumps(_measures(results)))
         return 0
 
@@ -2556,6 +2665,10 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
          "replaces": pallas + tpu, "launches": results[path][counter],
          **results[name]}
         for name, source, tpu, path, counter in table]
+    kernels[0]["wide_lists"] = {
+        f"k{v['k']}": {**v, "source": "pyarrowspace_tpu_torch/csrc/"
+                                      "knn_wide.cuh"}
+        for v in (results["wide"]["knn_k200"], results["wide"]["knn"])}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// The register-tiled fp32 product of K1 (knn.cu) and K2 (scan_topk.cu):
+// The register-tiled fp32 product of K1 (knn.cu, knn_wide.cuh), K1t
+// (knn_t.cu) and K2 (scan_topk.cu):
 // 128 rows against 128 rows per block of 256 threads, each thread holding
 // an 8 x 8 micro-tile of the result in registers.
 //
@@ -8,9 +9,9 @@
 // becomes -0.0 (it starts at +0.0, and a sum rounds to -0.0 only when both
 // addends are -0.0), so the trailing fmaf(0, 0, acc) steps leave it as it
 // is, and the element equals tile::tile_product's bit for bit whatever the
-// two products' slab widths.  K1t (knn_t.cu) and K5's SIMT route
-// (gather_score.cu, on float32 operands) keep tile_product and dot_step and
-// serve as witnesses of this on the card.
+// two products' slab widths.  K5's SIMT route (gather_score.cu, on float32
+// operands) keeps tile_product's chain and is the witness of this on the
+// card (ops/cuda/compare.py: k5_distance for K1, k5_blend for K2).
 // The feature sum is never split across threads, warps or stages.
 //
 // What bounds the product on the H100: the fp32 FMA pipe (67 TFLOP/s; no
@@ -37,8 +38,9 @@
 // product (a barrier ends each).  A narrow list takes 128 k 8 bytes: 2
 // words a lane up to k 64 (136 KB in all), 4 words up to k 128 (200 KB,
 // under the 227 KB a block may opt into).  The next layout, k 129 to 256,
-// would take 256 KB for the lists alone, so lists of k > 128 stay in place
-// in device memory (tile_common.cuh offer_wide).  ptxas gives 254
+// would take 256 KB for the lists alone, so K1's lists of k > 128 take the
+// route of knn_wide.cuh and K2's stay in place in device memory
+// (tile_common.cuh offer_wide).  ptxas gives 254
 // registers a thread and no spills (sm_90a): one block of 8 warps an SM,
 // whose 64 independent chains a thread keep the FMA pipe busy.
 

@@ -27,8 +27,10 @@
 // ascending column order.  The result is exact in fp32, and d(i, j) ==
 // d(j, i) bitwise.  Lists of k <= 128 live in shared memory (2 or 4 words
 // a lane); longer lists would take 128 x k x 8 bytes (256 KB at k 256, past
-// the 227 KB a block may have with the ring), so they are kept in place in
-// the output rows and shifted there (tile_common.cuh offer_wide).
+// the 227 KB a block may have with the ring), so they take the wide route
+// of knn_wide.cuh: the column walk split across blocks when the row blocks
+// leave SMs idle, each tile's survivors buffered, sorted and merged into
+// partial lists in device memory, and a second launch merging the splits.
 //
 // Launch options, each keeping the one fmaf chain per pair, so every
 // distance stays bitwise the default scan's:
@@ -53,6 +55,7 @@
 #include <climits>
 
 #include "ffma_tile.cuh"
+#include "knn_wide.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -64,7 +67,8 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     knn_kernel(const float* __restrict__ xu, int n, int f, int vec,
                int row_start, int row_count, float eps, int k, int col_start,
                int diag_start, const int* __restrict__ perm, int seeded,
-               float* out_d, int* out_i) {
+               int tiles_per_split, knn_wide::Ent* part, float* out_d,
+               int* out_i) {
   using namespace regtile;
   extern __shared__ __align__(16) float ffma_smem[];
   float* ring = ffma_smem;
@@ -84,30 +88,23 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     return perm ? (size_t)perm[r0 + rr] : (size_t)(r0 + rr - row_start);
   };
 
-  // The block's lists [n_rows][k]: in shared memory, or in place in the
-  // output rows for a wide list.
+  // The block's lists [n_rows][k] in shared memory.
   float* run_d = ffma_smem + RING_FLOATS;
   int* run_i = reinterpret_cast<int*>(run_d + TILE * k);
+  // A split (part != null) starts from empty lists: the merge of the
+  // splits starts from the seed.
+  const bool from_out = seeded && !part;
   for (int e = tid; e < n_rows * k; e += THREADS) {
     const int rr = e / k, s = e - rr * k;
     const size_t o = out_row(rr) * k + s;
-    if (W != 0) {
-      run_d[e] = seeded ? out_d[o] : INF_DIST;
-      run_i[e] = seeded ? out_i[o] : -1;
-    } else if (!seeded) {
-      out_d[o] = INF_DIST;
-      out_i[o] = -1;
-    }
+    run_d[e] = from_out ? out_d[o] : INF_DIST;
+    run_i[e] = from_out ? out_i[o] : -1;
   }
   if (tid < TILE) row_hit[tid] = 0;
   // The first barrier inside regtile::product orders these writes before any
   // merge reads them.
-  auto list_d = [&](int rr) {
-    return W == 0 ? out_d + out_row(rr) * k : run_d + rr * k;
-  };
-  auto list_i = [&](int rr) {
-    return W == 0 ? out_i + out_row(rr) * k : run_i + rr * k;
-  };
+  auto list_d = [&](int rr) { return run_d + rr * k; };
+  auto list_i = [&](int rr) { return run_i + rr * k; };
 
   const int n_tiles = (n - col_start + TILE - 1) / TILE;
   int t0 = 0;
@@ -117,7 +114,9 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     const int t = t0 + s < n_tiles ? t0 + s : t0 + s - n_tiles;
     return col_start + t * TILE;
   };
-  for (int s = 0; s < n_tiles; ++s) {
+  const int s_begin = blockIdx.y * tiles_per_split;
+  const int s_end = min(n_tiles, s_begin + tiles_per_split);
+  for (int s = s_begin; s < s_end; ++s) {
     const int c0 = tile_c0(s);
     if (perm && tid < TILE)
       col_ids[tid] = c0 + tid < n ? perm[c0 + tid] : INT_MAX;
@@ -162,12 +161,17 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     __syncthreads();
   }
 
-  if (W != 0) {
-    for (int e = tid; e < n_rows * k; e += THREADS) {
-      const int rr = e / k, s = e - rr * k;
-      out_d[out_row(rr) * k + s] = run_d[e];
-      out_i[out_row(rr) * k + s] = run_i[e];
-    }
+  if (part) {   // the split's partial lists [splits, row_count, k]
+    knn_wide::Ent* lists =
+        part + ((size_t)blockIdx.y * row_count + (r0 - row_start)) * k;
+    for (int e = tid; e < n_rows * k; e += THREADS)
+      lists[e] = knn_wide::Ent{run_d[e], run_i[e]};
+    return;
+  }
+  for (int e = tid; e < n_rows * k; e += THREADS) {
+    const int rr = e / k, s = e - rr * k;
+    out_d[out_row(rr) * k + s] = run_d[e];
+    out_i[out_row(rr) * k + s] = run_i[e];
   }
 }
 
@@ -180,20 +184,31 @@ extern "C" {
 // and stream.  Without perm, out is [row_count, k] in row order; with perm
 // (xu permuted by it) out is [n, k] indexed by original row, and only the
 // rows perm[row_start .. row_start + row_count) are written.  With seeded
-// != 0, out already holds each row's sorted starting list.  Returns the
-// CUDA error code of the launch (0 on success).
+// != 0, out already holds each row's sorted starting list.  With splits >
+// 1 the column walk is cut into that many ranges, each writing partial
+// lists into part (scratch of [splits, row_count, k] entries of 8 bytes,
+// and row_count more for a wide list), which a second launch merges into
+// out as it is: each row's seed or (2.0, -1) entries; a wide list (k > 128)
+// always takes that second launch.  Returns the CUDA error code of the
+// launch (0 on success).
 int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                float eps, int k, int col_start, int diag_start,
-               const int* perm, int seeded, float* out_d, int* out_i,
-               int device, void* stream) {
+               const int* perm, int seeded, int splits, void* part,
+               float* out_d, int* out_i, int device, void* stream) {
   const int words = regtile::list_words(k);
   if (n <= 0 || f <= 0 || row_count <= 0 || words < 0 || row_start < 0 ||
-      row_start + row_count > n || col_start < 0 || col_start >= n)
+      row_start + row_count > n || col_start < 0 || col_start >= n ||
+      splits < 1 || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (words == 0)
+    return knn_wide::launch(xu, n, f, row_start, row_count, eps, k,
+                            col_start, diag_start, perm, splits, part, out_d,
+                            out_i, (size_t)k, 1, device,
+                            (cudaStream_t)stream);
   // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
-  // a launch gets without opting in.  Wide lists take none.
+  // a launch gets without opting in.
   const size_t smem = regtile::smem_bytes(k);
   int smem_max = 0;
   err = cudaDeviceGetAttribute(&smem_max,
@@ -203,20 +218,28 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   // A rotated or permuted walk offers ids out of order: MinLex.
   const bool lex = diag_start || perm;
-  auto kernel = lex ? &knn_kernel<tile::MinLex, 0> : &knn_kernel<tile::Min, 0>;
-  if (words == 2)
-    kernel = lex ? &knn_kernel<tile::MinLex, 2> : &knn_kernel<tile::Min, 2>;
-  else if (words == 4)
+  auto kernel = lex ? &knn_kernel<tile::MinLex, 2> : &knn_kernel<tile::Min, 2>;
+  if (words == 4)
     kernel = lex ? &knn_kernel<tile::MinLex, 4> : &knn_kernel<tile::Min, 4>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (n - col_start + regtile::TILE - 1) / regtile::TILE;
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
+    return (int)cudaErrorInvalidValue;
+  knn_wide::Ent* lists =
+      splits > 1 ? static_cast<knn_wide::Ent*>(part) : nullptr;
   const int vec = regtile::can_vectorize<float>(xu, f);
-  const int blocks = (row_count + regtile::TILE - 1) / regtile::TILE;
-  kernel<<<blocks, regtile::THREADS, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((row_count + regtile::TILE - 1) / regtile::TILE, splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  kernel<<<grid, regtile::THREADS, smem, st>>>(
       xu, n, f, vec, row_start, row_count, eps, k, col_start, diag_start,
-      perm, seeded, out_d, out_i);
-  return (int)cudaGetLastError();
+      perm, seeded, tiles_per_split, lists, out_d, out_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return knn_wide::merge(lists, row_start, row_count, k, splits, perm, out_d,
+                         out_i, (size_t)k, 1, st);
 }
 
 const char* knn_error_string(int err) {

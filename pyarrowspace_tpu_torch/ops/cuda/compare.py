@@ -6,8 +6,9 @@ by less than that may trade places.  Two lists agree when every position's
 values are within ``tol``, every id both hold has values within ``tol``,
 and an id only one holds sits within ``tol`` of the other's last value.
 
-``k5_blend`` is the bit-for-bit witness of K2's scores on the card: K5's
-SIMT route, which keeps K2's fmaf chain.
+``k5_blend`` and ``k5_distance`` are the bit-for-bit witnesses of K2's
+scores and K1's distances on the card: K5's SIMT route, which keeps their
+fmaf chain.
 """
 
 from __future__ import annotations
@@ -78,3 +79,30 @@ def k5_blend(xu, lam, qn, lam_q, tau, ids):
     tau32 = torch.tensor(tau, dtype=torch.float32)
     prox = 1.0 / (1.0 + torch.abs(lam[ids64] - lam_q[:, None]))
     return tau32 * cos + (1.0 - tau32) * prox
+
+
+def k5_distance(xu, rows, ids):
+    """K1's distances as another kernel computes them: 1 - max(0, cos) with
+    K5's cosine of each row xu[rows] (a slice or an index tensor) with each
+    id of its list ids [R, k], xu float32 padded to K5's 64-row subtiles.
+    Every distance K1 returns for an id >= 0 must equal it bit for bit; a
+    missing id (-1) gets column 0's distance, to be ignored.
+
+    K5 runs on float32 operands, so it takes its SIMT route
+    (csrc/gather_score.cu), tile_common.cuh's one fmaf chain over ascending
+    features, the chain K1's product keeps on its own tiles; fmaf(a, b, c)
+    == fmaf(b, a, c), so which of the two rows is the query does not
+    matter.  CUDA tensors; the package is imported by name, as for
+    k5_blend."""
+    import torch
+
+    from pyarrowspace_tpu_torch.ops.cuda import gather_score
+    sub = gather_score.SUBTILE
+    xp = torch.nn.functional.pad(xu, (0, 0, 0, (-xu.shape[0]) % sub))
+    ids64 = ids.to(torch.int64).clamp_min(0)
+    cos = gather_score.gather_score(
+        xp.contiguous(), xu[rows].contiguous(),
+        (ids64 // sub).to(torch.int32).contiguous())
+    del xp
+    cols = torch.arange(ids.shape[1], device=ids.device) * sub + ids64 % sub
+    return 1.0 - torch.clamp_min(torch.gather(cos, 1, cols), 0.0)

@@ -9,7 +9,9 @@ rectified-cosine distances d = 1 - max(0, x_i . x_j) over the columns
 missing entries are (2.0, -1).  The options of the kernel: ``seed`` (start
 each row from a sorted list), ``diag_start`` (a rotated column walk) and
 ``perm`` (a corpus sorted for locality); every one returns the default
-scan's result bit for bit.
+scan's result bit for bit.  Lists past ``WIDE_K`` entries take the
+kernel's wide route (csrc/knn_wide.cuh); ``plan_splits`` splits the column
+walk across blocks when the row blocks leave SMs idle.
 """
 
 from __future__ import annotations
@@ -19,17 +21,28 @@ import ctypes
 import torch
 
 from ... import _build
+from .scan_topk import fit_scratch, sm_count, wave_splits
 
 INF_DIST = 2.0
-# The kernel's running lists: up to 128 entries in shared memory, longer
-# ones in place in the output rows.
+# The kernel's running lists: up to WIDE_K entries in shared memory; longer
+# ones take the wide route.  A walk split across blocks writes partial lists
+# of 8-byte entries ([splits, rows, k], with a wide list's staging rows held
+# to scan_topk.SCRATCH_BYTES), merged by a second launch; the wide route
+# always does.
+WIDE_K = 128
+_TILE = 128      # rows per block and columns per tile
+# Keys a wide-route row stages in device memory before they are merged into
+# its partial list (csrc/knn_wide.cuh STAGE).
+_STAGE = 896
 
-# Kernel launches since import (or since the caller last reset it), and the
-# launches among them that used each option.
+# Kernel launches since import (or since the caller last reset it), the
+# launches among them that used each option, and the launches whose column
+# walk was split.
 LAUNCHES = 0
 SEEDED_LAUNCHES = 0
 DIAG_START_LAUNCHES = 0
 PERM_LAUNCHES = 0
+SPLIT_LAUNCHES = 0
 
 # The plain version's products: every distance comes from a product
 # [_ROW_BLOCK, F] x [F, W], zero padded, with W = N rounded up to a multiple
@@ -131,14 +144,56 @@ def knn_plain_reordered(xu: torch.Tensor, k: int, eps: float,
                      eps, perm=perm)
 
 
+def plan_splits(row_count: int, n_cols: int, k: int, device,
+                narrow: bool = True) -> tuple[int, int]:
+    """(splits, rows a launch) for row_count rows against n_cols columns:
+    the fewest column splits whose grid of 128-row blocks fills its last
+    wave of SMs to 90% (one split once the row blocks do), then the partial
+    lists [splits, rows, k] held to the scratch cap by fewer splits and then
+    row chunks (scan_topk.fit_scratch; a wide list's staging rows count
+    with its partial lists).  A list of up to WIDE_K entries
+    splits only if ``narrow`` (K1's narrow kernel takes splits, K1t's does
+    not)."""
+    if k <= WIDE_K and not narrow:
+        return 1, row_count
+    n_tiles = -(-n_cols // _TILE)
+    want = wave_splits(n_tiles, -(-row_count // _TILE),
+                       sm_count(device.index or 0))
+    return fit_scratch(n_tiles, want, row_count,
+                       k + (_STAGE if k > WIDE_K else 0))
+
+
+def route_name(row_count: int, n_cols: int, k: int, device,
+               narrow: bool = True) -> str:
+    """The route of such a launch: "narrow" or "wide", and "/S<splits>"."""
+    splits = plan_splits(row_count, n_cols, k, device, narrow)[0]
+    return f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
+
+
+def scratch(row_count: int, n_cols: int, k: int, device,
+            narrow: bool = True):
+    """(splits, rows a launch, scratch) of a scan: with several splits or a
+    wide list, in 8-byte words, the partial lists [splits, rows, k], each
+    row's bound shared by its splits and, for a wide list, the staging rows
+    [splits, rows, _STAGE]; else None."""
+    splits, chunk = plan_splits(row_count, n_cols, k, device, narrow)
+    part = None
+    if splits > 1 or k > WIDE_K:
+        rows = min(chunk, row_count)
+        words = splits * rows * (k + (_STAGE if k > WIDE_K else 0)) + rows
+        part = torch.empty((words, 2), dtype=torch.int32, device=device)
+    return splits, chunk, part
+
+
 def _lib():
     lib = _build.load("knn")
     lib.knn_launch.restype = ctypes.c_int
     lib.knn_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     return lib
 
 
@@ -183,6 +238,7 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
     device); the result is then [N, k] indexed by original row, with the
     rows outside perm[row_start:row_start + R] left (2.0, -1)."""
     global LAUNCHES, SEEDED_LAUNCHES, DIAG_START_LAUNCHES, PERM_LAUNCHES
+    global SPLIT_LAUNCHES
     n = xu.shape[0] if xu.dim() == 2 else 0
     row_count = check_corpus(xu, k, row_start, row_count)
     if not 0 <= col_start <= n:
@@ -209,16 +265,24 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
     perm32 = None
     if perm is not None:
         perm32 = perm.to(device=xu.device, dtype=torch.int32).contiguous()
+    splits, chunk, part = scratch(row_count, n - col_start, k, xu.device)
     lib = _lib()
     stream = torch.cuda.current_stream(xu.device).cuda_stream
-    err = lib.knn_launch(xu.data_ptr(), n, xu.shape[1], row_start, row_count,
-                         float(eps), k, col_start, int(diag_start),
-                         perm32.data_ptr() if perm32 is not None else None,
-                         int(seed is not None), out_d.data_ptr(),
-                         out_i.data_ptr(), xu.device.index or 0, stream)
-    _build.check(lib, "knn", err)
-    LAUNCHES += 1
-    SEEDED_LAUNCHES += seed is not None
-    DIAG_START_LAUNCHES += bool(diag_start)
-    PERM_LAUNCHES += perm is not None
+    for s in range(0, row_count, chunk):
+        rc = min(chunk, row_count - s)
+        at = 0 if perm is not None else s     # the chunk's first output row
+        err = lib.knn_launch(
+            xu.data_ptr(), n, xu.shape[1], row_start + s, rc, float(eps), k,
+            col_start, int(diag_start),
+            perm32.data_ptr() if perm32 is not None else None,
+            int(seed is not None), splits,
+            part.data_ptr() if part is not None else None,
+            out_d[at:].data_ptr(), out_i[at:].data_ptr(),
+            xu.device.index or 0, stream)
+        _build.check(lib, "knn", err)
+        LAUNCHES += 1
+        SEEDED_LAUNCHES += seed is not None
+        DIAG_START_LAUNCHES += bool(diag_start)
+        PERM_LAUNCHES += perm is not None
+        SPLIT_LAUNCHES += splits > 1
     return out_d, out_i

@@ -102,16 +102,21 @@ def fit_scratch(n_tiles: int, splits: int, q: int,
     return splits, q_chunk
 
 
-def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
-    """K2's (splits, queries a launch): the fewest corpus splits whose grid
-    of 128-query blocks fills its last wave to 90% or more (the kernel runs
-    one block an SM at a time; fewer splits, fewer lists to start and
-    merge), then ``fit_scratch``."""
-    n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
-    sms = sm_count(device.index or 0)
-    want = next((s for s in range(1, n_tiles + 1)
-                 if 10 * n_qblocks * s >= 9 * sms * -(-n_qblocks * s // sms)),
+def wave_splits(n_tiles: int, n_blocks: int, sms: int) -> int:
+    """The fewest splits of a walk over n_tiles tiles whose grid of
+    n_blocks x splits blocks fills its last wave of ``sms`` blocks to 90% or
+    more (the split scans run one block an SM at a time; fewer splits, fewer
+    lists to start and merge); n_tiles when none does."""
+    return next((s for s in range(1, n_tiles + 1)
+                 if 10 * n_blocks * s >= 9 * sms * -(-n_blocks * s // sms)),
                 n_tiles)
+
+
+def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
+    """K2's (splits, queries a launch): ``wave_splits`` over its grid of
+    128-query blocks, then ``fit_scratch``."""
+    n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
+    want = wave_splits(n_tiles, n_qblocks, sm_count(device.index or 0))
     return fit_scratch(n_tiles, want, q, k)
 
 

@@ -14,7 +14,7 @@ import torch
 
 from pyarrowspace_tpu_torch import ArrowSpaceBuilder
 from pyarrowspace_tpu_torch.ops.cuda import knn, knn_t, scan_topk
-from pyarrowspace_tpu_torch.ops.cuda.compare import (k5_blend,
+from pyarrowspace_tpu_torch.ops.cuda.compare import (k5_blend, k5_distance,
                                                      topk_disagreements)
 
 pytestmark = pytest.mark.gpu
@@ -221,6 +221,68 @@ def test_knn_kernel_equals_k1t_bitwise(dev, n, f, k, eps, data):
     dt, it = knn_t.knn_scan_t(xu, k, eps)
     assert torch.equal(i, it)
     assert torch.equal(d.view(torch.int32), dt.view(torch.int32))
+
+
+# K1t now shares K1's product, so K5's SIMT route is K1's witness: every
+# distance K1 returns equals 1 - max(0, cos) of K5's cosine for its id.
+@pytest.mark.parametrize("n,f,k,eps,data", [
+    (1000, 100, 25, 1.31, "unit"), (257, 70, 64, 2.0, "unit"),
+    (300, 385, 65, 1.2, "unit"), (400, 16, 5, 0.8, "tied"),
+    (400, 16, 20, 1.0, "tied"), (700, 33, 100, 1.0, "tied")])
+def test_knn_kernel_equals_k5_distance_bitwise(dev, n, f, k, eps, data):
+    rng = np.random.default_rng(n + k)
+    x = (_unit if data == "unit" else _tied_unit)(rng, n, f)
+    xu = torch.from_numpy(x).to(dev)
+    d, i = knn.knn_scan(xu, k, eps)
+    want = k5_distance(xu, slice(None), i)
+    keep = i >= 0
+    assert bool(keep.any())
+    assert torch.equal(d.view(torch.int32)[keep], want.view(torch.int32)[keep])
+
+
+# K1's and K1t's wide route (k > 128): the column walk split across blocks
+# (checked by the split counters) and the threshold-select merge, bit for
+# bit the plain version's lexicographic (distance, id) lists on data tied at
+# every rank.
+@pytest.mark.parametrize("k,n,rows", [(129, 700, 700), (200, 900, 300),
+                                      (1024, 3000, 256), (5000, 6000, 130)])
+@pytest.mark.parametrize("scan", ["knn", "knn_t"])
+def test_wide_lists_bitwise_plain_on_ties(dev, scan, k, n, rows):
+    xu = torch.from_numpy(_tied_unit(np.random.default_rng(k), n, 16))
+    xu = xu.to(dev)
+    mod = knn if scan == "knn" else knn_t
+    run = knn.knn_scan if scan == "knn" else knn_t.knn_scan_t
+    assert knn.plan_splits(rows, n, k, dev)[0] > 1
+    before = mod.SPLIT_LAUNCHES
+    d, i = run(xu, k, 1.0, 0, rows)
+    assert mod.SPLIT_LAUNCHES == before + 1
+    dp, ip = knn.knn_plain(xu, k, 1.0, rows=slice(0, rows))
+    assert torch.equal(i, ip)
+    assert torch.equal(d.view(torch.int32), dp.view(torch.int32))
+
+
+@pytest.mark.parametrize("option", ["seeded", "diag_start", "perm"])
+def test_wide_options_bitwise_plain_on_ties(dev, option):
+    k, n, eps = 200, 900, 1.0
+    rng = np.random.default_rng(77)
+    xu = torch.from_numpy(_tied_unit(rng, n, 16)).to(dev)
+    before = knn.SPLIT_LAUNCHES
+    if option == "seeded":
+        c = 600
+        seed = knn.knn_plain(xu[:c].contiguous(), k, eps)
+        d, i = knn.knn_scan(xu, k, eps, 0, c, col_start=c, seed=seed)
+        dp, ip = knn.knn_plain(xu, k, eps, rows=slice(0, c))
+    elif option == "perm":
+        perm = torch.from_numpy(rng.permutation(n)).to(dev)
+        d, i = knn.knn_scan(xu[perm].contiguous(), k, eps, diag_start=True,
+                            perm=perm)
+        dp, ip = knn.knn_plain(xu, k, eps)
+    else:
+        d, i = knn.knn_scan(xu, k, eps, diag_start=True)
+        dp, ip = knn.knn_plain(xu, k, eps)
+    assert knn.SPLIT_LAUNCHES == before + 1
+    assert torch.equal(i, ip)
+    assert torch.equal(d.view(torch.int32), dp.view(torch.int32))
 
 
 @pytest.mark.parametrize("n,q,f,k,dtype", [

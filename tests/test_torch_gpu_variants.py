@@ -71,6 +71,20 @@ def test_knn_t_matches_plain_and_k1(dev, n, f, k, eps):
     assert torch.equal(d, d1) and torch.equal(i, i1)
 
 
+# K1t's narrow routes (two owners a row up to k 64, one up to 128) on K1's
+# product: every list K1's bit for bit.
+@pytest.mark.parametrize("k", [25, 64, 65, 128])
+@pytest.mark.parametrize("data", ["unit", "tied"])
+def test_knn_t_bitwise_k1_at_list_edges(dev, k, data):
+    rng = np.random.default_rng(k)
+    x = _unit(rng, 700, 70) if data == "unit" else _tied_unit(rng, 600, 16)
+    xu = torch.from_numpy(x).to(dev)
+    d, i = knn_t.knn_scan_t(xu, k, 1.0)
+    d1, i1 = knn.knn_scan(xu, k, 1.0)
+    assert torch.equal(i, i1)
+    assert torch.equal(d.view(torch.int32), d1.view(torch.int32))
+
+
 def test_knn_t_row_range(dev):
     xu = torch.from_numpy(_unit(np.random.default_rng(5), 700, 48)).to(dev)
     d, i = knn_t.knn_scan_t(xu, 9, 0.95, row_start=130, row_count=300)
