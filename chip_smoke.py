@@ -143,6 +143,26 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      16,384; save_index / load_index of the extended index in a temporary
      directory (MB, seconds; exact search on the loaded index bitwise the
      saved one's); suggest_graph_params and emit_build_suggestions at 313k;
+  16. the build at the north-star shape, after phase 9's state is freed:
+     ArrowSpaceBuilder.build of a 1,000,000 x 768 mixture corpus drawn on
+     the card (phase 9's recipe) with the CVE graph params, its phase
+     seconds, peak device memory, ell_width, nedges, n_dropped, tau* and
+     the lambdas' mean and standard deviation printed beside the JAX
+     package's TPU v5e record (TPU_1M_RECORD; not compared); the Laplacian
+     exactly symmetric, K1 launched once, no NaN lambda, and edges dropped
+     only where the union width bound passes the ELL budget's width cap;
+     K1's launch over the whole corpus again, timed beside its bound, its
+     lists the build's bit for bit; the build's lists against the plain
+     version on 2,048 random rows and the last 1,024 (the largest
+     offsets), and K5's distance bit for bit on them; the one-pass and the
+     chunked symmetrize on the build's lists, in turns, each with its
+     seconds and the device memory it adds, equal bit for bit (and to the
+     build's graph), the one-pass op's bytes per directed entry held under
+     the build's trigger constant; the native host engine
+     (symmetrize_host) on phase 3's 313k lists, timed, equal to the
+     one-pass op (ids, float32 weights, drops); and a build of phase 14's
+     65,536-row mixture under ARROWSPACE_PROFILE, whose trace must hold the
+     arrowspace:knn label and a device event of K1;
   4. reference parity on the card in float32: the README quickstart scores
      to 1e-6 and the four tests/data_test0.py orderings.
 
@@ -171,7 +191,8 @@ in, "bulk" or "scalar"; K7: "tensor-core" or "simt"; K6 has one route,
 one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
 library matmul on the same operands that the port never calls (it is not
 the same function: no mask, blend or top-k, and another summation order),
-and K1 its whole-corpus launch (full_ms, full_bound_ms).  The last line
+and K1 its whole-corpus launches (full_ms, full_bound_ms at 313k; phase
+16's full_1m_ms, full_1m_bound_ms, full_1m_launches at 1M).  The last line
 is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --against DIR [DIR ...]
@@ -224,6 +245,9 @@ N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
 N_PROBE, MIX_CLUSTERS, MIX_NOISE, Q_NOISE = 8, 4096, 0.35, 0.25
 K_LONG, Q_LONG, K1_LONG_ROWS = 5000, 64, 8   # lists past the old 4,096
 F_WIDE = 4096                                 # K6's query block per slab
+# The JAX package's record of its 1M x 768 build on a TPU v5e (phase 16
+# prints its numbers beside this card's; they are not compared).
+TPU_1M_RECORD = "benchmarks/recorded/1787157379_build_1m/build_1m_results.json"
 N_MIX, N_EXTEND = 65_536, 9_416   # the variants' mixture corpus; a 3% append
 OTHER_BATCHES, ENERGY_QUERIES, ENERGY_TOKENS = 2, 64, 40
 MIN_BF16_OVERLAP = 0.9   # the bf16 view has no float32 rescore
@@ -1258,6 +1282,20 @@ def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
                              f"{[c for c, ok in checks.items() if not ok]}")
 
 
+def _mixture_rows(torch, dev, seed: int, n: int, f: int):
+    """n rows of the mixture law drawn on the card: 4,096 N(0, 1) centres,
+    each row a random centre + 0.35 N(0, 1), from a torch.Generator seeded
+    with seed (as benchmarks/bench_serving.py makes them).  Returns (rows,
+    the generator, to draw more from the same stream)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    centres = torch.randn((MIX_CLUSTERS, f), generator=gen, device=dev)
+    mix = torch.randint(0, MIX_CLUSTERS, (n,), generator=gen, device=dev)
+    x = centres[mix] + MIX_NOISE * torch.randn((n, f), generator=gen,
+                                               device=dev)
+    return x, gen
+
+
 def _mixture_space(torch, dev):
     """Phase 9's serving state: a 1,000,000 x 768 mixture corpus made on
     the card (4,096 centres, rows centre + 0.35 N(0, 1)) in an ArrowSpace,
@@ -1271,13 +1309,7 @@ def _mixture_space(torch, dev):
                                                      rayleigh_batch)
     from pyarrowspace_tpu_torch.spectral.taumode import (
         TAU_MIX, derive_tau_star, synthesize)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    centres = torch.randn((MIX_CLUSTERS, F1M), generator=gen, device=dev)
-    mix = torch.randint(0, MIX_CLUSTERS, (N1M,), generator=gen, device=dev)
-    x = centres[mix] + MIX_NOISE * torch.randn((N1M, F1M), generator=gen,
-                                               device=dev)
-    del centres, mix
+    x, gen = _mixture_rows(torch, dev, 1, N1M, F1M)
     xu = unit_normalize(x)
     w_f, lap_f, _ = build_feature_laplacian(x[:65536], k_f=15)
     e = rayleigh_batch(x, lap_f, normalized=False)
@@ -1418,6 +1450,238 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
     del aspace, ivf, queries, xu
     if not ok:
         raise AssertionError("1M certified serving checks failed")
+
+
+def _peak_run(torch, fn):
+    """(fn's result, its seconds, the peak device memory it added over what
+    was allocated before it, in bytes), synchronised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - before)
+
+
+def _phase_build_1m(torch, dev, aspace, gl, card, results) -> None:
+    """Phase 16: ArrowSpaceBuilder.build at 1,000,000 x 768 with the CVE
+    graph params on a mixture corpus made on the card; the one-pass and the
+    chunked symmetrize on its lists; the host engine on phase 3's lists;
+    and a build under ARROWSPACE_PROFILE."""
+    import tempfile
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch.graph import build as build_mod
+    from pyarrowspace_tpu_torch.io import native
+    from pyarrowspace_tpu_torch.ops.cuda import knn
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    from pyarrowspace_tpu_torch.ops.distance import kernel_weights
+    from pyarrowspace_tpu_torch.ops.symmetrize import (
+        symmetrize_to_ell, symmetrize_to_ell_chunked, union_width_bound)
+    k, eps = GP["k"], GP["eps"]
+    failed = []
+    record_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               TPU_1M_RECORD)
+    with open(record_path) as fh:
+        tpu = json.load(fh)
+    x, _ = _mixture_rows(torch, dev, 1, N1M, F1M)
+    _reset_launches()
+    (a1m, g1m), t_build, added = _peak_run(
+        torch, lambda: pt.ArrowSpaceBuilder.build(GP, x))
+    peak = torch.cuda.max_memory_allocated()
+    phases = pt.get_phase_timings()
+    launches = _launches()
+    del x
+    i, d = a1m._knn_idx, a1m._knn_dist
+    width = g1m.neighbor_indices.shape[1]
+    lam = a1m._lambdas
+    out = dict(build_s=t_build, phases=phases, peak_gib=peak / 2 ** 30,
+               added_gib=added / 2 ** 30, ell_width=width,
+               nedges=g1m.nedges, n_dropped=g1m.n_dropped_edges,
+               tau_star=a1m.tau_star, lambda_mean=float(lam.mean()),
+               lambda_std=float(lam.std()))
+    tg = tpu["graph"]
+    print(f"phase 16: build {N1M}x{F1M} (mixture, {MIX_CLUSTERS} centres) "
+          f"{t_build:.3f} s, peak device memory {out['peak_gib']:.3f} GiB "
+          f"(the process's, the {N1M * F1M * 4 / 2 ** 30:.3f} GiB corpus "
+          f"and earlier phases' state included; {out['added_gib']:.3f} GiB "
+          f"added by the build) {card}; "
+          f"TPU v5e record ({TPU_1M_RECORD}, not this card's): "
+          f"{tpu['value']} s")
+    print(f"phase 16: build phases (s) "
+          f"{json.dumps({kk: round(v, 4) for kk, v in phases.items()})} "
+          f"{card}; TPU v5e record's: {json.dumps(tpu['phases_s'])}")
+    print(f"phase 16: ell_width {width}, nedges {g1m.nedges}, n_dropped "
+          f"{g1m.n_dropped_edges}, tau* {a1m.tau_star:.9g}, lambda mean "
+          f"{out['lambda_mean']:.9g} std {out['lambda_std']:.9g}; TPU v5e "
+          f"record's (another draw of the corpus, jax.random): ell_width "
+          f"{tg['ell_width']}, nedges {tg['nedges']}, n_dropped "
+          f"{tg['n_dropped']}, tau* {tpu['tau_star']:.9g}, lambda mean "
+          f"{tpu['lambda_stats']['mean']:.9g} std "
+          f"{tpu['lambda_stats']['std']:.9g}")
+    print(f"phase 16: launches during the build {launches}")
+    bound = union_width_bound(i)
+    budget = int(os.environ.get("ARROWSPACE_ELL_BUDGET_BYTES",
+                                build_mod._ELL_BUDGET_BYTES))
+    width_cap = min(N1M - 1, max(2 * k, budget // (8 * N1M)))
+    sym = _ell_symmetric(g1m.neighbor_indices.cpu().numpy(),
+                         g1m.neighbor_weights.cpu().numpy())
+    print(f"phase 16: L exactly symmetric: {sym}; union width bound "
+          f"{bound}, the ELL budget's width cap {width_cap}")
+    if not sym:
+        failed.append("L symmetric")
+    if launches["knn"] != 1:
+        failed.append("K1 launched once")
+    if bool(torch.isnan(lam).any()):
+        failed.append("no NaN lambda")
+    if g1m.n_dropped_edges > 0 and bound <= width_cap:
+        failed.append("edges dropped under the width cap")
+
+    # K1's launch over the whole corpus again, timed: the build's bits.
+    xu = a1m._data_unit
+    got = {}
+    k1_ms = _events_ms(lambda: got.update(di=knn.knn_scan(xu, k, eps)),
+                       torch)
+    same = _bits_equal(torch, got["di"][0], d) and torch.equal(
+        got["di"][1], i)
+    del got
+    k1_bound = _bound(2.0 * _k1_pairs(N1M, N1M) * F1M, "fp32",
+                      N1M * F1M * 4 + N1M * k * 8)
+    results["knn"].update(full_1m_ms=k1_ms,
+                          full_1m_bound_ms=k1_bound["bound_ms"],
+                          full_1m_launches=launches["knn"])
+    print(f"phase 16: K1 over all {N1M} rows x {F1M} k={k} "
+          f"({_route(knn, N1M, N1M, k, dev)}): {k1_ms:.3f} ms, bound "
+          f"{k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}); the "
+          f"build's lists bit for bit: {same} {card}")
+    if not same:
+        failed.append("K1 at 1M deterministic")
+    # The build's lists against the plain version on K1_CHECK_ROWS random
+    # rows and the last 1,024, whose offsets into the corpus are the
+    # largest (N * F passes 2^31 bytes), and K5's distance bit for bit.
+    rows = np.union1d(np.random.default_rng(0).choice(
+        N1M, K1_CHECK_ROWS, replace=False), np.arange(N1M - 1024, N1M))
+    rows_t = torch.as_tensor(rows, device=dev)
+    dp, ip = (t.cpu().numpy() for t in knn.knn_plain(xu, k, eps,
+                                                      rows=rows_t))
+    d_r, i_r = d[rows_t], i[rows_t]
+    bad = topk_disagreements(d_r.cpu().numpy(), i_r.cpu().numpy(), dp, ip,
+                             TOL)
+    err = max_abs_err(d_r.cpu().numpy(), dp)
+    keep = i_r >= 0
+    k5 = _own_compare().k5_distance(xu, rows_t, i_r)
+    witness_k5 = bool(keep.any()) and torch.equal(
+        d_r.view(torch.int32)[keep], k5.view(torch.int32)[keep])
+    del dp, ip, d_r, i_r, keep, k5
+    results["knn"].update(
+        full_1m_max_abs_err=err,
+        max_abs_err=max(results["knn"].get("max_abs_err", 0.0), err))
+    print(f"phase 16: K1 vs plain on {rows.size} rows of {N1M} (the last "
+          f"1,024 among them): max_abs_err {err:.3e}, disagreeing rows "
+          f"{len(bad)}; K1 == K5 distance bit for bit: {witness_k5}")
+    if bad or err > TOL:
+        failed.append(f"K1 at 1M vs plain (rows {bad[:10]}, err {err})")
+    if not witness_k5:
+        failed.append("K1 at 1M == K5 distance")
+
+    # The one-pass and the chunked symmetrize on the build's lists, in
+    # turns, each with the device memory it adds.
+    w = kernel_weights(d, GP["sigma"], GP["p"])
+    w = torch.where(i >= 0, w, 0.0)
+    del a1m, d, xu
+    ops = {"one_pass": lambda: symmetrize_to_ell(i, w, width),
+           "chunked": lambda: symmetrize_to_ell_chunked(i, w, width)}
+    runs = {name: [] for name in ops}
+    for name in ("one_pass", "chunked", "chunked", "one_pass"):
+        runs[name].append(_peak_run(torch, ops[name]))
+    one, chk = runs["one_pass"][0][0], runs["chunked"][0][0]
+    bitwise = (all(_bits_equal(torch, a, b) for a, b in zip(one[:3], chk[:3]))
+               and one[3] == chk[3] and chk[4] == 0)
+    build_same = (torch.equal(one[0], g1m.neighbor_indices)
+                  and _bits_equal(torch, one[1], g1m.neighbor_weights))
+    entries = N1M * k
+    out_bytes = N1M * width * (4 + w.element_size())
+    added = {name: max(r[2] for r in rs) for name, rs in runs.items()}
+    per_entry = (added["one_pass"] - out_bytes) / entries
+    fits = build_mod.one_pass_fits(N1M, k, width, w.element_size(), dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    sym_out = {name: dict(s=sum(r[1] for r in rs) / len(rs),
+                          peak_gib=added[name] / 2 ** 30)
+               for name, rs in runs.items()}
+    out.update(symmetrize=sym_out, bytes_per_entry=per_entry,
+               one_pass_fits=fits)
+    for name, r in sym_out.items():
+        print(f"phase 16: symmetrize {name} at {N1M} x k {k}, width {width}:"
+              f" {r['s']:.3f} s (mean of 2, in turns), peak added "
+              f"{r['peak_gib']:.3f} GiB {card}")
+    print(f"phase 16: one-pass == chunked bit for bit (ids, weights, "
+          f"degrees, drops; no overflow): {bitwise}; == the build's graph: "
+          f"{build_same}; one-pass peak beside its {out_bytes / 2 ** 30:.3f}"
+          f" GiB output: {per_entry:.1f} B per directed entry (the "
+          f"trigger's _ONE_PASS_BYTES_PER_ENTRY "
+          f"{build_mod._ONE_PASS_BYTES_PER_ENTRY}); card free "
+          f"{free / 2 ** 30:.3f} of {total / 2 ** 30:.3f} GiB now: "
+          f"one_pass_fits {fits}")
+    if not (bitwise and build_same):
+        failed.append("one-pass == chunked at 1M")
+    if per_entry > build_mod._ONE_PASS_BYTES_PER_ENTRY:
+        failed.append("the trigger's bytes per entry under the measured")
+    del runs, one, chk, ops, i, w, g1m
+
+    # The host engine on phase 3's 313k lists against the one-pass op.
+    i3 = aspace._knn_idx
+    w3 = kernel_weights(aspace._knn_dist, GP["sigma"], GP["p"])
+    w3 = torch.where(i3 >= 0, w3, 0.0)
+    m3 = gl.neighbor_indices.shape[1]
+    ref = symmetrize_to_ell(i3, w3, m3)
+    i3h, w3h = i3.cpu().numpy(), w3.cpu().double().numpy()
+    t0 = time.perf_counter()
+    host = native.symmetrize_host(i3h, w3h, m3)
+    t_host = time.perf_counter() - t0
+    host_same = host is not None and (
+        np.array_equal(host[0], ref[0].cpu().numpy())
+        and np.array_equal(host[1].astype(np.float32).view(np.uint32),
+                           ref[1].cpu().numpy().view(np.uint32))
+        and host[2] == ref[3])
+    out["host_s"] = t_host
+    print(f"phase 16: symmetrize_host (native engine, {os.cpu_count()} "
+          f"CPUs) on phase 3's {N}x{k} lists, width {m3}: {t_host:.3f} s; "
+          f"== the one-pass op (ids, float32 weights, drops): {host_same}")
+    if not host_same:
+        failed.append("host == one-pass at 313k")
+    del ref, w3
+
+    # ARROWSPACE_PROFILE: a build of phase 14's 65,536-row mixture traced.
+    xm = _mixture_rows(torch, dev, 3, N_MIX, F)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["ARROWSPACE_PROFILE"] = tmp
+        try:
+            t0 = time.perf_counter()
+            pt.ArrowSpaceBuilder.build(GP, xm)
+            t_prof = time.perf_counter() - t0
+        finally:
+            del os.environ["ARROWSPACE_PROFILE"]
+        traces = [f for f in os.listdir(tmp) if f.endswith(".trace.json")]
+        events = []
+        for f in traces:
+            with open(os.path.join(tmp, f)) as fh:
+                events += json.load(fh)["traceEvents"]
+    labels = any(e.get("name") == "arrowspace:knn" for e in events)
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and "knn_kernel" in e.get("name", "")]
+    out["profile"] = dict(build_s=t_prof, traces=len(traces),
+                          k1_us=[e.get("dur") for e in k1_events])
+    print(f"phase 16: build {N_MIX}x{F} under ARROWSPACE_PROFILE: "
+          f"{t_prof:.3f} s, {len(traces)} trace(s), arrowspace:knn "
+          f"{labels}, K1 kernel events {len(k1_events)} (device us "
+          f"{out['profile']['k1_us']}) {card}")
+    if len(traces) != 1 or not labels or not k1_events:
+        failed.append("profile trace")
+    results["build_1m"] = out
+    if failed:
+        raise AssertionError(f"1M build checks failed: {failed}")
 
 
 def _query_lambdas32(torch, aspace, qb):
@@ -1876,14 +2140,8 @@ def _phase_variants(torch, items, xu, aspace, gl, card, results) -> None:
         failed.append(f"knn_t k {K1_WIDE}")
 
     # A clustered corpus: the regime the locality variants were built for.
-    gen = torch.Generator(device=xu.device)
-    gen.manual_seed(3)
-    centres = torch.randn((MIX_CLUSTERS, F), generator=gen, device=xu.device)
-    mix = torch.randint(0, MIX_CLUSTERS, (N_MIX,), generator=gen,
-                        device=xu.device)
-    xm = unit_normalize(centres[mix] + MIX_NOISE * torch.randn(
-        (N_MIX, F), generator=gen, device=xu.device)).contiguous()
-    del centres, mix
+    xm = unit_normalize(_mixture_rows(torch, xu.device, 3, N_MIX, F)[0]
+                        ).contiguous()
     t_perm, scans = _variant_scans(torch, xm)
 
     def k1():
@@ -2576,7 +2834,10 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
              lambda: _phase_lifecycle(torch, items, aspace, gl, batches,
                                       card, results)),
             ("phase 9 (1M x 768 certified serving)",
-             lambda: _phase_certified_1m(torch, dev, card, results))):
+             lambda: _phase_certified_1m(torch, dev, card, results)),
+            ("phase 16 (1M x 768 build)",
+             lambda: _phase_build_1m(torch, dev, aspace, gl, card,
+                                     results))):
         # --measure runs phases 6b, 6c and 11 only; a full run all but 6b
         # and 6c.
         ab_only = ("phase 6b ", "phase 6c ")

@@ -16,6 +16,7 @@ tensors on the build's device.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -48,6 +49,10 @@ AUTO_SUBTILE_MIN_ITEMS = 131_072
 # the scan it tries to avoid).
 _WIDEN_MIN_CERT_RATE = 0.25
 
+# ARROWSPACE_IVF_SLABS's values (reference core/space.py:285-305).
+_SLAB_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                "f16": torch.float16, "float16": torch.float16,
+                "f32": torch.float32, "float32": torch.float32}
 _MODES = ("auto", "exact", "int8", "subtile", "ivf", "ivf_block",
           "certified")
 
@@ -363,7 +368,8 @@ class ArrowSpace:
         slab_dtype (torch.float32, torch.bfloat16, torch.float16) sets the
         slab precision: bf16 halves the probe bytes, approximate for
         ivf_block and still exact for certified serving (the rescored
-        certificate).  slab_capacity_factor sizes the [K * cap, F] slabs;
+        certificate); without it, ARROWSPACE_IVF_SLABS decides at search
+        time.  slab_capacity_factor sizes the [K * cap, F] slabs;
         when None it follows min(2.0, capacity_factor) for an explicit
         capacity_factor (default 3.0, the postings' factor), else keeps
         the current factor, default 2.0.
@@ -413,13 +419,29 @@ class ArrowSpace:
                               self.nitems, capacity_factor)
         return self._ivf
 
+    def _resolve_slab_dtype(self) -> torch.dtype:
+        """The blocked slabs' dtype: an explicit enable_ivf(slab_dtype=...)
+        wins, then ARROWSPACE_IVF_SLABS (bf16|f16|f32), else float32.  An
+        unknown value of the variable raises: a silent float32 would serve
+        another precision than the deployment asked for."""
+        if self._ivf_slab_choice is not None:
+            return self._ivf_slab_choice
+        env = os.environ.get("ARROWSPACE_IVF_SLABS", "").strip().lower()
+        if not env:
+            return torch.float32
+        if env not in _SLAB_DTYPES:
+            raise ValueError(
+                f"ARROWSPACE_IVF_SLABS={env!r} is not a known slab dtype; "
+                "expected one of bf16|bfloat16|f16|float16|f32|float32")
+        return _SLAB_DTYPES[env]
+
     def _ensure_ivf_blocked(self) -> ivf_ops.BlockedIVF:
         """The cluster-contiguous slab index of mode="ivf_block" /
         "certified", built at first use and rebuilt when the slab dtype
-        changed."""
+        (``_resolve_slab_dtype``, read at each search) changed."""
         if self._ivf is None:
             self.enable_ivf()
-        want = self._ivf_slab_choice or torch.float32
+        want = self._resolve_slab_dtype()
         if (self._ivf_blocked is not None
                 and self._ivf_blocked.slabs.dtype != want):
             self._ivf_blocked = None

@@ -14,7 +14,9 @@ Dtype policy: on CPU, float64 when the input is float64, else float32; on
 CUDA, float32.  Every phase runs on the build's device and is timed by
 ``utils.debug.phase``.  With ARROWSPACE_SUGGEST_DIR set, a build also
 writes the parameter recommendation ``suggested_eps.md`` there
-(graph/suggest.py).
+(graph/suggest.py); with ARROWSPACE_PROFILE=<dir>, a ``torch.profiler``
+trace of the build.  ARROWSPACE_SYMMETRIZE picks the symmetrize op
+(``_run_symmetrize``).
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ from ..core.space import ArrowSpace
 from ..ops.distance import (kernel_weights, knn_graph_candidates,
                             knn_variant, unit_normalize)
 from ..ops.rayleigh import dispersion_batch, rayleigh_batch
-from ..ops.symmetrize import symmetrize_to_ell, union_width_bound
+from ..ops.symmetrize import (symmetrize_to_ell, symmetrize_to_ell_chunked,
+                              union_width_bound)
 from ..reduction.pipeline import SAMPLING_KEEP_RATE, reduce_corpus
 from ..spectral.taumode import TAU_MIX, derive_tau_star, synthesize
-from ..utils.debug import dbg_println, debug_enabled, phase, reset_phase_timings
+from ..utils.debug import (dbg_println, debug_enabled, phase, profile_trace,
+                           reset_phase_timings)
 from ..utils.logging import get_logger
 from .feature import build_feature_laplacian
 
@@ -44,6 +48,17 @@ log = get_logger("builder")
 # The ELL arrays auto-widen may grow to (weights + int32 indices), unless
 # ARROWSPACE_ELL_BUDGET_BYTES says otherwise (read at each build).
 _ELL_BUDGET_BYTES = 2 << 30
+
+# The one-pass symmetrize's peak device memory beside the ELL rows it
+# writes, in bytes per directed k-NN entry (n * k): 225.5 measured at
+# 1,000,000 x 768, k 25, width 268 on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py phase 16, which fails if it measures more than this
+# constant), rounded up, so it bounds the need from above.  When the need
+# passes the memory the card has free, auto / device mode takes the chunked
+# op (the same bits, 28% less peak at 1M, 1.63x the time).
+_ONE_PASS_BYTES_PER_ENTRY = 256
+_HOST_HINT = ("set ARROWSPACE_SYMMETRIZE=host to symmetrize on the host with "
+              "the native engine")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +126,76 @@ def _pick_dtype(arr, device: torch.device) -> torch.dtype:
     return torch.float64 if device.type == "cpu" and is64 else torch.float32
 
 
+def one_pass_fits(n: int, k: int, ell_width: int, itemsize: int,
+                  device: torch.device) -> bool:
+    """Whether the one-pass symmetrize's temporaries and output fit in the
+    memory the card has free (the allocator's cached blocks count as free);
+    always True on the CPU."""
+    if device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    need = n * (k * _ONE_PASS_BYTES_PER_ENTRY + ell_width * (4 + itemsize))
+    return need <= free
+
+
+def _run_symmetrize(i: torch.Tensor, w: torch.Tensor, ell_width: int):
+    """The symmetrize stage under ARROWSPACE_SYMMETRIZE (reference
+    graph/build.py:122-198):
+
+      auto / device (the default; any other value too): the one-pass op,
+        or the chunked op (bit for bit the same) when the one-pass op would
+        not fit on the card (``one_pass_fits``); a chunk's overflow retries
+        at a higher capacity, then raises MemoryError.
+      device_fused: always the one-pass op.
+      host: the native OpenMP engine (io/native.symmetrize_host).
+
+    Unlike the reference, a device OOM or the chunk ladder's MemoryError
+    is not caught and rerun on the host engine: it raises, naming the host
+    mode."""
+    mode = os.environ.get("ARROWSPACE_SYMMETRIZE", "auto")
+    if mode == "host":
+        from ..io.native import symmetrize_host
+        dbg_println("symmetrize: ARROWSPACE_SYMMETRIZE=host -> native host "
+                    "engine")
+        host = symmetrize_host(i.cpu().numpy(),
+                               w.cpu().to(torch.float64).numpy(), ell_width)
+        if host is None:
+            raise RuntimeError(
+                "ARROWSPACE_SYMMETRIZE=host but the native engine is "
+                "unavailable (no compiler / build failure)")
+        h_idx, h_w, n_dropped = host
+        nbr_idx = torch.from_numpy(h_idx).to(i.device)
+        nbr_w = torch.from_numpy(h_w).to(device=w.device, dtype=w.dtype)
+        return nbr_idx, nbr_w, nbr_w.sum(dim=1), int(n_dropped)
+
+    n, k = i.shape
+    try:
+        if mode != "device_fused" and not one_pass_fits(
+                n, k, ell_width, w.element_size(), w.device):
+            # Overflow means a row range held more entries than its window
+            # (a hub-row problem), so the retry raises the capacity: more
+            # chunks would shrink each window in proportion.
+            for n_chunks, cap_factor in ((16, 3), (16, 12)):
+                nbr_idx, nbr_w, degrees, n_dropped, n_over = \
+                    symmetrize_to_ell_chunked(i, w, ell_width,
+                                              n_chunks=n_chunks,
+                                              cap_factor=cap_factor)
+                if n_over == 0:
+                    return nbr_idx, nbr_w, degrees, n_dropped
+                log.warning("chunked symmetrize overflow at n_chunks=%d "
+                            "cap_factor=%d (%d entries); retrying",
+                            n_chunks, cap_factor, n_over)
+            raise MemoryError("chunked symmetrize overflow (hub-heavy graph "
+                              f"exceeds per-chunk capacity): {_HOST_HINT}")
+        return symmetrize_to_ell(i, w, ell_width)
+    except torch.cuda.OutOfMemoryError as e:
+        raise torch.cuda.OutOfMemoryError(
+            f"symmetrize ran out of device memory "
+            f"({str(e).splitlines()[0][:120]}): {_HOST_HINT}") from e
+
+
 def symmetrize_auto_widen(run, config: BuildConfig, gp: GraphParams, *,
                           n: int, weight_itemsize: int,
                           width_bound_fn=None):
@@ -166,7 +251,19 @@ def symmetrize_auto_widen(run, config: BuildConfig, gp: GraphParams, *,
 def build_standard(items, gp: GraphParams,
                    config: BuildConfig = DEFAULT_BUILD_CONFIG,
                    device=None) -> tuple[ArrowSpace, GraphLaplacian]:
-    """Full standard build: (ArrowSpace, GraphLaplacian)."""
+    """Full standard build: (ArrowSpace, GraphLaplacian).  With
+    ARROWSPACE_PROFILE=<dir> set, the build runs under ``profile_trace``,
+    which writes a Chrome trace into <dir>."""
+    profile_dir = os.environ.get("ARROWSPACE_PROFILE")
+    if profile_dir:
+        dev = resolve_device(items, device)
+        with profile_trace(profile_dir, cuda=dev.type == "cuda"):
+            return _build_standard_inner(items, gp, config, device)
+    return _build_standard_inner(items, gp, config, device)
+
+
+def _build_standard_inner(items, gp: GraphParams, config: BuildConfig,
+                          device) -> tuple[ArrowSpace, GraphLaplacian]:
     reset_phase_timings()
     arr = validate_items(items)
     dev = resolve_device(items, device)
@@ -219,7 +316,7 @@ def _assemble_from_knn(stored, xu, d, i, gp: GraphParams,
 
     with phase("symmetrize", dev):
         nbr_idx, nbr_w, degrees, n_dropped = symmetrize_auto_widen(
-            lambda width: symmetrize_to_ell(i, w, width),
+            lambda width: _run_symmetrize(i, w, width),
             config, gp, n=n, weight_itemsize=w.element_size(),
             width_bound_fn=lambda: union_width_bound(i))
     gl = GraphLaplacian._from_ell(nbr_idx, nbr_w, degrees, gp,

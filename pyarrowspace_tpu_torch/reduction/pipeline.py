@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -286,11 +287,12 @@ def select_k_searched(xs: torch.Tensor, n_sampled: int, intrinsic_dim: int,
                       eps_hint: float | None = None, seed: int = 42,
                       max_points: int = 4096) -> int:
     """Optimal-K search: the candidates of k_search_range, each scored by
-    _kmeans_bic on a subsample of max_points; the lowest score wins."""
+    _kmeans_bic on a subsample of max_points; the lowest score wins.
+    ARROWSPACE_K_SEARCH=0 takes the closed-form K (the range's low end)."""
     lo, hi = k_search_range(n_sampled, intrinsic_dim, eps_hint)
     lo = min(lo, xs.shape[0])
     hi = min(hi, xs.shape[0])
-    if hi <= lo:
+    if os.environ.get("ARROWSPACE_K_SEARCH", "1") == "0" or hi <= lo:
         return lo
     rng = np.random.default_rng(seed)
     if xs.shape[0] > max_points:

@@ -5,12 +5,14 @@ Same user-facing contract as the reference binding's debug facility
 ``[pyarrowspace] ...`` lines on stderr.  ``phase`` times a named pipeline
 stage; on a CUDA device it ends with ``torch.cuda.synchronize()`` so each
 timing covers the work its stage enqueued (kernel launches return before
-the device finishes), and it labels the stage in ``torch.profiler`` traces.
+the device finishes), and it labels the stage in ``torch.profiler`` traces
+(``arrowspace:<name>``); ``profile_trace`` records such a trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import threading
 import time
@@ -60,6 +62,28 @@ def phase(name: str, device: torch.device | str | None = None):
         dt = time.perf_counter() - t0
         _PHASE_TIMINGS[name] = dt
         dbg_println(f"phase:{name} done in {dt:.3f}s")
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, cuda: bool = False):
+    """Record a ``torch.profiler`` trace of the region (CPU activity, and
+    CUDA activity with ``cuda``) and write it into ``log_dir`` as a Chrome
+    trace, ``arrowspace-<pid>-<ns>.trace.json``, also when the region
+    raises.  Also reachable via ARROWSPACE_PROFILE=<dir> on
+    ArrowSpaceBuilder.build."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities, acc_events=True)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"arrowspace-{os.getpid()}-{time.time_ns()}.trace.json"))
 
 
 def reset_phase_timings() -> None:

@@ -299,3 +299,37 @@ def test_scan_kernel_equals_k5_blend_bitwise(dev, n, q, f, k, dtype):
     want = k5_blend(xu, lam, qn, lamq, 0.62, i)
     assert bool((i >= 0).all())
     assert torch.equal(s.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("hub_frac", [0.0, 0.5])
+def test_symmetrize_chunked_equals_one_pass_on_card(dev, hub_frac):
+    """The chunked symmetrize against the one-pass op on the card, bit for
+    bit (ids, weights, degrees, drops), and against the one-pass op on the
+    CPU (ids, weights and drops; a row sum may add in another order there):
+    K1's lists of 65,536 unit rows at k 25, a fraction of the rows pointing
+    their first entry at hub node 0, weights symmetric per pair."""
+    from pyarrowspace_tpu_torch.ops.symmetrize import (
+        symmetrize_to_ell, symmetrize_to_ell_chunked)
+    n, k = 65_536, 25
+    rng = np.random.default_rng(11)
+    xu = torch.from_numpy(_unit(rng, n, 64)).to(dev)
+    _, i = knn.knn_scan(xu, k, 1.31)
+    i = i.cpu()
+    if hub_frac:
+        rows = torch.from_numpy(rng.choice(np.arange(1, n),
+                                           int(hub_frac * n), replace=False))
+        rows = rows[~(i[rows] == 0).any(dim=1)]
+        i[rows, 0] = 0
+    j = i.to(torch.int64)
+    w = 0.1 + 0.9 * (((torch.arange(n)[:, None] + 1) * (j + 1)) % 97) / 97.0
+    w = torch.where(i >= 0, w, 0.0).to(torch.float32)
+    one = symmetrize_to_ell(i.to(dev), w.to(dev), 2 * k)
+    got = symmetrize_to_ell_chunked(i.to(dev), w.to(dev), 2 * k)
+    cpu = symmetrize_to_ell(i, w, 2 * k)
+    assert got[4] == 0
+    assert one[3] == got[3] == cpu[3]
+    assert one[3] > 0 or not hub_frac
+    for a, b in zip(one[:3], got[:3]):
+        assert a.is_cuda and b.is_cuda and torch.equal(a, b)
+    for a, c in zip(one[:2], cpu[:2]):
+        assert torch.equal(a.cpu(), c)
