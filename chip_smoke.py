@@ -163,6 +163,30 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      one-pass op (ids, float32 weights, drops); and a build of phase 14's
      65,536-row mixture under ARROWSPACE_PROFILE, whose trace must hold the
      arrowspace:knn label and a device event of K1;
+  17. the sharded path (parallel/), spawned from here twice on the one
+     card: world 1 under NCCL and world 2 under gloo (both ranks on
+     cuda:0; NCCL refuses two ranks on one device).  Each rank builds
+     phase 3's corpus with build_sharded (a warm-up build, then a timed
+     one, the counts reset just before it) and serves phase 3's first
+     batch in exact, subtile and certified mode (each warm, then timed);
+     every kernel of that path (K1, seeded K1 at world 2, K2, K3, K4b, K5,
+     K4a, K6) must have launched on every rank.  The k-NN lists and L
+     must be phase 3's bit for bit, the lambdas within LAMBDA_REL_BOUND
+     (0 at world 1), the exact and certified ids phase 3's outside
+     near-ties of 1e-5, subtile's top-15 overlap at least 0.99 (at world 1
+     the one-device subtile result bit for bit).  Rank 0 of world 2 holds
+     K1's ring step (rank 1's block: a nonzero col_start, 15 padding
+     columns; also on 2,048 rows, a split walk, and at k 200, the wide
+     route), K2, K3 and K6 on its shard against their plain versions,
+     timed in turns; the collectives gloo ran through host memory are
+     printed (the ring shift only);
+  18. the trainers: DomainAdapter.fit (linear, mlp) on phase 3's rows at
+     its defaults (hidden 192, batch 1,024, 306 steps) after a warm-up
+     fit, seconds, steps a second, final loss; transform and a build of
+     the adapted rows; TSDAEEncoder at its defaults (vocab 8,192, d_model
+     384, 2 + 2 layers, 6 heads, max_len 128, batch 8) fitted on 8,192
+     seeded sentences of a fixed 400-word list (1,024 steps), its loss
+     falling, encode of the corpus and a build that serves its rows;
   4. reference parity on the card in float32: the README quickstart scores
      to 1e-6 and the four tests/data_test0.py orderings.
 
@@ -173,7 +197,9 @@ The line before the last is a JSON object with, for each kernel, its
 launches on its main path (phase 3 for K1 and K2, phase 5's subtile run
 for K3, K4a, K4b and K5, phase 8's certified run for K6, phase 10 for K7,
 phase 11 for K2 over bf16 rows, phase 14's build under each variant for
-K1t and K1's options, phase 15's extend for seeded K1), its largest
+K1t and K1's options, phase 15's extend for seeded K1; K1, K2, K3 and K6
+also carry "sharded": phase 17's launches on rank 0 of world 2 and the
+measures at that rank's shapes, each with its bound), its largest
 difference from the plain version, the kernel's and the plain version's
 times, its bound (the larger of its operations over the H100's peak for
 their type and its bytes over 3.35 TB/s, from this run's shapes; K5 and
@@ -194,6 +220,12 @@ the same function: no mask, blend or top-k, and another summation order),
 and K1 its whole-corpus launches (full_ms, full_bound_ms at 313k; phase
 16's full_1m_ms, full_1m_bound_ms, full_1m_launches at 1M).  The last line
 is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cards N
+
+runs phase 3's build on cuda:0 and then phase 17 at world N under NCCL,
+rank r on cuda:r (N cards), with all of phase 17's checks against phase
+3, and prints its numbers as JSON.
 
     python3 chip_smoke.py --against DIR [DIR ...]
 
@@ -2319,6 +2351,493 @@ def _phase_lifecycle(torch, items, aspace, gl, batches, card,
                              f"same {life['served_same']}")
 
 
+# -- phases 17-18: the sharded path and the trainers -----------------------------
+SHARDED_RUNS = (("nccl", 1), ("gloo", 2))   # (backend, world size), one card
+SHARDED_TIMEOUT_S = 420
+LAMBDA_REL_BOUND = 1e-5   # world 2: the Lloyd sums in rank order move the
+#                           centroids by ulps; world 1 must be bit for bit
+TSDAE_SENTENCES, TSDAE_WORDS = 8192, 400
+
+
+def _sharded_rank(rank: int, world: int, backend: str, init_file: str,
+                  out_dir: str, src0, per_card: bool) -> None:
+    """One rank of phase 17 (spawned): the sharded build of phase 3's
+    corpus, search_batch over phase 3's first batch in exact, subtile and
+    certified mode (each warm, then timed), the kernels' launches on that
+    path, and on rank 0 of world 2 the ring's K1 step (a padded visiting
+    block at a nonzero col_start) and K2, K3 and K6 on the shard against
+    their plain versions.  Writes rank{r}.npz (the rank's lists) and
+    rank{r}.json.  per_card: rank r on cuda:r (--cards), else all on
+    cuda:0."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank if per_card else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        _sharded_rank_body(torch, dev, rank, world, backend, out_dir, src0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank_body(torch, dev, rank, world, backend, out_dir,
+                       src0) -> None:
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch.parallel import build_sharded, make_mesh
+    from pyarrowspace_tpu_torch.parallel import sharded as sh
+    assert "jax" not in sys.modules, "the port must not import jax"
+    mesh = make_mesh(device=dev, backend=backend)
+    gp = pt.parse_graph_params(GP)
+    items_host = np.random.default_rng(42).standard_normal(
+        (N, F), dtype=np.float32) * 12.0
+    queries = torch.from_numpy(items_host[src0]).to(dev) * 1.01
+    build_sharded(items_host, gp, mesh)                 # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    sspace, gl = build_sharded(items_host, gp, mesh)
+    build_s = time.perf_counter() - t0
+    stages = pt.get_phase_timings()
+    t0 = time.perf_counter()
+    sspace._ensure_ivf_block_state()
+    sspace._ensure_subtile_state()
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    got, qps = {}, {}
+    for mode in ("exact", "subtile", "certified"):
+        sspace.search_batch(queries, TAU, mode=mode, n_probe=N_PROBE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[mode] = sspace.search_batch(queries, TAU, mode=mode,
+                                        n_probe=N_PROBE)
+        qps[mode] = Q_BATCH / (time.perf_counter() - t0)
+    launches = _launches()
+    info = dict(rank=rank, world=world, backend=backend, build_s=build_s,
+                stages=stages, state_s=state_s, qps=qps, launches=launches,
+                host_copied=sorted(sspace.comm.host_copied),
+                fallbacks=sh.SYMMETRIZE_FALLBACKS, n_loc=sspace._n_loc,
+                rows=sspace._rows, tau_star=sspace.tau_star)
+    lam = sspace.lambdas()
+    arrays = dict(knn_d=sspace.knn[0].cpu().numpy(),
+                  knn_i=sspace.knn[1].cpu().numpy())
+    if rank == 0:
+        arrays.update(lambdas=lam,
+                      nbr_idx=gl.neighbor_indices.cpu().numpy(),
+                      nbr_w=gl.neighbor_weights.cpu().numpy(),
+                      **{f"{m}_{part}": np.asarray(got[m][j])
+                         for m in got for j, part in enumerate(("i", "v"))})
+    if world > 1 and rank == 0:
+        info["kernels"] = _shard_kernels(torch, sspace, items_host, queries,
+                                         dev)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(info, fh)
+
+
+def _shard_kernels(torch, sspace, items_host, queries, dev) -> dict:
+    """K1's ring step, K2, K3 and K6 at rank 0's shapes of world 2, each
+    against its plain version (max_abs_err, ids up to near-ties of TOL)
+    and timed in turns.  Launches made here are not the path's."""
+    from pyarrowspace_tpu_torch.ops.cuda import knn, scan_topk, subtile_max
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    from pyarrowspace_tpu_torch.ops.distance import unit_normalize
+    out = {}
+    k, eps = GP["k"], GP["eps"]
+    n_loc, rows = sspace._n_loc, sspace._rows
+    # K1: rank 0's ring step over rank 1's block (ids from n_loc, its
+    # padding rows masked by n_real), seeded with the self step's lists.
+    nxt = unit_normalize(torch.from_numpy(items_host[n_loc:2 * n_loc]).to(
+        dev))
+    cols = nxt.shape[0]
+    buf = torch.cat([sspace._xu_loc, sspace._xu_loc])
+    buf[n_loc:n_loc + cols] = nxt
+    buf[n_loc + cols:] = 0.0
+    r = K1_TIME_ROWS
+    seed = knn.knn_visit(sspace._xu_loc, n_loc, r, rows, k, eps, row_id0=0,
+                         col_id0=0)
+
+    def kern():
+        return knn.knn_visit(buf, n_loc, r, cols, k, eps, row_id0=0,
+                             col_id0=n_loc, seed=seed)
+
+    def plain():
+        return knn.visit_plain(buf, n_loc, r, cols, k, eps, row_id0=0,
+                               col_id0=n_loc, seed=seed)
+
+    (dk, ik), (dp, ip) = kern(), plain()
+    bad = topk_disagreements(dk.cpu().numpy(), ik.cpu().numpy(),
+                             dp.cpu().numpy(), ip.cpu().numpy(), TOL)
+    k_ms, p_ms = _in_turns(plain, kern, torch)
+    out["knn"] = dict(rows=r, cols=cols, col_start=n_loc + n_loc,
+                      padded_cols=n_loc - cols,
+                      max_abs_err=max_abs_err(dk.cpu().numpy(),
+                                              dp.cpu().numpy()),
+                      disagreeing=len(bad), ms=k_ms, plain_ms=p_ms,
+                      route=_route(knn, r, cols, k, dev),
+                      **_bound(2.0 * r * cols * F, "fp32",
+                               (r + cols) * F * 4 + 2 * r * k * 8))
+    # The same step on 2,048 rows (a split walk) and at k 200 (the wide
+    # route, its splits merged into the seed lists) against the plain
+    # version.
+    for kk in (k, K1_DEVICE_LIST):
+        rr = K1_CHECK_ROWS
+        sd = knn.knn_visit(sspace._xu_loc, n_loc, rr, rows, kk, eps,
+                           row_id0=0, col_id0=0)
+        got = [t.cpu().numpy() for t in knn.knn_visit(
+            buf, n_loc, rr, cols, kk, eps, row_id0=0, col_id0=n_loc,
+            seed=sd)]
+        ref = [t.cpu().numpy() for t in knn.visit_plain(
+            buf, n_loc, rr, cols, kk, eps, row_id0=0, col_id0=n_loc,
+            seed=sd)]
+        bad = topk_disagreements(got[0], got[1], ref[0], ref[1], TOL)
+        err = max_abs_err(got[0], ref[0])
+        out["knn"][f"k{kk}_rows{rr}"] = dict(
+            route=_route(knn, rr, cols, kk, dev), disagreeing=len(bad),
+            max_abs_err=err)
+        out["knn"]["disagreeing"] += len(bad)
+        out["knn"]["max_abs_err"] = max(out["knn"]["max_abs_err"], err)
+    # K2 on the shard's real rows.
+    topk = GP["topk"]
+    xs, lams = sspace._xu_loc[:rows], sspace._lambdas_loc[:rows]
+    qn = unit_normalize(queries).contiguous()
+    lam_q = sspace.prepare_queries(queries)
+    i_k, s_k = scan_topk.lambda_search(xs, lams, qn, lam_q, TAU, topk)
+    i_p, s_p = scan_topk.scan_plain(xs, lams, qn, lam_q, TAU, topk)
+    bad = topk_disagreements(s_k.cpu().numpy(), i_k.cpu().numpy(),
+                             s_p.cpu().numpy(), i_p.cpu().numpy(), TOL)
+    k_ms, p_ms = _in_turns(
+        lambda: scan_topk.scan_plain(xs, lams, qn, lam_q, TAU, topk),
+        lambda: scan_topk.lambda_search(xs, lams, qn, lam_q, TAU, topk),
+        torch)
+    out["scan_topk"] = dict(rows=rows, queries=Q_BATCH,
+                            max_abs_err=max_abs_err(s_k.cpu().numpy(),
+                                                    s_p.cpu().numpy()),
+                            disagreeing=len(bad), ms=k_ms, plain_ms=p_ms,
+                            **_bound(2.0 * Q_BATCH * rows * F, "fp32",
+                                     rows * (F + 1) * 4
+                                     + Q_BATCH * ((F + 1) * 4 + topk * 8)))
+    # K3 on the shard's subtile state.
+    st = sspace._ensure_subtile_state()
+    lamq32 = lam_q.to(torch.float32).contiguous()
+    q_scan = qn.to(torch.float32).to(st["xu_scan"].dtype).contiguous()
+    args = (st["xu_scan"], st["lambdas"], q_scan, lamq32, TAU, st["n_real"])
+    m_k = subtile_max.subtile_max(*args)
+    m_p = subtile_max.subtile_max_plain(*args)
+    k_ms, p_ms = _in_turns(lambda: subtile_max.subtile_max_plain(*args),
+                           lambda: subtile_max.subtile_max(*args), torch)
+    rows_k3 = -(-rows // 64) * 64     # the subtiles with a real row
+    out["subtile_max"] = dict(
+        rows=st["xu_scan"].shape[0], queries=Q_BATCH,
+        max_abs_err=max_abs_err(m_k.cpu().numpy(), m_p.cpu().numpy()),
+        ms=k_ms, plain_ms=p_ms,
+        route=subtile_max.route_name(st["xu_scan"], q_scan),
+        **_bound(2.0 * Q_BATCH * rows_k3 * F, "bf16",
+                 rows_k3 * (F * 2 + 4) + Q_BATCH * (F * 2 + 4)
+                 + m_k.numel() * 4))
+    # K6 on the shard's clusters.
+    ivf = sspace._ensure_ivf_block_state()
+    err, k_ms, p_ms, bound = _k6_against_plain(
+        torch, ivf, sspace, queries, topk,
+        f"phase 17 (world {sspace.comm.size}, rank 0)",
+        f"[{_smi()}]")
+    out["ivf_scan"] = dict(clusters=ivf.n_clusters, cap=ivf.cap,
+                           max_abs_err=err, disagreeing=0, ms=k_ms,
+                           plain_ms=p_ms, **bound)
+    return out
+
+
+def _cards(n_cards: int) -> int:
+    """--cards N: phase 3's build on cuda:0, then phase 17 at world N under
+    NCCL with rank r on cuda:r, every check of phase 17 against phase 3;
+    prints the cards, the phase's lines and its numbers as JSON."""
+    import torch
+    if torch.cuda.device_count() < n_cards:
+        print(f"chip_smoke: --cards {n_cards} needs {n_cards} GPUs, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch import _build
+    assert "jax" not in sys.modules, "the port must not import jax"
+    card = f"[{_smi()} x {n_cards}]"
+    print(card)
+    _build.load_all(KERNEL_SOURCES)
+    dev = torch.device("cuda", 0)
+    items = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (N, F), dtype=np.float32) * 12.0).to(dev)
+    aspace, gl = pt.ArrowSpaceBuilder.build(GP, items)
+    rng_q = np.random.default_rng(7)
+    src = [rng_q.choice(N, Q_BATCH) for _ in range(N_BATCHES)]
+    batches = [items[torch.as_tensor(src[0], device=dev)] * 1.01]
+    outs = [aspace.search_batch(batches[0], gl, TAU)]
+    results = {name: {} for name in ("knn", "scan_topk", "subtile_max",
+                                     "ivf_scan")}
+    try:
+        _phase_sharded(torch, aspace, gl, batches, src, outs, card, results,
+                       runs=(("nccl", n_cards),), per_card=True)
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED phase 17 (--cards)", file=sys.stderr)
+        return 1
+    print(json.dumps({k: results[k] for k in results}))
+    return 0
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _run_ranks(world: int, backend: str, src0,
+               per_card: bool) -> tuple[list, list]:
+    """Spawn phase 17's ranks on the card, wait for them (killing them past
+    SHARDED_TIMEOUT_S), and return their (json, npz) results by rank."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="arrowspace-ranks-") as tmp:
+        init = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, world, backend, init, tmp, src0,
+                                   per_card))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or any(codes):
+            raise RuntimeError(f"{backend} world {world}: rank exit codes "
+                               f"{codes} ({len(hung)} killed at the time "
+                               "limit)")
+        infos, arrays = [], []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                infos.append(json.load(fh))
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+                arrays.append({k: z[k] for k in z.files})
+    return infos, arrays
+
+
+def _phase_sharded(torch, aspace, gl, batches, src, outs, card, results,
+                   runs=SHARDED_RUNS, per_card: bool = False) -> None:
+    """Phase 17: the sharded build and serving of phase 3's corpus, at
+    world 1 under NCCL and at world 2 under gloo (both ranks on the one
+    card), each spawned from here; every check against phase 3.  With
+    --cards, ``runs`` is one NCCL run with a rank a card."""
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    ref_d = aspace._knn_dist.cpu().numpy()
+    ref_i = aspace._knn_idx.cpu().numpy()
+    ref_lam = aspace.lambdas()
+    ref_idx = gl.neighbor_indices.cpu().numpy()
+    ref_w = gl.neighbor_weights.cpu().numpy()
+    exact_i, exact_v = outs[0]
+    sub_i, sub_v = aspace.search_batch(batches[0], gl, TAU, mode="subtile")
+    checks = {}
+    for backend, world in runs:
+        t0 = time.perf_counter()
+        infos, arrays = _run_ranks(world, backend, src[0], per_card)
+        wall = time.perf_counter() - t0
+        tag = f"world {world} ({backend})"
+        r0, a0 = infos[0], arrays[0]
+        d = np.concatenate([a["knn_d"] for a in arrays])[:N]
+        i = np.concatenate([a["knn_i"] for a in arrays])[:N]
+        lists_same = (np.array_equal(d.view(np.int32), ref_d.view(np.int32))
+                      and np.array_equal(i, ref_i))
+        lap_same = (np.array_equal(a0["nbr_idx"], ref_idx)
+                    and np.array_equal(a0["nbr_w"].view(np.int32),
+                                       ref_w.view(np.int32)))
+        sym = _ell_symmetric(a0["nbr_idx"], a0["nbr_w"])
+        lam_err = float(np.max(np.abs(a0["lambdas"] - ref_lam)
+                               / np.maximum(np.abs(ref_lam), 1e-30)))
+        bad_exact = topk_disagreements(a0["exact_v"], a0["exact_i"],
+                                       exact_v, exact_i, TOL)
+        bad_cert = topk_disagreements(a0["certified_v"], a0["certified_i"],
+                                      exact_v, exact_i, TOL)
+        bad_sub = topk_disagreements(a0["subtile_v"], a0["subtile_i"],
+                                     exact_v, exact_i, TOL)
+        sub_overlap = _overlap(a0["subtile_i"], exact_i)
+        sub_same = (np.array_equal(a0["subtile_i"], sub_i)
+                    and np.array_equal(a0["subtile_v"].view(np.int32),
+                                       sub_v.view(np.int32)))
+        stages = {k: round(v, 4) for k, v in r0["stages"].items()}
+        print(f"phase 17: {tag}: ranks done in {wall:.3f} s (spawn "
+              f"included); build {r0['build_s']:.3f} s, stages (s) "
+              f"{json.dumps(stages)}; serving state (slabs, subtile) "
+              f"{r0['state_s']:.3f} s; QPS on phase 3's first batch of "
+              f"{Q_BATCH}: " + ", ".join(f"{m} {q:.1f}" for m, q in
+                                        r0["qps"].items()) + f" {card}")
+        print(f"phase 17: {tag}: lists bit for bit phase 3's: "
+              f"{lists_same}; L bit for bit phase 3's: {lap_same}, exactly "
+              f"symmetric: {sym}; lambda max relative error "
+              f"{lam_err:.3e} (bound {'0' if world == 1 else LAMBDA_REL_BOUND}"
+              f"); tau* {r0['tau_star']:.9g} (phase 3: "
+              f"{aspace.tau_star:.9g}); queries differing from phase 3's "
+              f"exact beyond near-ties of {TOL:g}: exact {len(bad_exact)}, "
+              f"certified {len(bad_cert)}, subtile {len(bad_sub)} (bf16 "
+              f"routing; top-{GP['topk']} overlap {sub_overlap:.6f}; equal "
+              f"to the one-device subtile bit for bit: {sub_same}); "
+              f"symmetrize fallbacks {r0['fallbacks']}")
+        for info in infos:
+            print(f"phase 17: {tag}: rank {info['rank']} ({info['rows']} "
+                  f"real of {info['n_loc']} rows): launches "
+                  f"{info['launches']}; collectives through host memory: "
+                  f"{info['host_copied'] or 'none'}")
+        for name, v in (r0.get("kernels") or {}).items():
+            print(f"phase 17: {tag}: rank 0's shape, {name}: "
+                  + ", ".join(f"{k} {x:.4g}" if isinstance(x, float)
+                              else f"{k} {x}" for k, x in v.items())
+                  + f" {card}")
+        paths = ("knn", "scan_topk", "subtile_max", "extract_ids",
+                 "gather_score", "extract_pool", "ivf_scan")
+        launched = all(info["launches"][k] > 0 for info in infos
+                       for k in paths)
+        if world > 1:
+            launched = launched and all(info["launches"]["knn_seeded"] > 0
+                                        for info in infos)
+            for name, v in r0["kernels"].items():
+                results[name]["sharded"] = dict(
+                    v, launches=r0["launches"][name],
+                    world=world, backend=backend)
+        checks.update({
+            f"{tag}: lists": lists_same,
+            f"{tag}: L": lap_same and sym,
+            f"{tag}: lambdas": lam_err <= (0.0 if world == 1
+                                           else LAMBDA_REL_BOUND),
+            f"{tag}: exact": not bad_exact,
+            f"{tag}: certified": not bad_cert,
+            f"{tag}: subtile": sub_overlap >= MIN_OVERLAP
+            and (world > 1 or sub_same),
+            f"{tag}: every kernel of the path launched on every rank":
+                launched,
+            f"{tag}: ring through host memory only for gloo":
+                all(set(info["host_copied"])
+                    <= ({"ring_shift"} if backend == "gloo" else set())
+                    for info in infos),
+            f"{tag}: shard kernels vs plain": all(
+                v["max_abs_err"] <= TOL and v.get("disagreeing", 0) == 0
+                for v in (r0.get("kernels") or {}).values()),
+        })
+        results[f"sharded_w{world}"] = dict(
+            build_s=r0["build_s"], stages=r0["stages"], qps=r0["qps"],
+            lambda_max_rel_err=lam_err, host_copied=r0["host_copied"])
+    if not all(checks.values()):
+        raise AssertionError(f"sharded checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _tsdae_corpus(n: int, seed: int = 5) -> list[str]:
+    """n sentences of 6-20 words drawn (Zipf weights) from a fixed list of
+    TSDAE_WORDS two- and three-syllable words."""
+    syll = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    rng = np.random.default_rng(seed)
+    words = sorted({"".join(rng.choice(syll, size=rng.integers(2, 4)))
+                    for _ in range(4 * TSDAE_WORDS)})[:TSDAE_WORDS]
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    return [" ".join(rng.choice(words, size=rng.integers(6, 21), p=p))
+            for _ in range(n)]
+
+
+def _phase_trainers(torch, items, card, results) -> None:
+    """Phase 18: DomainAdapter.fit (linear and mlp) on phase 3's rows at
+    its defaults, transform and a build of the adapted rows; TSDAEEncoder
+    at its defaults fitted on a seeded corpus of TSDAE_SENTENCES
+    sentences, its loss falling, and encode of the corpus into an index."""
+    import pyarrowspace_tpu_torch as pt
+    from pyarrowspace_tpu_torch.models import (DomainAdapter, TSDAEConfig,
+                                               TSDAEEncoder)
+    out, checks = {}, {}
+    # The process's first fit loads the backward and optimizer kernels
+    # (seconds); a fit on 4,096 rows first keeps that out of the timings.
+    t0 = time.perf_counter()
+    for arch in ("linear", "mlp"):
+        DomainAdapter(arch=arch).fit(items[:4096])
+    torch.cuda.synchronize()
+    out["adapter_warmup_s"] = time.perf_counter() - t0
+    print(f"phase 18: warm-up fits (linear, mlp; 4,096 rows, 4 steps) "
+          f"{out['adapter_warmup_s']:.3f} s {card}")
+    for arch in ("linear", "mlp"):
+        ad = DomainAdapter(arch=arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ad.fit(items)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = ad.epochs * (N // ad.batch_size)
+        out[f"adapter_{arch}"] = dict(s=secs, steps=steps,
+                                      steps_per_s=steps / secs,
+                                      loss=ad.losses_[-1])
+        print(f"phase 18: DomainAdapter({arch}) fit on {N}x{F}: hidden "
+              f"{ad.w_enc.shape[1]}, batch {ad.batch_size}, {steps} steps "
+              f"in {secs:.3f} s ({steps / secs:.1f} steps/s), final loss "
+              f"{ad.losses_[-1]:.6f} {card}")
+        checks[f"adapter {arch} loss finite"] = bool(
+            np.isfinite(ad.losses_[-1]))
+        if arch == "linear":
+            t0 = time.perf_counter()
+            adapted = ad.transform(items)
+            t_tr = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            a2, g2 = pt.ArrowSpaceBuilder.build(GP, adapted)
+            t_b = time.perf_counter() - t0
+            lam = a2.lambdas()
+            sym = _ell_symmetric(g2.neighbor_indices.cpu().numpy(),
+                                 g2.neighbor_weights.cpu().numpy())
+            print(f"phase 18: transform {t_tr:.3f} s; build of the adapted "
+                  f"rows {t_b:.3f} s, tau* {a2.tau_star:.6g}, L exactly "
+                  f"symmetric: {sym}, lambdas finite: "
+                  f"{bool(np.all(np.isfinite(lam)))} {card}")
+            out["adapted_build_s"] = t_b
+            checks["adapted build"] = sym and bool(np.all(np.isfinite(lam)))
+            del a2, g2, adapted
+    texts = _tsdae_corpus(TSDAE_SENTENCES)
+    cfg = TSDAEConfig()
+    enc = TSDAEEncoder(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc.fit(texts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = len(enc.losses_)
+    first = float(np.mean(enc.losses_[:64]))
+    last = float(np.mean(enc.losses_[-64:]))
+    t0 = time.perf_counter()
+    emb = enc.encode(texts)
+    t_enc = time.perf_counter() - t0
+    a3, g3 = pt.ArrowSpaceBuilder.build(GP, emb)
+    rows = np.arange(0, TSDAE_SENTENCES, TSDAE_SENTENCES // 64)
+    ids, _ = a3.search_batch(emb[rows], g3, TAU)
+    self_first = float(np.mean(ids[:, 0] == rows))
+    print(f"phase 18: TSDAEEncoder (vocab {cfg.vocab}, d_model "
+          f"{cfg.d_model}, {cfg.n_layers} + {cfg.n_layers} layers, "
+          f"{cfg.heads} heads, max_len {cfg.max_len}, batch "
+          f"{cfg.batch_size}) fit on {len(texts)} sentences: {steps} steps "
+          f"in {secs:.3f} s ({steps / secs:.1f} steps/s); loss first 64 "
+          f"steps {first:.4f}, last 64 {last:.4f}; encode {t_enc:.3f} s; "
+          f"index {emb.shape[0]}x{emb.shape[1]}: tau* {a3.tau_star:.6g}, "
+          f"source row first for {self_first:.3f} of {rows.size} queries "
+          f"{card}")
+    out["tsdae"] = dict(s=secs, steps=steps, steps_per_s=steps / secs,
+                        loss_first=first, loss_last=last, encode_s=t_enc,
+                        self_first=self_first)
+    checks["TSDAE loss falls"] = last < first
+    checks["TSDAE index serves its rows"] = self_first >= 0.9
+    results["trainers"] = out
+    if not all(checks.values()):
+        raise AssertionError(f"trainer checks failed: "
+                             f"{[c for c, ok in checks.items() if not ok]}")
+
+
 def _ptxas_summary(build, name: str) -> str:
     """Registers and spill stores of the kernels of csrc/<name>.cu, from
     ptxas's report that the build keeps beside the library (none when the
@@ -2434,10 +2953,7 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     results: dict = {}
 
     # -- phase 0: device and build -------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(smi)
     card = f"[{smi}]"
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2837,7 +3353,12 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
              lambda: _phase_certified_1m(torch, dev, card, results)),
             ("phase 16 (1M x 768 build)",
              lambda: _phase_build_1m(torch, dev, aspace, gl, card,
-                                     results))):
+                                     results)),
+            ("phase 17 (sharded build and serving)",
+             lambda: _phase_sharded(torch, aspace, gl, batches, src, outs,
+                                    card, results)),
+            ("phase 18 (trainers)",
+             lambda: _phase_trainers(torch, items, card, results))):
         # --measure runs phases 6b, 6c and 11 only; a full run all but 6b
         # and 6c.
         ab_only = ("phase 6b ", "phase 6c ")
@@ -2942,6 +3463,8 @@ if __name__ == "__main__":
         sys.exit(_against(sys.argv[2:]))
     if sys.argv[1:2] == ["--measure"] and len(sys.argv) == 4:
         sys.exit(main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards"] and len(sys.argv) == 3:
+        sys.exit(_cards(int(sys.argv[2])))
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

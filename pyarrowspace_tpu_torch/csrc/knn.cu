@@ -37,8 +37,9 @@
 //   - col_start and seeded: the walk covers [col_start, n) only, its first
 //     tile starting at col_start itself (no column before it is offered),
 //     and each list starts from the sorted list already in its output row.
-//     The incremental extend seeds old rows with their stored lists; the new
-//     column ids exceed every stored id, so the Min rule stays exact.
+//     A seeded list merges with MinLex: the incremental extend's seeds hold
+//     ids below col_start (MinLex then keeps what Min would), a ring step
+//     of the sharded build (parallel/sharded.py) seeds lists of any ids.
 //   - diag_start: block b walks the 128-column tiles from the one holding
 //     its own rows, then wraps around (the TPU kernel's locality walk).  Ids
 //     then arrive out of order, so the lists use MinLex.
@@ -216,8 +217,9 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                                device);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  // A rotated or permuted walk offers ids out of order: MinLex.
-  const bool lex = diag_start || perm;
+  // A rotated or permuted walk, or a seed list of any ids, offers ids out
+  // of order: MinLex.
+  const bool lex = diag_start || perm || seeded;
   auto kernel = lex ? &knn_kernel<tile::MinLex, 2> : &knn_kernel<tile::Min, 2>;
   if (words == 4)
     kernel = lex ? &knn_kernel<tile::MinLex, 4> : &knn_kernel<tile::Min, 4>;

@@ -33,11 +33,12 @@
 // | id ^ 0x80000000) of select.cuh's order_key, which folds -0.0 into +0.0
 // as the float compares of the filter do.  Every list holds distinct ids,
 // the columns of different splits and tiles differ, and a seed's ids lie
-// below col_start, so a survivor's key never equals a list entry's: the
-// merge places each entry by two counts and needs no tie rule.  The masked
-// 2.0 never passes the filter (the empty entry (2.0, -1) is below it), and a
-// NaN fails every compare.  A distance computed here is never -0.0 (1 - x
-// rounds to +0.0), so a key decodes to the distance's own bits.
+// outside the walk's columns, so a survivor's key never equals a list
+// entry's: the merge places each entry by two counts and needs no tie
+// rule.  The masked 2.0 never passes the filter (the empty entry (2.0, -1)
+// is below it), and a NaN fails every compare.  A distance computed here
+// is never -0.0 (1 - x rounds to +0.0), so a key decodes to the
+// distance's own bits.
 //
 // What bounds it: the products, as K1 (2 R N F fp32 multiply-adds).  A
 // row's survivors number about k (1 + ln(C / k)) over a split of C columns,

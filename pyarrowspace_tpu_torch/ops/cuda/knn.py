@@ -237,8 +237,6 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
     ``perm``: xu is the corpus permuted by it (int32 or int64, on xu's
     device); the result is then [N, k] indexed by original row, with the
     rows outside perm[row_start:row_start + R] left (2.0, -1)."""
-    global LAUNCHES, SEEDED_LAUNCHES, DIAG_START_LAUNCHES, PERM_LAUNCHES
-    global SPLIT_LAUNCHES
     n = xu.shape[0] if xu.dim() == 2 else 0
     row_count = check_corpus(xu, k, row_start, row_count)
     if not 0 <= col_start <= n:
@@ -265,24 +263,138 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
     perm32 = None
     if perm is not None:
         perm32 = perm.to(device=xu.device, dtype=torch.int32).contiguous()
-    splits, chunk, part = scratch(row_count, n - col_start, k, xu.device)
+    _launch(xu.data_ptr(), n, xu.shape[1], row_start, row_count, eps, k,
+            col_start, diag_start, perm32, seed is not None, out_d, out_i,
+            xu.device)
+    return out_d, out_i
+
+
+def _launch(base: int, n: int, f: int, row_start: int, row_count: int,
+            eps: float, k: int, col_start: int, diag_start: bool, perm32,
+            seeded: bool, out_d: torch.Tensor, out_i: torch.Tensor,
+            device: torch.device) -> None:
+    """K1's launches for rows [row_start, row_start + row_count) of the
+    float32 rows at address ``base`` ([n, f]) against the columns
+    [col_start, n), in row chunks when the scratch asks for them."""
+    global LAUNCHES, SEEDED_LAUNCHES, DIAG_START_LAUNCHES, PERM_LAUNCHES
+    global SPLIT_LAUNCHES
+    splits, chunk, part = scratch(row_count, n - col_start, k, device)
     lib = _lib()
-    stream = torch.cuda.current_stream(xu.device).cuda_stream
+    stream = torch.cuda.current_stream(device).cuda_stream
     for s in range(0, row_count, chunk):
         rc = min(chunk, row_count - s)
-        at = 0 if perm is not None else s     # the chunk's first output row
+        at = 0 if perm32 is not None else s   # the chunk's first output row
         err = lib.knn_launch(
-            xu.data_ptr(), n, xu.shape[1], row_start + s, rc, float(eps), k,
-            col_start, int(diag_start),
+            base, n, f, row_start + s, rc, float(eps), k, col_start,
+            int(diag_start),
             perm32.data_ptr() if perm32 is not None else None,
-            int(seed is not None), splits,
+            int(seeded), splits,
             part.data_ptr() if part is not None else None,
             out_d[at:].data_ptr(), out_i[at:].data_ptr(),
-            xu.device.index or 0, stream)
+            device.index or 0, stream)
         _build.check(lib, "knn", err)
         LAUNCHES += 1
-        SEEDED_LAUNCHES += seed is not None
+        SEEDED_LAUNCHES += seeded
         DIAG_START_LAUNCHES += bool(diag_start)
-        PERM_LAUNCHES += perm is not None
+        PERM_LAUNCHES += perm32 is not None
         SPLIT_LAUNCHES += splits > 1
-    return out_d, out_i
+
+
+def visit_plain(buf: torch.Tensor, n_loc: int, row_count: int,
+                col_count: int, k: int, eps: float, *, row_id0: int,
+                col_id0: int, seed=None):
+    """The plain version of ``knn_visit``: the products in K1's plain
+    shapes (``_cosines``), the mask, and each row's lexicographic
+    (distance, id) top-k of its seed list and the block's columns."""
+    rows = buf[:row_count]
+    cols = buf[:col_count] if buf.shape[0] == n_loc else \
+        buf[n_loc:n_loc + col_count]
+    dev = buf.device
+    eps_t = torch.as_tensor(eps, dtype=buf.dtype)
+    col_ids = col_id0 + torch.arange(col_count, device=dev)
+    tile = min(_COL_TILE, -(-max(col_count, 1) // _ROW_BLOCK) * _ROW_BLOCK)
+    out_d, out_i = [], []
+    for s in range(0, row_count, _ROW_BLOCK):
+        r_ids = row_id0 + torch.arange(s, min(s + _ROW_BLOCK, row_count),
+                                       device=dev)
+        d = 1.0 - torch.clamp_min(_cosines(rows[s:s + _ROW_BLOCK], cols, 0,
+                                           tile), 0.0)
+        d = d.masked_fill((col_ids[None, :] == r_ids[:, None]) | (d > eps_t),
+                          INF_DIST)
+        ids = col_ids.expand(d.shape[0], -1)
+        if seed is not None:
+            d = torch.cat([seed[0][s:s + _ROW_BLOCK].to(d.dtype), d], dim=1)
+            ids = torch.cat([seed[1][s:s + _ROW_BLOCK].to(ids.dtype), ids],
+                            dim=1)
+        if d.shape[1] < k:
+            d = torch.nn.functional.pad(d, (0, k - d.shape[1]),
+                                        value=INF_DIST)
+            ids = torch.nn.functional.pad(ids, (0, k - ids.shape[1]),
+                                          value=-1)
+        order = torch.sort(ids, dim=1, stable=True).indices
+        d, ids = torch.gather(d, 1, order), torch.gather(ids, 1, order)
+        d, order = torch.sort(d, dim=1, stable=True)
+        d = d[:, :k]
+        i = torch.gather(ids, 1, order[:, :k])
+        out_d.append(d)
+        out_i.append(torch.where(d < INF_DIST, i, -1).to(torch.int32))
+    if not out_d:
+        return (buf.new_empty((0, k)),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def knn_visit(buf: torch.Tensor, n_loc: int, row_count: int, col_count: int,
+              k: int, eps: float, *, row_id0: int, col_id0: int, seed=None):
+    """K1 over one block of a ring: (dist [R, k], idx [R, k] int32) of the
+    rows buf[:R] (global ids row_id0 + r, R = row_count) against C =
+    col_count columns with global ids col_id0 + c, merged with ``seed`` =
+    (d, i) [R, k] sorted lists (any ids) into each row's lexicographic
+    (distance, id) top-k, the same lists a scan of the whole corpus gives.
+
+    ``buf`` is contiguous: either [n_loc, F], the self block (the columns
+    are buf[:C] themselves, row_id0 == col_id0, self pairs masked), or
+    [2 n_loc, F], a visiting block (columns buf[n_loc:n_loc + C], no
+    self pair).  On a CUDA tensor the launch addresses buf so that its
+    rows carry kernel ids g + n_loc (g the global id, so every id is
+    positive and a visiting block lies above the rows): the rows' base
+    address less (row id) * F floats, an address never read below buf.
+    The kernel's columns are then [col_id0 + n_loc, col_id0 + n_loc + C),
+    its seeded lists take the lexicographic merge, and the ids come back
+    shifted down by n_loc."""
+    two = buf.shape[0] == 2 * n_loc
+    if buf.dim() != 2 or not (two or buf.shape[0] == n_loc):
+        raise ValueError(f"buf must be [n_loc or 2 n_loc, F], got "
+                         f"{tuple(buf.shape)} with n_loc {n_loc}")
+    if not (0 <= row_count <= n_loc and 0 <= col_count <= n_loc):
+        raise ValueError("row_count and col_count must lie in [0, n_loc]")
+    if not two and (row_id0 != col_id0 or row_count > col_count):
+        raise ValueError("a self block has row_id0 == col_id0 and its rows "
+                         "among its columns")
+    if seed is not None and (seed[0].shape != (row_count, k)
+                             or seed[1].shape != (row_count, k)):
+        raise ValueError(f"seed lists must be [{row_count}, {k}] pairs")
+    if buf.device.type == "cpu":
+        return visit_plain(buf, n_loc, row_count, col_count, k, eps,
+                           row_id0=row_id0, col_id0=col_id0, seed=seed)
+    check_corpus(buf, k, 0, row_count)
+    out_d = torch.full((row_count, k), INF_DIST, dtype=torch.float32,
+                       device=buf.device)
+    out_i = torch.full((row_count, k), -1, dtype=torch.int32,
+                       device=buf.device)
+    if seed is not None:
+        out_d.copy_(seed[0])
+        out_i.copy_(torch.where(seed[1] >= 0, seed[1] + n_loc, -1))
+    if row_count == 0 or col_count == 0:
+        return out_d, seed[1].clone() if seed is not None else out_i
+    f = buf.shape[1]
+    col_start = col_id0 + n_loc
+    row_start = col_start - (n_loc if two else 0)
+    n = col_start + col_count
+    if n >= 2 ** 31 // max(f, 1):
+        raise ValueError(f"ring ids up to {n} x F {f} pass the kernel's "
+                         "int32 offsets")
+    base = buf.data_ptr() - row_start * f * buf.element_size()
+    _launch(base, n, f, row_start, row_count, eps, k, col_start, False, None,
+            seed is not None, out_d, out_i, buf.device)
+    return out_d, torch.where(out_i >= 0, out_i - n_loc, -1)

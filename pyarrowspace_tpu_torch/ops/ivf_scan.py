@@ -81,29 +81,33 @@ def _topk_ids(score: torch.Tensor, k: int) -> torch.Tensor:
         ..., :k]
 
 
-def build_blocked_ivf(xu: torch.Tensor, lambdas: torch.Tensor,
-                      centroids: torch.Tensor, assignments,
-                      capacity_factor: float = 2.0, slab_dtype=None,
-                      certify: bool = True,
-                      min_cap: Optional[int] = None) -> BlockedIVF:
-    """Reorder the corpus cluster-contiguously with per-cluster padding.
-
-    Items beyond their cluster's capacity spill to the NEAREST cluster with
-    free capacity (by unit-centroid similarity, 8 candidates each, a host
-    greedy over the free-slot table), then to any free slot, so the slab
-    layout is a PARTITION of the corpus.  cap = max(8, ceil(capacity_factor
-    * n / K)), at least min_cap, rounded up to 128 (the reference's
-    layout).  slab_dtype (torch.bfloat16 / torch.float16) stores the slabs
-    in reduced precision, with the per-slab cast residuals the rescored
-    certificate needs."""
-    n = xu.shape[0]
-    k = centroids.shape[0]
-    dev = xu.device
-    assign = torch.as_tensor(assignments).cpu().numpy().astype(np.int64)
+def slab_cap(n: int, k: int, capacity_factor: float = 2.0,
+             min_cap: Optional[int] = None) -> int:
+    """The slab capacity of n items in k clusters: max(8, ceil(
+    capacity_factor * n / k)), at least min_cap, rounded up to 128 (the
+    reference's layout)."""
     cap = max(8, int(np.ceil(capacity_factor * n / k)))
     if min_cap is not None:
         cap = max(cap, int(min_cap))
-    cap = ((cap + 127) // 128) * 128
+    return ((cap + 127) // 128) * 128
+
+
+def unit_centroids(centroids: torch.Tensor) -> torch.Tensor:
+    """float32 unit centroids (a zero centroid stays zero)."""
+    cu = centroids.to(_F32)
+    return cu / torch.clamp_min(torch.linalg.norm(cu, dim=1, keepdim=True),
+                                1e-30)
+
+
+def plan_slots(assign: np.ndarray, k: int, cap: int,
+               overflow_candidates) -> np.ndarray:
+    """The slab layout's slot table [k * cap] (int64 item id, -1 for a
+    padded slot): each cluster's members in item order up to cap, then the
+    items beyond their cluster's capacity spilled to the NEAREST cluster
+    with free capacity (a host greedy over the free-slot table; candidates
+    best first from ``overflow_candidates(ids) -> [len(ids), m]``), then to
+    any free slot, so the layout is a PARTITION of the items."""
+    n = assign.shape[0]
     order = np.argsort(assign, kind="stable")
     sorted_assign = assign[order]
     starts = np.searchsorted(sorted_assign, np.arange(k))
@@ -111,15 +115,11 @@ def build_blocked_ivf(xu: torch.Tensor, lambdas: torch.Tensor,
     in_slab = rank < cap
     slot = np.full(k * cap, -1, dtype=np.int64)
     slot[sorted_assign[in_slab] * cap + rank[in_slab]] = order[in_slab]
-    cu = centroids.to(_F32)
-    cu = cu / torch.clamp_min(torch.linalg.norm(cu, dim=1, keepdim=True),
-                              1e-30)
     overflow = order[~in_slab]
     if overflow.size:
         free_per = cap - np.minimum(np.bincount(assign, minlength=k), cap)
-        m_cand = min(8, k)
-        sims_o = xu.to(_F32)[torch.as_tensor(overflow, device=dev)] @ cu.T
-        cand = _topk_ids(sims_o, m_cand).cpu().numpy()   # [n_over, m_cand]
+        cand = np.asarray(overflow_candidates(overflow))
+        m_cand = cand.shape[1]
         placed = np.zeros(overflow.size, dtype=bool)
         for m in range(m_cand):   # candidate rank, best first
             rem = np.flatnonzero(~placed)
@@ -143,14 +143,54 @@ def build_blocked_ivf(xu: torch.Tensor, lambdas: torch.Tensor,
             if free.size < rest.size:   # cap guarantees k * cap >= n
                 raise AssertionError("slab capacity accounting violated")
             slot[free[: rest.size]] = rest
+    return slot
 
+
+def build_blocked_ivf(xu: torch.Tensor, lambdas: torch.Tensor,
+                      centroids: torch.Tensor, assignments,
+                      capacity_factor: float = 2.0, slab_dtype=None,
+                      certify: bool = True,
+                      min_cap: Optional[int] = None) -> BlockedIVF:
+    """Reorder the corpus cluster-contiguously with per-cluster padding.
+
+    Items beyond their cluster's capacity spill to the NEAREST cluster with
+    free capacity (by unit-centroid similarity, 8 candidates each;
+    plan_slots), so the slab layout is a PARTITION of the corpus.  cap is
+    slab_cap(n, K, capacity_factor, min_cap).  slab_dtype (torch.bfloat16
+    / torch.float16) stores the slabs in reduced precision, with the
+    per-slab cast residuals the rescored certificate needs."""
+    n = xu.shape[0]
+    k = centroids.shape[0]
+    dev = xu.device
+    assign = torch.as_tensor(assignments).cpu().numpy().astype(np.int64)
+    cap = slab_cap(n, k, capacity_factor, min_cap)
+    cu = unit_centroids(centroids)
+    m_cand = min(8, k)
+    slot = plan_slots(assign, k, cap, lambda ov: _topk_ids(
+        xu.to(_F32)[torch.as_tensor(ov, device=dev)] @ cu.T,
+        m_cand).cpu().numpy())
     # Only the slot table crosses to the device; the reorder is a gather
     # there.  Padded slots hold a copy of row 0: the scan masks them by
     # id < 0, and their lambda +inf zeroes the proximity term.
     valid = torch.as_tensor(slot >= 0, device=dev)
     safe = torch.as_tensor(np.where(slot >= 0, slot, 0), device=dev)
-    slabs = xu.to(_F32)[safe]
-    lam = torch.where(valid, lambdas.to(_F32)[safe], torch.inf)
+    return blocked_from_slots(xu.to(_F32)[safe], lambdas.to(_F32)[safe],
+                              slot, cu, cap, certify=certify,
+                              slab_dtype=slab_dtype)
+
+
+def blocked_from_slots(rows32: torch.Tensor, lam32: torch.Tensor,
+                       slot: np.ndarray, cu: torch.Tensor, cap: int, *,
+                       certify: bool = True, slab_dtype=None) -> BlockedIVF:
+    """A BlockedIVF over the slots ``slot`` [K * cap] (item id or -1) of
+    K = len(cu) clusters: ``rows32`` [K * cap, F] and ``lam32`` [K * cap]
+    hold each slot's row and lambda in float32 (anything where the slot
+    is padded), ``cu`` [K, F] the unit centroids."""
+    k = cu.shape[0]
+    dev = rows32.device
+    valid = torch.as_tensor(slot >= 0, device=dev)
+    slabs = rows32
+    lam = torch.where(valid, lam32, torch.inf)
     radii = lam_lo = lam_hi = nonempty = res_eps = None
     if certify:
         radii, lam_lo, lam_hi, nonempty = _cert_state(slabs, lam, valid, cu,

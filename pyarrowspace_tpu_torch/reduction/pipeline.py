@@ -14,10 +14,13 @@ empty-cluster reseeding, ``reduce_corpus(reseed_empty=True)``),
 Every random draw is a numpy ``default_rng`` draw in the same calls and
 the same order as the reference, and the reseeding's Gumbel noise is the
 reference's ``jax.random`` stream (utils/prng.py), so on CPU the port
-picks the same sample, initial centroids and reseeds.  The centroid sums
-are ``utils.stats.segment_sum``: a sorted segment sum with no atomics, so
-two runs on the card give the same bits (close to the reference's, not
-equal to them); on the CPU it adds the rows in row order.
+picks the same sample, initial centroids and reseeds.  On the CPU the
+centroid sums are ``utils.stats.segment_sum`` (the rows added in row
+order).  On the card they are exact int64 fixed-point sums
+(``fixed_point_sums``) and every assignment product has one shape
+(``_assign_block``): two runs give the same bits (close to the
+reference's, not equal to them), and so does any split of the rows across
+the ranks of parallel/sharded.py.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ log_clustering = get_logger("clustering")
 
 SAMPLING_KEEP_RATE = 0.6  # observed in reference build logs (suggested_eps.md:6)
 
-# Row blocks keep the [rows, K] assignment distances near this many elements.
+# Row blocks keep the [rows, K] assignment distances near this many elements
+# (CPU); on the card every assignment product has _CUDA_ROWS rows.
 _ASSIGN_BLOCK_ELEMS = 2 ** 27
+_CUDA_ROWS = 8192
 
 
 @dataclasses.dataclass
@@ -84,20 +89,38 @@ def twonn_intrinsic_dim(x: torch.Tensor, seed: int = 42,
     return max(1, int(round(1.0 / mean_log_mu))), mean_log_mu
 
 
+def _assign_block(n: int, k: int, device: torch.device) -> int:
+    """Rows of one assignment product.  On the card always _CUDA_ROWS (the
+    last block zero padded), so a row's distances come from products of
+    one shape wherever the row sits: one device and the shards of
+    parallel/sharded.py give the same bits.  On the CPU, blocks of a
+    bounded [rows, K] size."""
+    if device.type == "cuda":
+        return _CUDA_ROWS
+    return n if n * k <= _ASSIGN_BLOCK_ELEMS else max(
+        8, (_ASSIGN_BLOCK_ELEMS // k) // 8 * 8)
+
+
 def _assign_argmin_dist(x: torch.Tensor, c: torch.Tensor):
     """Nearest centroid per row (first index on ties) and the squared
-    distance to it, in row blocks of a bounded [rows, K] size."""
+    distance to it, in row blocks (``_assign_block``)."""
     n, k = x.shape[0], c.shape[0]
     c_sq = torch.sum(c * c, dim=1)[None, :]
-    block = n if n * k <= _ASSIGN_BLOCK_ELEMS else max(
-        8, (_ASSIGN_BLOCK_ELEMS // k) // 8 * 8)
+    block = _assign_block(n, k, x.device)
+    pad = x.device.type == "cuda"
     out_a, out_d = [], []
     for s in range(0, n, block):
         xb = x[s:s + block]
+        rows = xb.shape[0]
+        if pad and rows < block:
+            xb = torch.cat([xb, xb.new_zeros((block - rows, xb.shape[1]))])
         d2 = torch.sum(xb * xb, dim=1)[:, None] + c_sq - 2.0 * (xb @ c.T)
-        d2min, a = torch.min(d2, dim=1)
+        d2min, a = torch.min(d2[:rows], dim=1)
         out_a.append(a.to(torch.int32))
         out_d.append(d2min)
+    if not out_a:
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                x.new_empty(0))
     return torch.cat(out_a), torch.cat(out_d)
 
 
@@ -113,14 +136,49 @@ def _lloyd(x: torch.Tensor, centroids: torch.Tensor, n_iters: int):
     return c, _assign_argmin(x, c)
 
 
+def fixed_point_scale(max_abs: float, n: int) -> float:
+    """2^s for exact int64 sums of n values of magnitude at most max_abs:
+    the largest s with n * max_abs * 2^s under 2^61."""
+    if not max_abs > 0:
+        return 1.0
+    return math.ldexp(1.0, math.floor(61 - math.log2(max_abs * max(n, 1))))
+
+
+def fixed_point_sums(x: torch.Tensor, a: torch.Tensor, k: int,
+                     scale: float) -> torch.Tensor:
+    """[k, F] int64 sums of the rows of x per segment a, each value taken
+    as round(x * scale): integer sums, exact in any order and any split of
+    the rows (the atomics of index_add_ give the same bits every run)."""
+    q = torch.round(x * scale).to(torch.int64)
+    out = torch.zeros((k, x.shape[1]), dtype=torch.int64, device=x.device)
+    return out.index_add_(0, a.to(torch.int64), q)
+
+
+def centroids_from_sums(sums: torch.Tensor, cnts: torch.Tensor,
+                        c: torch.Tensor, scale: float) -> torch.Tensor:
+    """The means of fixed_point_sums (float64, then c's dtype); an empty
+    cluster keeps its centroid."""
+    mean = (sums.to(torch.float64) / scale) / torch.clamp_min(
+        cnts.to(torch.float64), 1.0)[:, None]
+    return torch.where(cnts[:, None] > 0, mean.to(c.dtype), c)
+
+
 def _centroid_update(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor):
     """Lloyd's mean update (empty clusters keep their centroid) and the
-    cluster sizes."""
+    cluster sizes.  On the card the sums are fixed_point_sums at the
+    scale of the rows' largest magnitude (the same bits for any split of
+    the rows: parallel/sharded.py's Lloyd); on the CPU, segment_sum."""
     k = c.shape[0]
     a = a.to(torch.int64)
-    sums = segment_sum(x, a, k)
     # Counts are integers: exact in any order.
-    cnts = torch.bincount(a, minlength=k).to(x.dtype)
+    cnts = torch.bincount(a, minlength=k)
+    if x.device.type == "cuda":
+        scale = fixed_point_scale(float(x.abs().max()) if x.numel() else 0.0,
+                                  x.shape[0])
+        return (centroids_from_sums(fixed_point_sums(x, a, k, scale), cnts,
+                                    c, scale), cnts.to(x.dtype))
+    sums = segment_sum(x, a, k)
+    cnts = cnts.to(x.dtype)
     return torch.where(cnts[:, None] > 0,
                        sums / torch.clamp_min(cnts[:, None], 1.0), c), cnts
 
