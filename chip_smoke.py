@@ -40,7 +40,12 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      bit the blend (tile::blend's op order, in PyTorch) of K5's cosine
      for that id, K5 on float32 operands (its SIMT route, the fmaf chain
      K2 keeps: compare.py::k5_blend); the torch.mm yardstick beside K2's
-     time; K2 at k 200 timed on the 4,096 queries;
+     time; K2's wide lists (csrc/knn_wide.cuh's route with K2's epilogue)
+     at k 200 on the 4,096 queries and at k 1,024 on 1,024 (within 1e-5 of
+     the plain version there), each in turns with its plain version,
+     beside its bound, its route (wide and the corpus splits), its wide
+     launches in one call (at least one) and K2 at k 15 on the same
+     queries;
   5. subtile serving on that index: search_batch(mode="subtile"), then
      mode="auto", over the same 8 batches, each after a warm-up, with the
      counts reset before each: K3, K4b, K5 and K4a must all have run, K3
@@ -77,8 +82,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      with its ids against its plain version's on 1,024 queries, its bound
      and torch.topk in turns, K7 alone (a batch of 16,384, its route and
      bound; ids and scores bit for bit its plain version's on 1,024
-     queries) and the peak device memory; exact and subtile in turns over
-     the 2 batches;
+     queries), K7 at a wide pool of 200 (past the 82 entries that fit
+     beside its ring at F 768: the batch of 16,384 timed, and bit for bit
+     and in turns with its plain version on 1,024 queries) and the peak
+     device memory; exact and subtile in turns over the 2 batches;
   8. blocked-IVF and certified serving on phase 3's index: enable_ivf()
      (the build's own clustering), then search_batch(mode="ivf_block") and
      mode="certified" (n_probe 8) over phase 3's 8 batches, each after a
@@ -107,7 +114,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      (csrc/scan_int8.cu) must have run, on its tensor-core route; K7
      against its plain version on the first batch (ids identical, scores
      bit for bit), timed in turns, and its SIMT route (the same rows as a
-     strided view) bit for bit its tensor-core route, timed;
+     strided view) bit for bit its tensor-core route, timed; K7's wide
+     pools of 200 and 400 (past the 130 entries that fit beside its ring
+     at F 384) on the same batch, each bit for bit and in turns with its
+     plain version, one wide launch each;
      the served ids equal phase 3's exact ids outside near-ties of 1e-5 on
      every query whose exact top-15 lies in K7's pool of 60;
   11. the bfloat16 serving view (as_serving) of that index: exact search
@@ -243,14 +253,15 @@ seeded generator with 16,384 queries (each K3 held against its plain
 version on 1,024 queries, not against this tree's bits), K4b and K4a at
 phase 6's shapes and on that corpus's maxima and phase b (each in turns
 with torch.topk) and at m 1,024 (in turns with their plain versions), K7
-on phase 10's first batch and over a
-seeded 1,000,000 x 768 int8 corpus with 16,384 queries, and K6 on phase
+on phase 10's first batch (pools 60, 200 and 400) and over a
+seeded 1,000,000 x 768 int8 corpus with 16,384 queries (pools 60 and
+200), and K6 on phase
 8's routed first batch and on phase 9's 1M mixture over float32 and
 bfloat16 slabs (each held against its plain version).  Then every run's
 k-NN lists (phase 3's, and phase 1's K1t lists at k 25 and K1's over the
-last 9,416 rows and at k 200 and 1,024), lambdas, exact top-k ids, K4b
-and K4a ids and K6 and K7 outputs (ids and scores) must equal this tree's
-bit for bit.
+last 9,416 rows and at k 200 and 1,024), lambdas, exact top-k ids, K2's
+lists at k 200 and 1,024, K4b and K4a ids and K6 and K7 outputs (ids and
+scores) must equal this tree's bit for bit.
 """
 
 from __future__ import annotations
@@ -271,7 +282,8 @@ Q_BATCH, N_BATCHES, TAU = 4096, 8, 0.62
 K1_CHECK_ROWS, K1_TIME_ROWS = 2048, 16_384
 K1_WIDE, K2_WIDE, K2_WIDE_QUERIES = 100, 200, 1024
 K1_DEVICE_LIST = 200  # a K1 list past 128, in device memory: timed
-K_WIDEST = 1024       # lists past 256: kept in place in device memory
+K_WIDEST = 1024       # the longest lists timed (K1, K2, K4a, K4b)
+K7_WIDE_POOLS = (200, 400)   # K7's wide pools (topk 50 and 100)
 MIN_OVERLAP = 0.99
 N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
 N_PROBE, MIX_CLUSTERS, MIX_NOISE, Q_NOISE = 8, 4096, 0.35, 0.25
@@ -900,9 +912,12 @@ def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
     xq, scales = aspace._quantized
     qb = batches[0]
     qq, qs = quantize_rows(unit_normalize(qb))
-    k7("k7", (xq, scales.to(f32).contiguous(),
-              aspace._lambdas.to(f32).contiguous(), qq, qs,
-              _query_lambdas32(torch, aspace, qb), TAU, m))
+    args = (xq, scales.to(f32).contiguous(),
+            aspace._lambdas.to(f32).contiguous(), qq, qs,
+            _query_lambdas32(torch, aspace, qb), TAU)
+    k7("k7", args + (m,))
+    for pool in K7_WIDE_POOLS:
+        k7(f"k7_pool{pool}", args + (pool,))
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     x1, s1 = quantize_rows(unit_normalize(torch.randn(
@@ -912,6 +927,8 @@ def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
         (Q1M, F1M), generator=gen, device=dev)))
     lq1 = torch.rand(Q1M, generator=gen, device=dev)
     k7("k7_1m", (x1, s1, lam1, q1, qs1, lq1, TAU, m))
+    k7(f"k7_1m_pool{K7_WIDE_POOLS[0]}",
+       (x1, s1, lam1, q1, qs1, lq1, TAU, K7_WIDE_POOLS[0]))
     del x1, q1
 
     has_tiles = "tiles" in inspect.signature(k6.ivf_scan).parameters
@@ -1061,6 +1078,13 @@ def _phase_north_star(torch, dev, card, results) -> None:
           f"{Q1M}, pool {m}, bound {k7_bound['bound_ms']:.3f} ms "
           f"({k7_bound['bound_by']}); ids and scores bit for bit the plain "
           f"version's on {Q1M_CHECK} queries: {k7_same} {card}")
+    # A wide pool at 1M (past the 82 entries that fit beside the ring at F
+    # 768): against its plain version on the first Q1M_CHECK queries.
+    pool = K7_WIDE_POOLS[0]
+    k7w = _k7_wide(torch, scan_int8, k7_args[:-1] + (pool,),
+                   chk[:-1] + (pool,), f"phase 7: K7 pool {pool}", card)
+    k7w["narrow_ms"] = k7_ms
+    results["wide_int8_1m"] = k7w
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     turns = _exact_vs_subtile(torch, aspace, queries[:2], dict(topk=topk))
     results["north_star"] = dict(qps=qps, overlap=overlap,
@@ -1086,10 +1110,12 @@ def _phase_north_star(torch, dev, card, results) -> None:
     del aspace, st, queries, xq, qq
     if not ok or overlap < MIN_OVERLAP or overlap_int8 < MIN_OVERLAP \
             or not k7_same or k7_route != "tensor-core" \
+            or not (k7w["bitwise"] and k7w["launches"] == 1) \
             or not (k4["k4b_same"] and k4["k4a_same"]):
         raise AssertionError(f"1M serving check failed: results ok {ok}, "
                              f"overlap {overlap}, int8 {overlap_int8}, K7 "
                              f"bitwise {k7_same} on the {k7_route} route, "
+                             f"pool {pool} {k7w['bitwise']}, "
                              f"K4b / K4a ids {k4['k4b_same']} / "
                              f"{k4['k4a_same']}")
 
@@ -1727,6 +1753,45 @@ def _query_lambdas32(torch, aspace, qb):
         tau_mix=aspace._tau_mix).to(f32).contiguous()
 
 
+def _k7_wide(torch, scan_int8, args, chk, label, card) -> dict:
+    """K7 with a wide pool: its launches in one call on ``args``, its ids
+    and scores bit for bit the plain version's on ``chk`` (the same pool,
+    the first queries), and the two timed in turns on ``chk``; at 1M the
+    kernel also on all of ``args``."""
+    before = scan_int8.WIDE_LAUNCHES
+    i, sc = scan_int8.scan_int8(*args)
+    launches = scan_int8.WIDE_LAUNCHES - before
+    q, q_chk = args[3].shape[0], chk[3].shape[0]
+    ip, sp = scan_int8.scan_int8_plain(*chk)
+    same = (_bits_equal(torch, i[:q_chk], ip)
+            and _bits_equal(torch, sc[:q_chk], sp))
+    ms, plain_ms = _in_turns(lambda: scan_int8.scan_int8_plain(*chk),
+                             lambda: scan_int8.scan_int8(*chk), torch)
+    xq, m = args[0], args[-1]
+    n, f = xq.shape
+    out = dict(k=m, queries=q, plain_queries=q_chk, ms=ms, plain_ms=plain_ms,
+               library_ms=None, launches=launches, bitwise=same,
+               max_abs_err=float((sc[:q_chk].double() - sp.double()).abs()
+                                 .max()),
+               kernel_route=scan_int8.route_name(xq, args[3]),
+               lists=scan_int8.lists_name(xq, args[3], m),
+               **_bound(2.0 * q_chk * n * f, "int8",
+                        n * (f + 8) + q_chk * (f + 8 + m * 8)))
+    if q != q_chk:
+        out["full_ms"] = _events_ms(lambda: scan_int8.scan_int8(*args),
+                                    torch)
+        out["full_bound_ms"] = _bound(
+            2.0 * q * n * f, "int8",
+            n * (f + 8) + q * (f + 8 + m * 8))["bound_ms"]
+    print(f"{label} ({out['kernel_route']}, {out['lists']}, {launches} wide "
+          f"launch) Q={q_chk} N={n} F={f}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms in turns, bound {out['bound_ms']:.3f} ms; "
+          + (f"Q={q}: {out['full_ms']:.3f} ms, bound "
+             f"{out['full_bound_ms']:.3f} ms; " if q != q_chk else "")
+          + f"bit for bit the plain version: {same} {card}")
+    return out
+
+
 def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
                 results) -> None:
     """Phase 10: search_batch(mode="int8") on the phase-3 index over phase
@@ -1779,6 +1844,15 @@ def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
     results["scan_int8"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                 library_ms=None, kernel_route=route,
                                 simt_ms=simt_ms, **bound)
+    # Wide pools (past the 130 entries that fit beside the ring at F 384),
+    # each bit for bit and in turns with its plain version.
+    for pool in K7_WIDE_POOLS:
+        args_w = args[:-1] + (pool,)
+        results.setdefault("wide_int8", {})[f"pool{pool}"] = dict(
+            _k7_wide(torch, scan_int8, args_w, args_w,
+                     f"phase 10: K7 pool {pool}", card), narrow_ms=k_ms)
+    bad_pools = [key for key, v in results["wide_int8"].items()
+                 if not (v["bitwise"] and v["launches"] == 1)]
     # Served == exact wherever the exact top-15 is in the K7 pool.
     covered = bad = 0
     for b, o, e in zip(batches, got, outs_exact):
@@ -1818,6 +1892,7 @@ def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
         "K7 scores == plain": err == 0.0 and same_bits,
         "K7's SIMT route == its tensor-core route":
             simt_same and simt_route == "simt",
+        "K7's wide pools == plain, one wide launch each": not bad_pools,
         "served == exact where the pool holds it": bad == 0,
         "result shapes": all(o[0].shape == (Q_BATCH, topk)
                              and np.all(np.isfinite(o[1])) for o in got)}
@@ -3269,14 +3344,41 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
         bad_w = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
         err_w = max_abs_err(s_k, s_p)
-        k2_wide_ms = sum(_events_ms(lambda: scan_topk.lambda_search(
-            xs, lams, qn, lam_q, TAU, K2_WIDE), torch) for _ in range(2)) / 2
-        results.setdefault("wide", {})["scan_topk_k200"] = dict(
-            k=K2_WIDE, queries=Q_BATCH, ms=k2_wide_ms)
+        # K2's wide lists (k > 128), each timed in turns with its plain
+        # version: k 200 over the whole batch, k 1,024 over 1,024 queries;
+        # the launches are the wide route's in one call.
+        wide = results.setdefault("wide", {})
+        for key, k_w, qv, lv in (("scan_topk_k200", K2_WIDE, qn, lam_q),
+                                 ("scan_topk", K_WIDEST, qw, lw)):
+            before = getattr(scan_topk, "WIDE_LAUNCHES", 0)
+            i_f, s_f = scan_topk.lambda_search(xs, lams, qv, lv, TAU, k_w)
+            launches_w = getattr(scan_topk, "WIDE_LAUNCHES", 0) - before
+            ms_w, plain_w = _in_turns(
+                lambda: scan_topk.scan_plain(xs, lams, qv, lv, TAU, k_w),
+                lambda: scan_topk.lambda_search(xs, lams, qv, lv, TAU, k_w),
+                torch)
+            q_w = qv.shape[0]
+            narrow_w = k_ms if q_w == Q_BATCH else _events_ms(
+                lambda: scan_topk.lambda_search(xs, lams, qv, lv, TAU, topk),
+                torch)
+            wide[key] = dict(
+                k=k_w, queries=q_w, ms=ms_w, plain_ms=plain_w,
+                narrow_ms=narrow_w, library_ms=None, launches=launches_w,
+                lists=_route(scan_topk, N, q_w, k_w, dev),
+                **_bound(2.0 * q_w * N * F, "fp32",
+                         N * (F + 1) * 4 + q_w * ((F + 1) * 4 + k_w * 8)))
+            results.setdefault("ab_dump", {}).update(
+                {f"k2_k{k_w}_ids": i_f.cpu().numpy(),
+                 f"k2_k{k_w}_scores": s_f.cpu().numpy()})
+            print(f"phase 2: K2 at k={k_w} ({wide[key]['lists']}, "
+                  f"{launches_w} wide launch) Q={q_w}: kernel {ms_w:.3f} "
+                  f"ms, plain {plain_w:.3f} ms in turns; k={topk} on the "
+                  f"same queries {narrow_w:.3f} ms; bound "
+                  f"{wide[key]['bound_ms']:.3f} ms {card}")
+        wide["scan_topk_k200"]["max_abs_err"] = err_w
         print(f"phase 2: K2 at k={K2_WIDE} vs plain on {K2_WIDE_QUERIES} "
               f"queries: max_abs_err {err_w:.3e}, disagreeing queries "
-              f"{len(bad_w)}; on {Q_BATCH} queries {k2_wide_ms:.3f} ms (k="
-              f"{topk}: {k_ms:.3f} ms) {card}")
+              f"{len(bad_w)}")
         print(f"phase 2: K2 == K5 + blend bit for bit: {witness} at k="
               f"{topk} on {Q_BATCH} queries, {witness_w} at k={K2_WIDE} on "
               f"{K2_WIDE_QUERIES}")
@@ -3286,23 +3388,15 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
         bad_x = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
         err_x = max_abs_err(s_k, s_p)
-        wide_ms, wide_plain_ms = _in_turns(
-            lambda: scan_topk.scan_plain(xs, lams, qw, lw, TAU, K_WIDEST),
-            lambda: scan_topk.lambda_search(xs, lams, qw, lw, TAU, K_WIDEST),
-            torch)
-        narrow_ms = _events_ms(
-            lambda: scan_topk.lambda_search(xs, lams, qw, lw, TAU, topk),
-            torch)
-        results.setdefault("wide", {})["scan_topk"] = dict(
-            k=K_WIDEST, ms=wide_ms, plain_ms=wide_plain_ms,
-            narrow_ms=narrow_ms)
+        wide["scan_topk"]["max_abs_err"] = err_x
         print(f"phase 2: K2 at k={K_WIDEST} vs plain on {K2_WIDE_QUERIES} "
               f"queries: max_abs_err {err_x:.3e}, disagreeing queries "
-              f"{len(bad_x)}; kernel {wide_ms:.3f} ms (k={topk}: "
-              f"{narrow_ms:.3f} ms), plain {wide_plain_ms:.3f} ms {card}")
+              f"{len(bad_x)}")
         results["scan_topk"]["max_abs_err"] = max(err, err_w, err_x)
+        no_wide = hasattr(scan_topk, "WIDE_LAUNCHES") and not all(
+            wide[key]["launches"] for key in ("scan_topk_k200", "scan_topk"))
         if bad or err > TOL or bad_w or err_w > TOL or bad_x or err_x > TOL \
-                or not (witness and witness_w):
+                or not (witness and witness_w) or no_wide:
             raise AssertionError(f"K2 check failed: queries {bad[:10]}, "
                                  f"err {err}, K5 {witness} / {witness_w}, "
                                  f"k={K2_WIDE} queries "
@@ -3447,10 +3541,20 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
          "replaces": pallas + tpu, "launches": results[path][counter],
          **results[name]}
         for name, source, tpu, path, counter in table]
-    kernels[0]["wide_lists"] = {
-        f"k{v['k']}": {**v, "source": "pyarrowspace_tpu_torch/csrc/"
-                                      "knn_wide.cuh"}
-        for v in (results["wide"]["knn_k200"], results["wide"]["knn"])}
+    # The wide lists of K1, K2 and K7, each entry its own timing.
+    by_name = {kern["name"]: kern for kern in kernels}
+    wide_src = "pyarrowspace_tpu_torch/csrc/knn_wide.cuh"
+    for name, entries, source in (
+            ("knn", (results["wide"]["knn_k200"], results["wide"]["knn"]),
+             wide_src),
+            ("scan_topk", (results["wide"]["scan_topk_k200"],
+                           results["wide"]["scan_topk"]), wide_src),
+            ("scan_int8", (*results["wide_int8"].values(),
+                           results["wide_int8_1m"]),
+             by_name["scan_int8"]["source"])):
+        by_name[name]["wide_lists"] = {
+            f"k{v['k']}_q{v['queries']}" if name == "scan_int8"
+            else f"k{v['k']}": {**v, "source": source} for v in entries}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,9 +38,11 @@
 // product (a barrier ends each).  A narrow list takes 128 k 8 bytes: 2
 // words a lane up to k 64 (136 KB in all), 4 words up to k 128 (200 KB,
 // under the 227 KB a block may opt into).  The next layout, k 129 to 256,
-// would take 256 KB for the lists alone, so K1's lists of k > 128 take the
-// route of knn_wide.cuh and K2's stay in place in device memory
-// (tile_common.cuh offer_wide).  ptxas gives 254
+// would take 256 KB for the lists alone, so K1's and K2's lists of k > 128
+// take the route of knn_wide.cuh: survivors buffered as keys beside the
+// ring, staged, sorted in the ring and merged into partial lists in device
+// memory, bounded by the products and about k (1 + ln(C / k)) survivors a
+// row over a split of C columns.  ptxas gives 254
 // registers a thread and no spills (sm_90a): one block of 8 warps an SM,
 // whose 64 independent chains a thread keep the FMA pipe busy.
 

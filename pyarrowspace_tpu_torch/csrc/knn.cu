@@ -240,8 +240,9 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
       perm, seeded, tiles_per_split, lists, out_d, out_i);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  return knn_wide::merge(lists, row_start, row_count, k, splits, perm, out_d,
-                         out_i, (size_t)k, 1, st);
+  return knn_wide::merge<knn_wide::Asc>(lists, row_start, row_count, k,
+                                        splits, perm, out_d, out_i,
+                                        (size_t)k, 1, 0, st);
 }
 
 const char* knn_error_string(int err) {

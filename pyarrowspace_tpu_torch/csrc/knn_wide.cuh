@@ -1,53 +1,62 @@
-// K1's route for lists past 128 entries (knn.cu, and K1t's in knn_t.cu):
-// a split column walk with a threshold-select merge.
+// The route of lists past the narrow limit: a split walk whose survivors
+// are staged, sorted and merged into partial lists in device memory, and a
+// second launch that merges the splits.  K1's lists past 128 (knn.cu, and
+// K1t's in knn_t.cu) and K2's past 128 (scan_topk.cu) take all of it; K7's
+// wide lists (scan_int8.cu) take its keys, its sort, its in-place merge and
+// its split merge, under their own walk.
 //
-// The function is K1's: for every row i of a row range, the k smallest
-// d(i, j) = 1 - max(0, x_i . x_j) over the columns of the walk, self,
-// columns >= n and d > eps masked to 2.0; missing entries (2.0, -1);
-// ascending by (distance, id), the lexicographic top-k on any data.
+// Two orders, one key each (below): Asc, K1's ascending (distance, id),
+// the empty entry (2.0, -1); Desc, K2's and K7's descending score with
+// ascending ids, the empty entry (-3e38, -1).  A list is the k least keys
+// of its candidates, the lexicographic top-k on any data.
 //
-// Launch 1: one block of 256 threads per (128-row block, column split).
-// The splits are contiguous ranges of the block's walk of 128-column tiles
-// (from col_start, rotated for diag_start), planned by the caller
-// (ops/cuda/knn.py::plan_splits) so that row blocks times splits fill a
-// wave of SMs.  Per tile: ffma_tile.cuh's register-tiled fp32 product (each
-// distance one fmaf chain over ascending features, the bits of the narrow
-// route), the mask into a shared 128 x 136 tile that also flags each row
-// holding a candidate below the row's filter (its partial list's kth, or
-// the lower kth another split of the row has reached: a shared bound),
-// then one warp per flagged row appends the survivors, as 64-bit keys, to
-// the row's buffer of 128 in shared memory.  A buffer that cannot take them
-// spills, unsorted, to the row's staging row in device memory (about k
-// keys, 128 to 896); a staging row that could not take another spill is
-// merged at the end of the tile, when the ring is free: staged and buffered
-// keys sorted there by the row's warp and merged into the row's sorted
-// partial list in device memory in one pass (merge_into), which gives the
-// new kth.  What is left is merged at the end of the split.
+// Launch 1 (scan_kernel): one block of 256 threads per (128-row block,
+// column split).  The splits are contiguous ranges of the block's walk of
+// 128-column tiles (from col_start, rotated for diag_start), planned by the
+// caller (knn.py / scan_topk.py plan_splits) so that row blocks times
+// splits fill a wave of SMs.  Per tile: ffma_tile.cuh's register-tiled fp32
+// product (each value one fmaf chain over ascending features, the bits of
+// the narrow routes), the epilogue's value (Epi: K1's masked distance, K2's
+// blend with ids >= n masked) into a shared 128 x 136 tile that also flags
+// each row holding a candidate that beats the row's filter (its partial
+// list's kth, or the better kth another split of the row has reached: a
+// shared bound), then one warp per flagged row appends the survivors, as
+// 64-bit keys, to the row's buffer of 128 in shared memory.  A buffer that
+// cannot take them spills, unsorted, to the row's staging row in device
+// memory (about k keys, 128 to 896); a staging row that could not take
+// another spill is merged at the end of the tile, when the ring is free:
+// staged and buffered keys sorted there by the row's warp and merged into
+// the row's sorted partial list in device memory in one pass (merge_into),
+// which gives the new kth.  What is left is merged at the end of the split.
 //
-// Launch 2: one warp per row merges the S partial lists, in split order,
-// into the output row, which holds the row's seed list (col_start + seed)
-// or (2.0, -1) entries: any row-major or slot-major output (K1, K1t), and
-// rows placed by perm.
+// Launch 2 (merge_kernel): one warp per row merges the S partial lists, in
+// split order, into the output row, which holds the row's seed list (K1's
+// col_start + seed), or empty entries (written first when asked: K2, K7):
+// any row-major or slot-major output (K1, K1t), and rows placed by perm.
 //
-// The order is (distance, id) with signed ids: the key (order_key(d) << 32
-// | id ^ 0x80000000) of select.cuh's order_key, which folds -0.0 into +0.0
-// as the float compares of the filter do.  Every list holds distinct ids,
-// the columns of different splits and tiles differ, and a seed's ids lie
-// outside the walk's columns, so a survivor's key never equals a list
-// entry's: the merge places each entry by two counts and needs no tie
-// rule.  The masked 2.0 never passes the filter (the empty entry (2.0, -1)
-// is below it), and a NaN fails every compare.  A distance computed here
-// is never -0.0 (1 - x rounds to +0.0), so a key decodes to the
-// distance's own bits.
+// The keys.  Asc: order_key(d) << 32 | id ^ 0x80000000 (select.cuh's
+// order_key, which folds -0.0 into +0.0 as the float compares of the filter
+// do; a distance computed here is never -0.0, since 1 - x rounds to +0.0,
+// so the key decodes to the distance's own bits).  Desc: ~order_key(s) <<
+// 32 | id << 1 | (s is -0.0): a larger score sorts first, then a smaller id
+// (ids of survivors lie in [0, 2^31)), and the low bit keeps a -0.0 score's
+// sign, which the fold loses, so the key decodes to the score's own bits.
+// Every list holds distinct ids, the columns of different splits and tiles
+// differ, and a seed's ids lie outside the walk's columns, so a survivor's
+// key never equals a list entry's: the merge places each entry by two
+// counts and needs no tie rule.  The filter in front of the keys is the
+// order's strict lexicographic compare against the kth (tile_common.cuh
+// MinLex / MaxLex), so the empty entry never enters, nor a masked value
+// (K1's 2.0, K2's -3e38), nor a NaN, which fails every compare.
 //
-// What bounds it: the products, as K1 (2 R N F fp32 multiply-adds).  A
-// row's survivors number about k (1 + ln(C / k)) over a split of C columns,
-// and each merge is one pass over the list from its first changed slot, of
-// device-memory traffic (at k 1,024 on 2,048 rows the partial lists take
-// 134 MB, past L2): staging about k survivors before a merge makes those
-// passes few (about log2 of the walk's tiles a split, against about
-// k (1 + ln(C / k)) / 128 with the buffer alone), in place of offer_wide's
-// warp-wide ballot and shift for every survivor.
+// What bounds it: the products, as the narrow routes (2 R N F fp32
+// multiply-adds).  A row's survivors number about k (1 + ln(C / k)) over a
+// split of C columns, and each merge is one pass over the list from its
+// first changed slot, of device-memory traffic (at k 1,024 on 2,048 rows
+// the partial lists take 134 MB, past L2): staging about k survivors before
+// a merge makes those passes few (about log2 of the walk's tiles a split,
+// against about k (1 + ln(C / k)) / 128 with the buffer alone), in place of
+// offer_wide's warp-wide ballot and shift for every survivor.
 
 #pragma once
 
@@ -63,7 +72,6 @@
 
 namespace knn_wide {
 
-constexpr float INF_DIST = 2.0f;
 constexpr int BUF = 128;      // survivors a row buffers in shared memory
 constexpr int STAGE = 896;    // and then stages in device memory, at most
 constexpr int SCRATCH = 1024; // keys of a warp's merge source in the ring
@@ -74,20 +82,46 @@ static_assert(STAGE + BUF <= SCRATCH &&
 constexpr int MERGE_WARPS = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
-// One entry of a partial list in device memory.
+// One entry of a list in device memory.
 struct alignas(8) Ent {
-  float d;
+  float v;
   int id;
 };
 
-// The ascending key of (d, id), and its entry back.
-__device__ __forceinline__ uint64_t key(float d, int id) {
-  return (uint64_t)sel::order_key(d) << 32 | ((uint32_t)id ^ 0x80000000u);
-}
-__device__ __forceinline__ Ent unkey(uint64_t k) {
-  return Ent{sel::key_value((uint32_t)(k >> 32)),
-             (int)((uint32_t)k ^ 0x80000000u)};
-}
+// Ascending (distance, id): K1.
+struct Asc {
+  static constexpr float EMPTY = 2.0f;
+  static __device__ __forceinline__ uint64_t key(float d, int id) {
+    return (uint64_t)sel::order_key(d) << 32 | ((uint32_t)id ^ 0x80000000u);
+  }
+  static __device__ __forceinline__ Ent unkey(uint64_t k) {
+    return Ent{sel::key_value((uint32_t)(k >> 32)),
+               (int)((uint32_t)k ^ 0x80000000u)};
+  }
+  static __device__ __forceinline__ bool better(float v, int i, float w,
+                                                int j) {
+    return tile::MinLex::better(v, i, w, j);
+  }
+};
+
+// Descending score, ascending id: K2 and K7.
+struct Desc {
+  static constexpr float EMPTY = tile::NEG_SCORE;
+  static __device__ __forceinline__ uint64_t key(float s, int id) {
+    const uint32_t neg_zero = __float_as_uint(s) == 0x80000000u;
+    return (uint64_t)(~sel::order_key(s)) << 32 |
+           ((uint32_t)id << 1 | neg_zero);
+  }
+  static __device__ __forceinline__ Ent unkey(uint64_t k) {
+    const uint32_t lo = (uint32_t)k;
+    const float s = sel::key_value(~(uint32_t)(k >> 32));
+    return Ent{(lo & 1u) ? -0.0f : s, (int)(lo >> 1)};
+  }
+  static __device__ __forceinline__ bool better(float v, int i, float w,
+                                                int j) {
+    return tile::MaxLex::better(v, i, w, j);
+  }
+};
 
 // A list of k entries in a partial-list row.
 struct PartList {
@@ -96,31 +130,34 @@ struct PartList {
   __device__ __forceinline__ void put(int s, Ent e) const { p[s] = e; }
 };
 
-// A list in the output: slot s of the row at d[s * stride], i[s * stride].
+// A list in the output: slot s of the row at v[s * stride], i[s * stride].
 struct OutList {
-  float* d;
+  float* v;
   int* i;
   size_t stride;
   __device__ __forceinline__ Ent get(int s) const {
-    return Ent{d[s * stride], i[s * stride]};
+    return Ent{v[s * stride], i[s * stride]};
   }
   __device__ __forceinline__ void put(int s, Ent e) const {
-    d[s * stride] = e.d;
+    v[s * stride] = e.v;
     i[s * stride] = e.id;
   }
 };
 
-// Sorted sources of a merge: keys in shared memory, or a partial list.
+// Sorted sources of a merge: keys (in shared or device memory), or a
+// partial list.
+template <class O>
 struct KeySrc {
   const uint64_t* k;
   __device__ __forceinline__ uint64_t key_at(int i) const { return k[i]; }
-  __device__ __forceinline__ Ent at(int i) const { return unkey(k[i]); }
+  __device__ __forceinline__ Ent at(int i) const { return O::unkey(k[i]); }
 };
+template <class O>
 struct PartSrc {
   const Ent* p;
   __device__ __forceinline__ uint64_t key_at(int i) const {
     const Ent e = p[i];
-    return key(e.d, e.id);
+    return O::key(e.v, e.id);
   }
   __device__ __forceinline__ Ent at(int i) const { return p[i]; }
 };
@@ -160,13 +197,13 @@ __device__ __forceinline__ void count_below(const Src& src, int m,
 }
 
 // Entries g + 32 u + lane of L (u < U), the empty entry past k.
-template <int U, class List>
+template <class O, int U, class List>
 __device__ __forceinline__ void read_window(const List& L, int k, int g,
                                             int lane, Ent (&e)[U]) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int j = g + 32 * u + lane;
-    e[u] = j < k ? L.get(j) : Ent{INF_DIST, -1};
+    e[u] = j < k ? L.get(j) : Ent{O::EMPTY, -1};
   }
 }
 
@@ -181,7 +218,7 @@ __device__ __forceinline__ void read_window(const List& L, int k, int g,
 // window's first slot g by the lane that holds g - 1, in the next window.
 // Stops below the first slot that changes.  Called by all 32 lanes of one
 // warp.
-template <class List, class Src>
+template <class O, class List, class Src>
 __device__ __forceinline__ void merge_into(const List& L, int k,
                                            const Src& src, int m, int lane) {
   constexpr int U = 4;
@@ -189,13 +226,13 @@ __device__ __forceinline__ void merge_into(const List& L, int k,
   if (m == 0) return;
   int g = (k - 1) / WIN * WIN;
   Ent e[U];
-  read_window<U>(L, k, g, lane, e);
+  read_window<O, U>(L, k, g, lane, e);
   int pend = m;   // src entries below slot g + WIN
   while (true) {
     uint64_t x[U];
 #pragma unroll
     for (int u = 0; u < U; ++u)   // a slot past k counts every src entry
-      x[u] = g + 32 * u + lane < k ? key(e[u].d, e[u].id) : ~0ull;
+      x[u] = g + 32 * u + lane < k ? O::key(e[u].v, e[u].id) : ~0ull;
     int hi[U];
     count_below<U>(src, m, x, hi);
     // Every lane has read its slots of the window before this exchange,
@@ -203,7 +240,7 @@ __device__ __forceinline__ void merge_into(const List& L, int k,
     const int top = __shfl_sync(FULL, hi[0], 0);   // src entries below slot g
     const bool last = top == 0 || g == 0;
     Ent next[U];
-    if (!last) read_window<U>(L, k, g - WIN, lane, next);
+    if (!last) read_window<O, U>(L, k, g - WIN, lane, next);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = g + 32 * u + lane;
@@ -274,75 +311,106 @@ __device__ __forceinline__ void gather_sorted(const uint64_t* stage,
   sort_keys<P>(keys, lane);
 }
 
+// Sort cnt <= P keys (the first `staged` from stage, the rest from buf) in
+// the warp's scratch of P keys, in the narrowest power of two from 128 that
+// holds them, and merge them into the list of k in one pass; returns the
+// list's new kth.  Called by all 32 lanes of one warp.
+template <class O, int P>
+__device__ __forceinline__ Ent sort_merge(const uint64_t* stage, int staged,
+                                          const uint64_t* buf, int cnt,
+                                          uint64_t* scratch, Ent* list, int k,
+                                          int lane) {
+  if constexpr (P > 128) {
+    if (cnt <= P / 2)
+      return sort_merge<O, P / 2>(stage, staged, buf, cnt, scratch, list, k,
+                                  lane);
+  }
+  gather_sorted<P>(stage, staged, buf, cnt, scratch, lane);
+  const PartList l{list};
+  merge_into<O>(l, k, KeySrc<O>{scratch}, cnt, lane);
+  const Ent kth = l.get(k - 1);
+  __syncwarp();
+  return kth;
+}
+
 // The state launch 1 keeps for each row of its block in shared memory.
 struct Rows {
   int fill[regtile::TILE];      // keys in the row's buffer
   int staged[regtile::TILE];    // keys in the row's staging row
   int hit[regtile::TILE];       // the tile holds a survivor for the row
   int due[regtile::TILE];       // the staging row is to be merged
-  float thr_d[regtile::TILE];   // the filter: the partial list's kth, or
-  int thr_i[regtile::TILE];     // the row's shared bound when lower
+  float thr_v[regtile::TILE];   // the filter: the partial list's kth, or
+  int thr_i[regtile::TILE];     // the row's shared bound when better
   int any_due;                  // a row of the block is due
 };
 
-// Lower row rr's filter to (d, id) if that is lower.
-__device__ __forceinline__ void lower_filter(Rows& rows, int rr, float d,
+// Make (v, id) row rr's filter if it is better.
+template <class O>
+__device__ __forceinline__ void lower_filter(Rows& rows, int rr, float v,
                                              int id) {
-  if (tile::MinLex::better(d, id, rows.thr_d[rr], rows.thr_i[rr])) {
-    rows.thr_d[rr] = d;
+  if (O::better(v, id, rows.thr_v[rr], rows.thr_i[rr])) {
+    rows.thr_v[rr] = v;
     rows.thr_i[rr] = id;
   }
 }
 
 // Merge row rr's staged and buffered keys into its partial list: sorted in
 // the warp's scratch in shared memory, then merged in one pass; the list's
-// new kth lowers the row's filter and, across splits, its shared bound.
+// new kth tightens the row's filter and, across splits, its shared bound.
 // Called by all 32 lanes of one warp.
+template <class O>
 __device__ __forceinline__ void flush(const uint64_t* stage,
                                       const uint64_t* buf, uint64_t* scratch,
                                       Ent* list, int k, Rows& rows, int rr,
                                       unsigned long long* bound, int lane) {
   const int staged = rows.staged[rr], cnt = staged + rows.fill[rr];
-  if (cnt <= 128)
-    gather_sorted<128>(stage, staged, buf, cnt, scratch, lane);
-  else if (cnt <= 256)
-    gather_sorted<256>(stage, staged, buf, cnt, scratch, lane);
-  else if (cnt <= 512)
-    gather_sorted<512>(stage, staged, buf, cnt, scratch, lane);
-  else
-    gather_sorted<1024>(stage, staged, buf, cnt, scratch, lane);
-  const PartList l{list};
-  merge_into(l, k, KeySrc{scratch}, cnt, lane);
-  const Ent kth = l.get(k - 1);
-  __syncwarp();
+  const Ent kth = sort_merge<O, SCRATCH>(stage, staged, buf, cnt, scratch,
+                                         list, k, lane);
   if (lane == 0) {
     rows.fill[rr] = rows.staged[rr] = rows.due[rr] = 0;
-    lower_filter(rows, rr, kth.d, kth.id);
-    if (bound) atomicMin(bound, (unsigned long long)key(kth.d, kth.id));
+    lower_filter<O>(rows, rr, kth.v, kth.id);
+    if (bound) atomicMin(bound, (unsigned long long)O::key(kth.v, kth.id));
   }
   __syncwarp();
 }
 
-// Launch 1 (see the top of this file).  part: [splits, row_count, k]
-// partial lists; bound (null for one split): row_count keys, each the
-// least kth key any split of the row has reached (all ones at the start);
-// stage: [splits, row_count, STAGE] keys, of which a row fills stage_keys
-// before they are merged.
-// Any split's kth bounds the row's final kth from above, and an entry of
-// the final list beats every such kth when it is offered (its key differs
-// from every listed one), so a split may filter against the lowest: each
-// partial list still holds every final entry of its columns, and the merge
-// gives the same list whatever the order in which the splits ran.
+// K1's epilogue: d = 1 - max(0, x_i . x_j), self, columns >= n and d > eps
+// masked to 2.0.
+struct KnnEpi {
+  using Order = Asc;
+  float eps;
+  __device__ __forceinline__ void load(int, int, int, int) {}
+  __device__ __forceinline__ float value(float acc, int, int, int row,
+                                         int col, int n) const {
+    const float d = 1.0f - fmaxf(acc, 0.0f);
+    return col == row || col >= n || d > eps ? Asc::EMPTY : d;
+  }
+};
+
+// Launch 1 (see the top of this file): rows [row_start, row_start +
+// row_count) of a against the columns [col_start, n) of b, both [*, f] of
+// T (float, or bf16 converted exactly), with Epi's values and order.
+// part: [splits, row_count, k] partial lists; bound (null for one split):
+// row_count keys, each the least kth key any split of the row has reached
+// (all ones at the start); stage: [splits, row_count, STAGE] keys, of which
+// a row fills stage_keys before they are merged.
+// Any split's kth bounds the row's final kth, and an entry of the final
+// list beats every such kth when it is offered (its key differs from every
+// listed one), so a split may filter against the best: each partial list
+// still holds every final entry of its columns, and the merge gives the
+// same list whatever the order in which the splits ran.
+template <class T, class Epi>
 __global__ void __launch_bounds__(regtile::THREADS, 1)
-    scan_kernel(const float* __restrict__ xu, int n, int f, int vec,
-                int row_start, int row_count, float eps, int k,
-                int col_start, int diag_start, const int* __restrict__ perm,
-                int tiles_per_split, Ent* part, unsigned long long* bound,
-                uint64_t* stage, int stage_keys) {
+    scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                const Epi epi, int n, int f, int vec, int row_start,
+                int row_count, int k, int col_start, int diag_start,
+                const int* __restrict__ perm, int tiles_per_split, Ent* part,
+                unsigned long long* bound, uint64_t* stage, int stage_keys) {
   using namespace regtile;
+  using O = typename Epi::Order;
   extern __shared__ __align__(16) float ffma_smem[];
   float* ring = ffma_smem;
-  float* Ds = ffma_smem;   // the tile's distances [128][RES_LD], in the ring
+  float* Vs = ffma_smem;   // the tile's values [128][RES_LD], in the ring
   uint64_t* bufs = reinterpret_cast<uint64_t*>(ffma_smem + RING_FLOATS);
   // A warp's sorted keys, in the ring between a tile's merge and the next
   // tile's product.
@@ -362,10 +430,10 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   stage += row0 * STAGE;
   if (bound) bound += r0 - row_start;
   for (int e = tid; e < n_rows * k; e += THREADS)
-    lists[e] = Ent{INF_DIST, -1};
+    lists[e] = Ent{O::EMPTY, -1};
   if (tid < TILE) {
     rows.fill[tid] = rows.staged[tid] = rows.hit[tid] = rows.due[tid] = 0;
-    rows.thr_d[tid] = INF_DIST;
+    rows.thr_v[tid] = O::EMPTY;
     rows.thr_i[tid] = -1;
   }
   if (tid == 0) rows.any_due = 0;
@@ -388,48 +456,44 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     // The other splits' bounds, read under the product (from L2).
     const unsigned long long shared_kth = refresh ? __ldcg(bound + own) : 0;
     float acc[MICRO][MICRO];
-    product(xu, r0, r_end, xu, c0, n, f, vec != 0, ring, acc);
-    // The masked distances into Ds; a row whose thread holds a candidate
-    // below the row's filter is flagged (the filters do not change before
-    // the merge).
+    product(a, r0, r_end, b, c0, n, f, vec != 0, ring, acc);
+    // The values into Vs; a row whose thread holds a candidate that beats
+    // the row's filter is flagged (the filters do not change before the
+    // merge).  Rows past the end are flagged at most, never merged.
+    Epi ep = epi;
+    ep.load(r0, r_end, c0, n);
 #pragma unroll
     for (int i = 0; i < MICRO; ++i) {
       const int rr = ty + 16 * i;
-      float td = -1.0f;   // no candidate beats it: a row past the end
-      int ti = -1;
-      if (rr < n_rows) {
-        td = rows.thr_d[rr];
-        ti = rows.thr_i[rr];
-      }
+      const float tv = rows.thr_v[rr];
+      const int ti = rows.thr_i[rr];
       bool hit = false;
 #pragma unroll
       for (int j = 0; j < MICRO; ++j) {
         const int col = c0 + tx + 16 * j;
-        float d = 1.0f - fmaxf(acc[i][j], 0.0f);
-        if (col == r0 + rr || col >= n || d > eps) d = INF_DIST;
-        Ds[rr * RES_LD + tx + 16 * j] = d;
-        hit |= tile::MinLex::better(d, perm ? col_ids[tx + 16 * j] : col, td,
-                                    ti);
+        const float v = ep.value(acc[i][j], i, j, r0 + rr, col, n);
+        Vs[rr * RES_LD + tx + 16 * j] = v;
+        hit |= O::better(v, perm ? col_ids[tx + 16 * j] : col, tv, ti);
       }
       if (hit) rows.hit[rr] = 1;
     }
     __syncthreads();
     for (int rr = warp; rr < n_rows; rr += WARPS) {
       if (!rows.hit[rr]) continue;
-      const float* drow = Ds + rr * RES_LD;
-      const float td = rows.thr_d[rr];
+      const float* vrow = Vs + rr * RES_LD;
+      const float tv = rows.thr_v[rr];
       const int ti = rows.thr_i[rr];
       float v[4];
       int id[4];
-      unsigned b[4];
+      unsigned bal[4];
       int m = 0;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int c = lane + 32 * q;
-        v[q] = drow[c];
+        v[q] = vrow[c];
         id[q] = perm ? col_ids[c] : c0 + c;
-        b[q] = __ballot_sync(FULL, tile::MinLex::better(v[q], id[q], td, ti));
-        m += __popc(b[q]);
+        bal[q] = __ballot_sync(FULL, O::better(v[q], id[q], tv, ti));
+        m += __popc(bal[q]);
       }
       // The ballots order every lane's read of the flag before it is
       // cleared.
@@ -455,9 +519,9 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
       const unsigned below = (1u << lane) - 1u;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        if ((b[q] >> lane) & 1u)
-          buf[base + __popc(b[q] & below)] = key(v[q], id[q]);
-        base += __popc(b[q]);
+        if ((bal[q] >> lane) & 1u)
+          buf[base + __popc(bal[q] & below)] = O::key(v[q], id[q]);
+        base += __popc(bal[q]);
       }
       __syncwarp();
       if (lane == 0) rows.fill[rr] = cnt + m;
@@ -466,57 +530,66 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     if (rows.any_due) {   // the ring is free until the next product
       for (int rr = warp; rr < n_rows; rr += WARPS)
         if (rows.due[rr])
-          flush(stage + (size_t)rr * STAGE, bufs + rr * BUF, scratch,
-                lists + (size_t)rr * k, k, rows, rr,
-                bound ? bound + rr : nullptr, lane);
+          flush<O>(stage + (size_t)rr * STAGE, bufs + rr * BUF, scratch,
+                   lists + (size_t)rr * k, k, rows, rr,
+                   bound ? bound + rr : nullptr, lane);
       __syncthreads();
       if (tid == 0) rows.any_due = 0;
     }
-    if (refresh && shared_kth < key(rows.thr_d[own], rows.thr_i[own])) {
-      const Ent e = unkey(shared_kth);
-      rows.thr_d[own] = e.d;
+    if (refresh && shared_kth < O::key(rows.thr_v[own], rows.thr_i[own])) {
+      const Ent e = O::unkey(shared_kth);
+      rows.thr_v[own] = e.v;
       rows.thr_i[own] = e.id;
     }
   }
   __syncthreads();
   for (int rr = warp; rr < n_rows; rr += WARPS)
     if (rows.staged[rr] + rows.fill[rr] > 0)
-      flush(stage + (size_t)rr * STAGE, bufs + rr * BUF, scratch,
-            lists + (size_t)rr * k, k, rows, rr, bound ? bound + rr : nullptr,
-            lane);
+      flush<O>(stage + (size_t)rr * STAGE, bufs + rr * BUF, scratch,
+               lists + (size_t)rr * k, k, rows, rr,
+               bound ? bound + rr : nullptr, lane);
 }
 
 // Launch 2: one warp per row merges the row's S partial lists into its
-// output row (seed or empty entries), in split order.  Row r of the launch
-// is output row perm[row_start + r], or r; a row's slot s lies at
-// out + row * row_stride + s * slot_stride.
+// output row, in split order: the row's seed entries, or (fill) empty
+// entries written first.  Row r of the launch is output row perm[row_start
+// + r], or r; a row's slot s lies at out + row * row_stride + s *
+// slot_stride.
+template <class O>
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
     merge_kernel(const Ent* __restrict__ part, int row_start, int row_count,
                  int k, int splits, const int* __restrict__ perm,
-                 float* out_d, int* out_i, size_t row_stride,
-                 size_t slot_stride) {
+                 float* out_v, int* out_i, size_t row_stride,
+                 size_t slot_stride, int fill) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
   if (r >= row_count) return;   // whole warp leaves together
   const size_t row = perm ? (size_t)perm[row_start + r] : (size_t)r;
-  const OutList list{out_d + row * row_stride, out_i + row * row_stride,
+  const OutList list{out_v + row * row_stride, out_i + row * row_stride,
                      slot_stride};
+  if (fill) {
+    for (int s = lane; s < k; s += 32) list.put(s, Ent{O::EMPTY, -1});
+    __syncwarp();
+  }
   for (int s = 0; s < splits; ++s) {
-    const PartSrc src{part + ((size_t)s * row_count + r) * k};
+    const PartSrc<O> src{part + ((size_t)s * row_count + r) * k};
     const Ent kth = list.get(k - 1);
     // The entries that beat the kth form a prefix of the partial list.
-    merge_into(list, k, src, count_below(src, k, key(kth.d, kth.id)), lane);
+    merge_into<O>(list, k, src, count_below(src, k, O::key(kth.v, kth.id)),
+                  lane);
   }
 }
 
-// Launch 2 alone (also after the narrow route's split walk).
+// Launch 2 alone (K1's narrow split walk, K7's wide lists, and below).
+template <class O>
 inline int merge(const Ent* lists, int row_start, int row_count, int k,
-                 int splits, const int* perm, float* out_d, int* out_i,
-                 size_t row_stride, size_t slot_stride, cudaStream_t st) {
-  merge_kernel<<<(row_count + MERGE_WARPS - 1) / MERGE_WARPS,
-                 MERGE_WARPS * 32, 0, st>>>(lists, row_start, row_count, k,
-                                            splits, perm, out_d, out_i,
-                                            row_stride, slot_stride);
+                 int splits, const int* perm, float* out_v, int* out_i,
+                 size_t row_stride, size_t slot_stride, int fill,
+                 cudaStream_t st) {
+  merge_kernel<O><<<(row_count + MERGE_WARPS - 1) / MERGE_WARPS,
+                    MERGE_WARPS * 32, 0, st>>>(lists, row_start, row_count, k,
+                                               splits, perm, out_v, out_i,
+                                               row_stride, slot_stride, fill);
   return (int)cudaGetLastError();
 }
 
@@ -533,17 +606,18 @@ inline size_t smem_bytes() {
          (size_t)regtile::TILE * BUF * sizeof(uint64_t);
 }
 
-// Both launches for rows [row_start, row_start + row_count) of xu [n, f]
-// against the columns [col_start, n), split into `splits` ranges of the
-// walk; part is scratch of [splits, row_count, k] entries, out already
-// holds each row's seed list or (2.0, -1) entries.  part holds, in 8-byte
-// words, the lists, row_count bounds and [splits, row_count, STAGE]
-// staging rows.  Returns a CUDA error code.
-inline int launch(const float* xu, int n, int f, int row_start,
-                  int row_count, float eps, int k, int col_start,
+// Both launches for rows [row_start, row_start + row_count) of a against
+// the columns [col_start, n) of b, split into `splits` ranges of the walk.
+// part holds, in 8-byte words, the partial lists [splits, row_count, k],
+// row_count bounds and [splits, row_count, STAGE] staging rows.  out holds
+// each row's seed list or empty entries, or (fill) is filled with empty
+// entries first.  Returns a CUDA error code.
+template <class T, class Epi>
+inline int launch(const T* a, const T* b, const Epi& epi, int n, int f,
+                  int row_start, int row_count, int k, int col_start,
                   int diag_start, const int* perm, int splits, void* part,
-                  float* out_d, int* out_i, size_t row_stride,
-                  size_t slot_stride, int device, cudaStream_t st) {
+                  float* out_v, int* out_i, size_t row_stride,
+                  size_t slot_stride, int fill, int device, cudaStream_t st) {
   const int n_tiles = (n - col_start + regtile::TILE - 1) / regtile::TILE;
   if (splits < 1 || part == nullptr) return (int)cudaErrorInvalidValue;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
@@ -555,8 +629,9 @@ inline int launch(const float* xu, int n, int f, int row_start,
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(
-      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto scan = &scan_kernel<T, Epi>;
+  err = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   // part: the lists, then (several splits) the rows' shared bounds, then
   // the staging rows.
@@ -571,15 +646,30 @@ inline int launch(const float* xu, int n, int f, int row_start,
   } else {
     bound = nullptr;   // one split needs none
   }
-  const int vec = regtile::can_vectorize<float>(xu, f);
+  const int vec = regtile::can_vectorize<T>(a, f) &&
+                  regtile::can_vectorize<T>(b, f);
   const dim3 grid((row_count + regtile::TILE - 1) / regtile::TILE, splits);
-  scan_kernel<<<grid, regtile::THREADS, smem, st>>>(
-      xu, n, f, vec, row_start, row_count, eps, k, col_start, diag_start,
+  scan<<<grid, regtile::THREADS, smem, st>>>(
+      a, b, epi, n, f, vec, row_start, row_count, k, col_start, diag_start,
       perm, tiles_per_split, lists, bound, stage, stage_cap(k));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return merge(lists, row_start, row_count, k, splits, perm, out_d, out_i,
-               row_stride, slot_stride, st);
+  return merge<typename Epi::Order>(lists, row_start, row_count, k, splits,
+                                    perm, out_v, out_i, row_stride,
+                                    slot_stride, fill, st);
+}
+
+// K1's route: rows [row_start, row_start + row_count) of the unit corpus xu
+// [n, f] against its columns [col_start, n), out already holding each row's
+// seed list or (2.0, -1) entries.
+inline int launch(const float* xu, int n, int f, int row_start,
+                  int row_count, float eps, int k, int col_start,
+                  int diag_start, const int* perm, int splits, void* part,
+                  float* out_d, int* out_i, size_t row_stride,
+                  size_t slot_stride, int device, cudaStream_t st) {
+  return launch<float>(xu, xu, KnnEpi{eps}, n, f, row_start, row_count, k,
+                       col_start, diag_start, perm, splits, part, out_d,
+                       out_i, row_stride, slot_stride, 0, device, st);
 }
 
 }  // namespace knn_wide

@@ -48,14 +48,34 @@
 // of the warp's elements is under 2^62 in magnitude, else tile::blend),
 // items >= n masked, and a score goes on only if it reaches its query's
 // current kth (read once a tile).  A warp owns the lists of its 16
-// queries, so the merge needs no block barrier: the survivors are
-// compacted by ballot into the warp's buffer in shared memory and offered
-// to their query's list, MaxLex (the walk does not deliver a query's
-// items in ascending order).  Narrow lists (k <= 256 when they fit beside
-// the stages) live in shared memory, wide ones in place in the partial
-// lists.  The merge, not the products, is most of the time: each query
-// and split takes about k ln(n / k) insertions, each a warp-wide offer
-// whose latency nothing hides.
+// queries, so the merge needs no block barrier.  Narrow lists (k <= 256
+// when they fit beside the stages: up to 130 at F 384, 82 at F 768) live
+// in shared memory: the survivors are compacted by ballot into the warp's
+// buffer (256 entries, 2 KB) and offered to them one by one, MaxLex (the
+// walk does not deliver a query's items in ascending order); there the
+// merge, not the products, is most of the time, each offer a warp-wide
+// step whose latency nothing hides.  Wide lists take knn_wide.cuh's keys,
+// sort and merge: each survivor that beats its query's filter (the strict
+// (score, id) compare against its partial list's kth, or the best kth
+// another split has reached) goes, as a descending key, onto the query's
+// staging row of SROW (512) keys in device memory, at a place taken by a
+// shared-memory atomic (no compaction); a staging row that could not take
+// another tile is sorted in the warp's buffer, here a scratch of SROW
+// keys (4 KB), and merged into the query's partial list in device memory
+// in one pass.  The trade: the sort scratch replaces the survivor buffer,
+// so the wide route keeps six ring stages at F 384 and at F 768 (the
+// warpgroups taking turns) and fits beside them at F 768 with 1.4 KB to
+// spare; the price is a filter that lags up to 384 survivors a query
+// behind its list, and merges of 385 to 512 keys, about k (1 + ln(C / k))
+// / 384 of them a query over a split of C items.  A 1,024-key scratch
+// (8 KB a warp) would cost three of the six stages at F 768, and with them
+// the turns; a 256-key one merges twice as often, and each merge's cost
+// is mostly its fixed round trips to device memory.  What is left beside
+// the narrow route's time: the merges, and the staging of the extra
+// survivors the lagging filter passes.  On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phases 7 and 10): pools 200 / 400 over 313,841 x 384,
+// Q 4,096, 9.98 / 13.83 ms against pool 60's 6.94; pool 200 over
+// 1,000,000 x 768, Q 16,384, 69.16 ms against pool 60's 50.74.
 //
 // The SIMT route (ragged F, unaligned bases, F > 1,024): the first
 // version's kernel, kept as the in-tree witness of the int32 sums.  One
@@ -63,22 +83,30 @@
 // tile, a shared-memory tiled product of 4 x 4 int32 accumulators a thread
 // as __dp4a over 32-bit words (F padded with zeros to a multiple of 4 by
 // the caller), the epilogue into a shared 64 x 64 score tile, and one warp
-// per query offers the improving scores to its running list (Max, items
-// in ascending order).
+// per query merges the improving scores: offered to a narrow running list
+// (Max, items in ascending order), or, for a wide list (k > 256), staged,
+// sorted and merged as on the tensor-core route, each warp with a sort
+// scratch of SROW keys of its own.
 //
-// On both routes a second launch (tile::merge_splits) merges the splits'
-// partial lists in split order.
+// On both routes a second launch merges the splits' partial lists in split
+// order: tile::merge_splits for narrow lists, knn_wide.cuh's split merge
+// for wide ones.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "knn_wide.cuh"
 #include "tile_common.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
+using knn_wide::Desc;
+using knn_wide::Ent;
+
 constexpr int WSLAB = tile::SLAB;   // 32-bit words (4 features) per slab
+constexpr int SROW = 512;           // keys a wide list's query stages
 
 // acc[i][j] = sum over words w of dp4a(A[a0 + ty + 16 i][w],
 // B[b0 + tx + 16 j][w]) for rows of fw words; rows at or past a_end / b_end
@@ -123,6 +151,82 @@ __device__ __forceinline__ void tile_product_i8(
   }
 }
 
+// The scratch of a launch: narrow partial lists [splits, q, k] (scores s,
+// ids i), or a wide list's partial lists [splits, q, k], the queries'
+// shared bounds [q] (null for one split) and staging rows [splits, q,
+// SROW].
+struct Part {
+  float* s;
+  int* i;
+  Ent* lists;
+  unsigned long long* bound;
+  uint64_t* stage;
+};
+
+inline Part part_layout(void* part, int splits, int q, int k, bool wide) {
+  Part p{};
+  const size_t lists = (size_t)splits * q * k;
+  if (!wide) {
+    p.s = static_cast<float*>(part);
+    p.i = reinterpret_cast<int*>(p.s + lists);
+  } else {
+    p.lists = static_cast<Ent*>(part);
+    p.bound = reinterpret_cast<unsigned long long*>(p.lists + lists);
+    p.stage = reinterpret_cast<uint64_t*>(p.bound + q);
+    if (splits == 1) p.bound = nullptr;
+  }
+  return p;
+}
+
+// A wide list's query in shared memory: its staged keys and its filter.
+struct WideRow {
+  int staged;    // keys in the query's staging row
+  float thr_v;   // the filter: the partial list's kth, or the query's
+  int thr_i;     // shared bound when better
+};
+
+// The first wide-list steps of a block: empty partial lists [n_rows][k]
+// and rows.  Called by every thread of the block; a barrier follows.
+__device__ __forceinline__ void wide_start(Ent* lists, int n_rows, int k,
+                                           WideRow* rows, int n_state,
+                                           int tid, int threads) {
+  for (int e = tid; e < n_rows * k; e += threads)
+    lists[e] = Ent{Desc::EMPTY, -1};
+  for (int r = tid; r < n_state; r += threads)
+    rows[r] = WideRow{0, Desc::EMPTY, -1};
+}
+
+// Tighten a query's filter to its shared bound b (read from L2).
+__device__ __forceinline__ void refresh(WideRow& w, unsigned long long b) {
+  if (b < Desc::key(w.thr_v, w.thr_i)) {
+    const Ent e = Desc::unkey(b);
+    w.thr_v = e.v;
+    w.thr_i = e.id;
+  }
+}
+
+// Sort a query's staged keys in the warp's scratch of SROW keys and merge
+// them into its partial list; the list's new kth tightens the query's
+// filter and its shared bound.  Called by all 32 lanes of one warp.
+__device__ __forceinline__ void flush_row(const uint64_t* stage,
+                                          uint64_t* scratch, Ent* list,
+                                          int k, WideRow& w,
+                                          unsigned long long* bound,
+                                          int lane) {
+  const int staged = w.staged;
+  const Ent kth = knn_wide::sort_merge<Desc, SROW>(
+      stage, staged, nullptr, staged, scratch, list, k, lane);
+  if (lane == 0) {
+    w.staged = 0;
+    if (Desc::better(kth.v, kth.id, w.thr_v, w.thr_i)) {
+      w.thr_v = kth.v;
+      w.thr_i = kth.id;
+    }
+    if (bound) atomicMin(bound, (unsigned long long)Desc::key(kth.v, kth.id));
+  }
+  __syncwarp();
+}
+
 template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     scan_int8_kernel(const int* __restrict__ xq,
@@ -131,7 +235,7 @@ __global__ void __launch_bounds__(tile::THREADS)
                      const int* __restrict__ qq,
                      const float* __restrict__ qscale,
                      const float* __restrict__ lamq, int q, float tau, int k,
-                     int tiles_per_split, float* part_s, int* part_i) {
+                     int tiles_per_split, Part part) {
   using namespace tile;
   extern __shared__ float smem[];
   auto As = reinterpret_cast<int(*)[PAD]>(smem);
@@ -146,17 +250,26 @@ __global__ void __launch_bounds__(tile::THREADS)
   const int c_begin = split * tiles_per_split * TILE;
   const int c_stop = min(n, c_begin + tiles_per_split * TILE);
   const int n_rows = min(TILE, q - q0);
+  const size_t row0 = (size_t)split * q + q0;
 
-  // The block's lists [n_rows][k]: in shared memory, or its partial lists.
+  // Narrow lists [n_rows][k] in shared memory; or a wide list's rows, each
+  // warp's sort scratch and its rows' staging rows, lists and bounds.
   float* run_s = smem + TILE_FLOATS;
   int* run_i = reinterpret_cast<int*>(run_s + TILE * k);
-  if (W == 0) {
-    run_s = part_s + ((size_t)split * q + q0) * k;
-    run_i = part_i + ((size_t)split * q + q0) * k;
-  }
-  for (int e = tid; e < n_rows * k; e += THREADS) {
-    run_s[e] = NEG_SCORE;
-    run_i[e] = -1;
+  uint64_t* scratch =
+      reinterpret_cast<uint64_t*>(smem + TILE_FLOATS) + warp * SROW;
+  WideRow* rows = reinterpret_cast<WideRow*>(
+      reinterpret_cast<uint64_t*>(smem + TILE_FLOATS) + WARPS * SROW);
+  Ent* lists = part.lists + row0 * k;
+  uint64_t* stage = part.stage + row0 * SROW;
+  unsigned long long* bound = part.bound ? part.bound + q0 : nullptr;
+  if constexpr (W == 0) {
+    wide_start(lists, n_rows, k, rows, TILE, tid, THREADS);
+  } else {
+    for (int e = tid; e < n_rows * k; e += THREADS) {
+      run_s[e] = NEG_SCORE;
+      run_i[e] = -1;
+    }
   }
   float lq[4], qs[4];
 #pragma unroll
@@ -186,15 +299,48 @@ __global__ void __launch_bounds__(tile::THREADS)
       }
     }
     __syncthreads();
-    for (int rr = warp; rr < TILE && q0 + rr < q; rr += WARPS)
-      merge_row<Max, W>(Ss[rr], c0, run_s + (size_t)rr * k,
-                        run_i + (size_t)rr * k, k, lane);
+    for (int rr = warp; rr < n_rows; rr += WARPS) {
+      if constexpr (W != 0) {
+        merge_row<Max, W>(Ss[rr], c0, run_s + (size_t)rr * k,
+                          run_i + (size_t)rr * k, k, lane);
+      } else {
+        // The row's survivors, as keys, onto its staging row; a staging row
+        // that could not take another tile is merged.
+        WideRow& w = rows[rr];
+        if (bound && lane == 0) refresh(w, __ldcg(bound + rr));
+        __syncwarp();
+        const float tv = w.thr_v;
+        const int ti = w.thr_i, base = w.staged;
+        const float v0 = Ss[rr][lane], v1 = Ss[rr][lane + 32];
+        const bool p0 = MaxLex::better(v0, c0 + lane, tv, ti);
+        const bool p1 = MaxLex::better(v1, c0 + lane + 32, tv, ti);
+        const unsigned m0 = __ballot_sync(FULL, p0);
+        const unsigned m1 = __ballot_sync(FULL, p1);
+        if ((m0 | m1) == 0) continue;
+        const unsigned below = (1u << lane) - 1u;
+        uint64_t* dst = stage + (size_t)rr * SROW + base;
+        if (p0) dst[__popc(m0 & below)] = Desc::key(v0, c0 + lane);
+        if (p1)
+          dst[__popc(m0) + __popc(m1 & below)] = Desc::key(v1, c0 + lane + 32);
+        __syncwarp();
+        if (lane == 0) w.staged = base + __popc(m0) + __popc(m1);
+        __syncwarp();
+        if (w.staged > SROW - TILE)
+          flush_row(stage + (size_t)rr * SROW, scratch, lists + (size_t)rr * k,
+                    k, w, bound ? bound + rr : nullptr, lane);
+      }
+    }
     __syncthreads();
   }
 
-  if (W != 0) {
-    float* o_s = part_s + ((size_t)split * q + q0) * k;
-    int* o_i = part_i + ((size_t)split * q + q0) * k;
+  if constexpr (W == 0) {
+    for (int rr = warp; rr < n_rows; rr += WARPS)
+      if (rows[rr].staged > 0)
+        flush_row(stage + (size_t)rr * SROW, scratch, lists + (size_t)rr * k,
+                  k, rows[rr], bound ? bound + rr : nullptr, lane);
+  } else {
+    float* o_s = part.s + row0 * k;
+    int* o_i = part.i + row0 * k;
     for (int e = tid; e < n_rows * k; e += THREADS) {
       o_s[e] = run_s[e];
       o_i[e] = run_i[e];
@@ -202,20 +348,28 @@ __global__ void __launch_bounds__(tile::THREADS)
   }
 }
 
-// The second launch of both routes: the splits' partial lists [splits, q,
-// k] merged into out_s / out_i [q, k].
-int launch_merge(const float* part_s, const int* part_i, int q, int k,
-                 int splits, float* out_s, int* out_i, cudaStream_t st) {
+// The second launch of both routes: the splits' partial lists merged into
+// out_s / out_i [q, k].
+int launch_merge(const Part& p, bool wide, int q, int k, int splits,
+                 float* out_s, int* out_i, cudaStream_t st) {
+  if (wide)
+    return knn_wide::merge<Desc>(p.lists, 0, q, k, splits, nullptr, out_s,
+                                 out_i, (size_t)k, 1, 1, st);
   const int words = tile::list_words(k);
   auto merge = words == 2   ? &tile::merge_splits<2>
                : words == 4 ? &tile::merge_splits<4>
-               : words == 8 ? &tile::merge_splits<8>
-                            : &tile::merge_splits<0>;
-  const size_t smem =
-      words == 0 ? 0 : (size_t)tile::WARPS * k * (sizeof(float) + sizeof(int));
+                            : &tile::merge_splits<8>;
+  const size_t smem = (size_t)tile::WARPS * k * (sizeof(float) + sizeof(int));
   merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem, st>>>(
-      part_s, part_i, q, k, splits, out_s, out_i);
+      p.s, p.i, q, k, splits, out_s, out_i);
   return (int)cudaGetLastError();
+}
+
+// A wide list's shared bounds start at all ones (no split has a kth yet).
+int start_bounds(const Part& p, int q, cudaStream_t st) {
+  if (p.bound == nullptr) return 0;
+  return (int)cudaMemsetAsync(p.bound, 0xff, (size_t)q * sizeof(*p.bound),
+                              st);
 }
 
 // -- the tensor-core route -------------------------------------------------
@@ -233,20 +387,24 @@ constexpr int MAX_STAGES = 6;
 constexpr size_t SMEM_LIMIT = 232448;             // a block's most, sm_90
 
 // Shared memory of a block: the queries (nk stages), the ring, the warps'
-// survivor buffers, the narrow lists (none for wide ones), the barriers.
+// buffers (narrow lists: BUF survivors each; wide lists: a sort scratch of
+// SROW keys each), the narrow lists or the wide lists' rows, the barriers.
 struct TcLayout {
   int stages;
   bool turns;      // the warpgroups take turns (the ring holds a tile)
+  size_t warp_buf;   // bytes of a warp's buffer
   size_t ring, buf, lists, bars, total;
 };
 
-inline TcLayout tc_layout(int nk, int stages, size_t list_bytes) {
+inline TcLayout tc_layout(int nk, int stages, bool wide, size_t list_bytes) {
   TcLayout l;
   l.stages = stages;
   l.turns = stages >= nk;
+  l.warp_buf = wide ? SROW * sizeof(uint64_t)
+                    : BUF * (sizeof(float) + sizeof(int));
   l.ring = (size_t)nk * A_STAGE_BYTES;
   l.buf = l.ring + (size_t)stages * I8::B_BYTES;
-  l.lists = l.buf + (size_t)TC_WARPS * BUF * (sizeof(float) + sizeof(int));
+  l.lists = l.buf + (size_t)TC_WARPS * l.warp_buf;
   l.bars = l.lists + list_bytes;
   l.total = l.bars + (1 + 2 * (size_t)stages) * sizeof(uint64_t);
   return l;
@@ -268,8 +426,8 @@ __device__ __forceinline__ void turn_pass(int g) {
                : "memory");
 }
 
-// Offer the warp's count staged survivors (score, key) to their queries'
-// lists: key = item offset in the tile | (the query's row among the
+// Offer the warp's count buffered survivors (score, key) to their queries'
+// narrow lists: key = item offset in the tile | (the query's row among the
 // warp's 16) << 8.  All 32 lanes read the same entry.
 template <int W>
 __device__ __noinline__ void drain(const float* bv, const int* bk,
@@ -320,8 +478,8 @@ __device__ __forceinline__ unsigned long long score_tile(
 }
 
 // cols: [n_tiles * 64] float4, item pairs (srow_c, lam_c, srow_c+1,
-// lam_c+1), zeros past n.  Lists: [128][k] in shared memory (W > 0) or
-// the block's rows of part_s / part_i (W == 0).
+// lam_c+1), zeros past n.  Lists: [128][k] in shared memory (W > 0), or a
+// wide list's (W == 0) in part, with its rows in shared memory.
 template <int W>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     scan_int8_tc_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -329,12 +487,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
                         const float4* __restrict__ cols, int n, int nk,
                         TcLayout lay, const float* __restrict__ qscale,
                         const float* __restrict__ lamq, int q, float tau,
-                        int k, int tiles_per_split, float* part_s,
-                        int* part_i) {
+                        int k, int tiles_per_split, Part part) {
   extern __shared__ __align__(1024) uint8_t tc_smem[];
   uint8_t* ring = tc_smem + lay.ring;
-  float* buf_v = reinterpret_cast<float*>(tc_smem + lay.buf);
-  int* buf_k = reinterpret_cast<int*>(buf_v + TC_WARPS * BUF);
   uint64_t* a_full = reinterpret_cast<uint64_t*>(tc_smem + lay.bars);
   uint64_t* full = a_full + 1;
   uint64_t* empty = full + lay.stages;
@@ -348,16 +503,21 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
   const int n_rows = min(TC_QB, q - q0);
+  const size_t row0_all = (size_t)split * q + q0;
 
   float* run_s = reinterpret_cast<float*>(tc_smem + lay.lists);
   int* run_i = reinterpret_cast<int*>(run_s + TC_QB * k);
-  if (W == 0) {
-    run_s = part_s + ((size_t)split * q + q0) * k;
-    run_i = part_i + ((size_t)split * q + q0) * k;
-  }
-  for (int e = tid; e < n_rows * k; e += TC_THREADS) {
-    run_s[e] = tile::NEG_SCORE;
-    run_i[e] = -1;
+  WideRow* rows = reinterpret_cast<WideRow*>(tc_smem + lay.lists);
+  Ent* lists = part.lists + row0_all * k;
+  uint64_t* stage = part.stage + row0_all * SROW;
+  unsigned long long* bound = part.bound ? part.bound + q0 : nullptr;
+  if constexpr (W == 0) {
+    wide_start(lists, n_rows, k, rows, TC_QB, tid, TC_THREADS);
+  } else {
+    for (int e = tid; e < n_rows * k; e += TC_THREADS) {
+      run_s[e] = tile::NEG_SCORE;
+      run_i[e] = -1;
+    }
   }
   if (tid == 0) {
     wg::bar_init(a_full, 1);
@@ -401,8 +561,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const float lq_b = ok_b ? lamq[q0 + r_b] : 0.0f;
   const bool lq_fast = fabsf(lq_a) < 0x1p62f && fabsf(lq_b) < 0x1p62f;
   const float omt = __fsub_rn(1.0f, tau);
-  float* bv = buf_v + (tid >> 5) * BUF;
-  int* bk = buf_k + (tid >> 5) * BUF;
+  // The warp's buffer: BUF scores, then BUF keys (narrow lists), or a
+  // sort scratch of SROW keys (wide lists).
+  float* bv = reinterpret_cast<float*>(tc_smem + lay.buf +
+                                       (tid >> 5) * lay.warp_buf);
+  int* bk = reinterpret_cast<int*>(bv + BUF);
+  uint64_t* scratch = reinterpret_cast<uint64_t*>(bv);
   const uint32_t a_addr = wg::smem_addr(tc_smem + grp * wg::A_BYTES);
   const unsigned lane_lt = (1u << lane) - 1u;
 
@@ -437,8 +601,17 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       cv[j] = __ldg(cols + (col0 >> 1) + 4 * j);
       lam_fast &= fabsf(cv[j].y) < 0x1p62f && fabsf(cv[j].w) < 0x1p62f;
     }
-    const float kth_a = ok_a ? run_s[(size_t)r_a * k + k - 1] : 0.0f;
-    const float kth_b = ok_b ? run_s[(size_t)r_b * k + k - 1] : 0.0f;
+    float kth_a, kth_b;
+    if constexpr (W == 0) {
+      if (bound && lane < 16 && row0 + lane < n_rows)
+        refresh(rows[row0 + lane], __ldcg(bound + row0 + lane));
+      __syncwarp();
+      kth_a = ok_a ? rows[r_a].thr_v : 0.0f;
+      kth_b = ok_b ? rows[r_b].thr_v : 0.0f;
+    } else {
+      kth_a = ok_a ? run_s[(size_t)r_a * k + k - 1] : 0.0f;
+      kth_b = ok_b ? run_s[(size_t)r_b * k + k - 1] : 0.0f;
+    }
     // Lambdas under 2^62 keep 1 + |lam_i - lam_q| below 2^64, the fast
     // reciprocal's range; otherwise the warp blends with tile::blend.
     const unsigned long long bits =
@@ -448,41 +621,80 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
             : score_tile<false>(acc, cv, col0, n, tau, omt, qs_a, qs_b,
                                 lq_a, lq_b, kth_a, kth_b, ok_a, ok_b);
     if (!__any_sync(tile::FULL, bits != 0)) continue;
-    // Survivors, compacted by ballot in groups of 4 sums (one column pair
-    // of both rows), merged whenever the buffer may not take the next
-    // group.
-    int count = 0;
+    if constexpr (W == 0) {
+      // Each survivor that beats its query's filter goes, as a key, onto
+      // the query's staging row, at a place taken by a shared-memory atomic
+      // (a row's 128 items lie with 4 lanes); then the staging rows that
+      // could not take another tile are merged, sorted in the warp's
+      // buffer.
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const unsigned nib = (unsigned)(bits >> (4 * j)) & 15u;
-      if (__ballot_sync(tile::FULL, nib != 0) == 0) continue;
+      for (int j = 0; j < 16; ++j) {
+        const unsigned nib = (unsigned)(bits >> (4 * j)) & 15u;
+        if (__ballot_sync(tile::FULL, nib != 0) == 0) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool p = (nib >> e) & 1u;
-        const unsigned m = __ballot_sync(tile::FULL, p);
-        if (p) {
-          const int pos = count + __popc(m & lane_lt);
-          bv[pos] = __int_as_float(acc[4 * j + e]);
-          bk[pos] = (8 * j + 2 * (lane & 3) + (e & 1)) |
-                    (((lane >> 2) + 8 * (e >> 1)) << 8);
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? r_a : r_b;
+          const float v = __int_as_float(acc[4 * j + e]);
+          const int id = col0 + 8 * j + (e & 1);
+          if (((nib >> e) & 1u) &&
+              Desc::better(v, id, rows[r].thr_v, rows[r].thr_i))
+            stage[(size_t)r * SROW + atomicAdd(&rows[r].staged, 1)] =
+                Desc::key(v, id);
         }
-        count += __popc(m);
       }
-      if (count > BUF - 4 * 32) {
-        __syncwarp();
-        drain<W>(bv, bk, count, c0, run_s, run_i, k, row0, lane);
-        count = 0;
+      __syncwarp();
+      const int mine = row0 + (lane & 15);
+      unsigned due = __ballot_sync(
+          tile::FULL, lane < 16 && mine < n_rows &&
+                          rows[mine].staged > SROW - TC_NB);
+      while (due) {
+        const int r = row0 + __ffs(due) - 1;
+        due &= due - 1;
+        flush_row(stage + (size_t)r * SROW, scratch, lists + (size_t)r * k,
+                  k, rows[r], bound ? bound + r : nullptr, lane);
       }
+    } else {
+      // Survivors, compacted by ballot in groups of 4 sums (one column
+      // pair of both rows), offered whenever the buffer may not take the
+      // next group.
+      int count = 0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const unsigned nib = (unsigned)(bits >> (4 * j)) & 15u;
+        if (__ballot_sync(tile::FULL, nib != 0) == 0) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool p = (nib >> e) & 1u;
+          const unsigned m = __ballot_sync(tile::FULL, p);
+          if (p) {
+            const int pos = count + __popc(m & lane_lt);
+            bv[pos] = __int_as_float(acc[4 * j + e]);
+            bk[pos] = (8 * j + 2 * (lane & 3) + (e & 1)) |
+                      (((lane >> 2) + 8 * (e >> 1)) << 8);
+          }
+          count += __popc(m);
+        }
+        if (count > BUF - 4 * 32) {
+          __syncwarp();
+          drain<W>(bv, bk, count, c0, run_s, run_i, k, row0, lane);
+          count = 0;
+        }
+      }
+      __syncwarp();
+      drain<W>(bv, bk, count, c0, run_s, run_i, k, row0, lane);
     }
-    __syncwarp();
-    drain<W>(bv, bk, count, c0, run_s, run_i, k, row0, lane);
   }
 
-  if (W != 0) {
+  if constexpr (W == 0) {
+    for (int r = row0; r < row0 + 16 && r < n_rows; ++r)
+      if (rows[r].staged > 0)
+        flush_row(stage + (size_t)r * SROW, scratch, lists + (size_t)r * k,
+                  k, rows[r], bound ? bound + r : nullptr, lane);
+  } else {
     // The warp's 16 lists to the partial lists.
     for (int r = row0; r < row0 + 16 && r < n_rows; ++r) {
-      float* o_s = part_s + ((size_t)split * q + q0 + r) * k;
-      int* o_i = part_i + ((size_t)split * q + q0 + r) * k;
+      float* o_s = part.s + (row0_all + r) * k;
+      int* o_i = part.i + (row0_all + r) * k;
       for (int e = lane; e < k; e += 32) {
         o_s[e] = run_s[(size_t)r * k + e];
         o_i[e] = run_i[(size_t)r * k + e];
@@ -491,10 +703,19 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// Whether the tensor-core route keeps lists of k in place of narrow ones:
+// past 256, or when 128 narrow lists do not fit beside two ring stages.
+inline bool tc_wide(int nk, int k) {
+  return tile::list_words(k) == 0 ||
+         tc_layout(nk, 2, false,
+                   (size_t)TC_QB * k * (sizeof(float) + sizeof(int)))
+                 .total > SMEM_LIMIT;
+}
+
 int launch_tc(const int8_t* xq, const float4* cols, int n, int f,
               const int8_t* qq, const float* qscale, const float* lamq, int q,
-              float tau, int k, int splits, float* part_s, int* part_i,
-              float* out_s, int* out_i, cudaStream_t st) {
+              float tau, int k, int splits, void* part, float* out_s,
+              int* out_i, cudaStream_t st) {
   if (!wg::route_ok<int8_t>(xq, qq, f) || f > TC_MAX_F ||
       reinterpret_cast<uintptr_t>(cols) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -504,20 +725,21 @@ int launch_tc(const int8_t* xq, const float4* cols, int n, int f,
     return (int)cudaErrorInvalidValue;
   const int nk = (f + I8::KSTAGE - 1) / I8::KSTAGE;
   // Narrow lists in shared memory when they fit beside two stages, with
-  // as deep a ring as fits; else wide lists in place.
-  int words = tile::list_words(k);
-  const size_t narrow = (size_t)TC_QB * k * (sizeof(float) + sizeof(int));
-  if (words > 0 && tc_layout(nk, 2, narrow).total > SMEM_LIMIT) words = 0;
-  const size_t lists = words == 0 ? 0 : narrow;
+  // as deep a ring as fits; else wide lists, their rows in shared memory.
+  const bool wide = tc_wide(nk, k);
+  const size_t lists =
+      wide ? (size_t)TC_QB * sizeof(WideRow)
+           : (size_t)TC_QB * k * (sizeof(float) + sizeof(int));
   int stages = MAX_STAGES;
-  while (stages > 2 && tc_layout(nk, stages, lists).total > SMEM_LIMIT)
+  while (stages > 2 && tc_layout(nk, stages, wide, lists).total > SMEM_LIMIT)
     --stages;
-  const TcLayout lay = tc_layout(nk, stages, lists);
+  const TcLayout lay = tc_layout(nk, stages, wide, lists);
   if (lay.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_q;
   if (!wg::make_map<int8_t>(&map_x, xq, n, f, TC_NB) ||
       !wg::make_map<int8_t>(&map_q, qq, q, f, TC_QB))
     return (int)cudaErrorInvalidValue;
+  const int words = wide ? 0 : tile::list_words(k);
   auto scan = words == 2   ? &scan_int8_tc_kernel<2>
               : words == 4 ? &scan_int8_tc_kernel<4>
               : words == 8 ? &scan_int8_tc_kernel<8>
@@ -525,13 +747,16 @@ int launch_tc(const int8_t* xq, const float4* cols, int n, int f,
   cudaError_t err = cudaFuncSetAttribute(
       scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
+  const Part p = part_layout(part, splits, q, k, wide);
+  int e = start_bounds(p, q, st);
+  if (e != 0) return e;
   const dim3 grid((q + TC_QB - 1) / TC_QB, splits);
-  scan<<<grid, TC_THREADS, lay.total, st>>>(
-      map_x, map_q, cols, n, nk, lay, qscale, lamq, q, tau, k,
-      tiles_per_split, part_s, part_i);
+  scan<<<grid, TC_THREADS, lay.total, st>>>(map_x, map_q, cols, n, nk, lay,
+                                            qscale, lamq, q, tau, k,
+                                            tiles_per_split, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_merge(part_s, part_i, q, k, splits, out_s, out_i, st);
+  return launch_merge(p, wide, q, k, splits, out_s, out_i, st);
 }
 
 }  // namespace
@@ -541,13 +766,14 @@ extern "C" {
 // Queries qq [q, fw] (int8 rows packed as fw 32-bit words) with scales
 // qscale [q] and lambdas lamq [q] against the corpus xq [n, fw] (packed
 // likewise) with row scales srow [n] and lambdas lam [n] -> out_s / out_i
-// [q, k].  part_s / part_i are scratch of [splits, q, k].  Runs on the
-// given device and stream; returns the CUDA error code (0 on success).
+// [q, k].  part is scratch of 8-byte words: [splits, q, k] for a narrow
+// list (k <= 256); for a wide one [splits, q, k + SROW] and q more.  Runs on
+// the given device and stream; returns the CUDA error code (0 on success).
 int scan_int8_launch(const int* xq, const float* srow, const float* lam,
                      int n, int fw, const int* qq, const float* qscale,
                      const float* lamq, int q, float tau, int k, int splits,
-                     float* part_s, int* part_i, float* out_s, int* out_i,
-                     int device, void* stream) {
+                     void* part, float* out_s, int* out_i, int device,
+                     void* stream) {
   const int words = tile::list_words(k);
   if (n <= 0 || fw <= 0 || q <= 0 || words < 0 || k > n || splits <= 0)
     return (int)cudaErrorInvalidValue;
@@ -557,10 +783,13 @@ int scan_int8_launch(const int* xq, const float* srow, const float* lam,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t list_bytes =
-      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
-  const size_t smem =
-      (size_t)tile::TILE_FLOATS * sizeof(float) + tile::TILE * list_bytes;
+  const bool wide = words == 0;
+  // Narrow: the lists; wide: each warp's sort scratch and the rows.
+  const size_t extra =
+      wide ? tile::WARPS * SROW * sizeof(uint64_t) +
+                 tile::TILE * sizeof(WideRow)
+           : tile::TILE * (size_t)k * (sizeof(float) + sizeof(int));
+  const size_t smem = (size_t)tile::TILE_FLOATS * sizeof(float) + extra;
   auto scan = words == 2   ? &scan_int8_kernel<2>
               : words == 4 ? &scan_int8_kernel<4>
               : words == 8 ? &scan_int8_kernel<8>
@@ -568,27 +797,31 @@ int scan_int8_launch(const int* xq, const float* srow, const float* lam,
   err = cudaFuncSetAttribute(
       scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
   cudaStream_t st = (cudaStream_t)stream;
+  const Part p = part_layout(part, splits, q, k, wide);
+  int e = start_bounds(p, q, st);
+  if (e != 0) return e;
+  const dim3 grid((q + tile::TILE - 1) / tile::TILE, splits);
   scan<<<grid, tile::THREADS, smem, st>>>(xq, srow, lam, n, fw, qq, qscale,
                                           lamq, q, tau, k, tiles_per_split,
-                                          part_s, part_i);
+                                          p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_merge(part_s, part_i, q, k, splits, out_s, out_i, st);
+  return launch_merge(p, wide, q, k, splits, out_s, out_i, st);
 }
 
 // The tensor-core route: int8 rows xq [n, f] and qq [q, f] (f % 16 == 0,
 // f <= 1,024, 16-byte-aligned bases), the item pairs cols [ceil(n / 128)
 // * 64] float4 (srow, lam of an even item, then of the next; zeros past
-// n), qscale and lamq [q] -> out_s / out_i [q, k]; part_s / part_i are
-// scratch of [splits, q, k].  Runs on the given device and stream;
-// returns the CUDA error code (0 on success).
+// n), qscale and lamq [q] -> out_s / out_i [q, k]; part is scratch as
+// scan_int8_launch's, the list wide when scan_int8_tc_wide says so.  Runs
+// on the given device and stream; returns the CUDA error code (0 on
+// success).
 int scan_int8_tc_launch(const void* xq, const void* cols, int n, int f,
                         const void* qq, const float* qscale,
                         const float* lamq, int q, float tau, int k,
-                        int splits, float* part_s, int* part_i, float* out_s,
-                        int* out_i, int device, void* stream) {
+                        int splits, void* part, float* out_s, int* out_i,
+                        int device, void* stream) {
   if (n <= 0 || f <= 0 || q <= 0 || tile::list_words(k) < 0 || k > n ||
       splits <= 0)
     return (int)cudaErrorInvalidValue;
@@ -597,8 +830,12 @@ int scan_int8_tc_launch(const void* xq, const void* cols, int n, int f,
   return launch_tc(static_cast<const int8_t*>(xq),
                    static_cast<const float4*>(cols), n, f,
                    static_cast<const int8_t*>(qq), qscale, lamq, q, tau, k,
-                   splits, part_s, part_i, out_s, out_i,
-                   (cudaStream_t)stream);
+                   splits, part, out_s, out_i, (cudaStream_t)stream);
+}
+
+// Whether the tensor-core route at f features keeps lists of k wide.
+int scan_int8_tc_wide(int f, int k) {
+  return tc_wide((f + I8::KSTAGE - 1) / I8::KSTAGE, k);
 }
 
 const char* scan_int8_error_string(int err) {

@@ -5,10 +5,12 @@
 // `lambda_search_pallas`).  For every query q it keeps the k largest
 //   score(q, i) = tau * (qn_q . xu_i) + (1 - tau) / (1 + |lam_i - lamq_q|)
 // over the corpus, ties to the smallest id, with corpus ids >= n masked
-// to -3e38; rows come out descending by score.  The corpus and queries are
-// float32, or both bfloat16 (the as_serving view: the caller rounds the
-// queries to bf16 as the JAX package does); bf16 values are converted to
-// float exactly on load and every score is one float32 fmaf chain.
+// to -3e38; rows come out descending by score.  A score enters a list only
+// if it beats the empty slot (-3e38, -1): a NaN or a score at or below
+// -3e38 never does.  The corpus and queries are float32, or both bfloat16
+// (the as_serving view: the caller rounds the queries to bf16 as the JAX
+// package does); bf16 values are converted to float exactly on load and
+// every score is one float32 fmaf chain.
 //
 // What bounds it on the H100: the products, Q x N x F x 2 = 0.99 TFLOP a
 // batch of 4,096 queries over 313,841 x 384 in fp32 outside the tensor
@@ -22,20 +24,32 @@
 // block an SM runs at a time; at Q 4,096 on 132 SMs, 4 splits: one wave of
 // 128 blocks, where two blocks an SM would take three waves).  A block runs
 // the register-tiled fp32 product of ffma_tile.cuh over its split's tiles
-// in ascending order, blends (tile::blend), masks ids >= n, and merges
-// into running lists, 64 columns at a time, then writes its partial lists
-// [S, Q, k].  Launch 2 (tile::merge_splits): one warp per query merges the
-// S partial lists in split order with the same insertion rule, so the
-// result is the exact top-k in (score desc, id asc) order.  Lists of k <=
-// 128 live in shared memory (2 or 4 words a lane; 200 KB a block with the
-// ring at k 128); longer lists stay in place in the partial lists (launch
-// 1) and are merged as tile::merge_splits takes them (launch 2): any k the
-// caller's scratch holds.
+// in ascending order and blends (tile::blend), masking ids >= n.  Then, by
+// the length of the lists:
+//   - k <= 128 (narrow): running lists in shared memory (2 or 4 words a
+//     lane; 200 KB a block with the ring at k 128), merged 64 columns at a
+//     time, written to the partial lists [S, Q, k]; launch 2
+//     (tile::merge_splits) merges them in split order, one warp a query,
+//     with the same insertion rule.
+//   - k > 128 (wide): the route of knn_wide.cuh, K1's, with this epilogue
+//     (BlendEpi) and the descending key: each tile's survivors (the strict
+//     (score, id) compare against the row's filter) buffered as keys,
+//     staged in device memory, sorted and merged into the partial lists in
+//     one pass, the splits sharing each query's best kth; launch 2 is its
+//     split merge.  The lists of 129 to 256 would take 256 KB of shared
+//     memory beside the ring, past a block's 227 KB.  What bounds this
+//     route is what bounds the narrow one, the products, plus about k (1 +
+//     ln(C / k)) survivors a query over a split of C items, each sorted and
+//     merged a few times at most; any k the caller's scratch holds.  On
+//     an H100 80GB HBM3 at 700 W (chip_smoke.py phase 2): k 200 at Q
+//     4,096 38.15 ms against k 15's 30.01; k 1,024 at Q 1,024 20.85 ms.
+// Both give the exact top-k in (score desc, id asc) order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ffma_tile.cuh"
+#include "knn_wide.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -61,13 +75,9 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   const int c_stop = min(n, c_begin + tiles_per_split * TILE);
   const int n_rows = min(TILE, q - q0);
 
-  // The block's lists [n_rows][k]: in shared memory, or its partial lists.
+  // The block's lists [n_rows][k] in shared memory.
   float* run_s = ffma_smem + RING_FLOATS;
   int* run_i = reinterpret_cast<int*>(run_s + TILE * k);
-  if (W == 0) {
-    run_s = part_s + ((size_t)split * q + q0) * k;
-    run_i = part_i + ((size_t)split * q + q0) * k;
-  }
   for (int e = tid; e < n_rows * k; e += THREADS) {
     run_s[e] = tile::NEG_SCORE;
     run_i[e] = -1;
@@ -125,61 +135,85 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     __syncthreads();
   }
 
-  if (W != 0) {
-    float* o_s = part_s + ((size_t)split * q + q0) * k;
-    int* o_i = part_i + ((size_t)split * q + q0) * k;
-    for (int e = tid; e < n_rows * k; e += THREADS) {
-      o_s[e] = run_s[e];
-      o_i[e] = run_i[e];
-    }
+  float* o_s = part_s + ((size_t)split * q + q0) * k;
+  int* o_i = part_i + ((size_t)split * q + q0) * k;
+  for (int e = tid; e < n_rows * k; e += THREADS) {
+    o_s[e] = run_s[e];
+    o_i[e] = run_i[e];
   }
 }
+
+// The wide route's epilogue: the blended score, ids >= n masked to -3e38.
+struct BlendEpi {
+  using Order = knn_wide::Desc;
+  const float* lam;
+  const float* lamq;
+  float tau, omt;
+  float lq[regtile::MICRO], lc[regtile::MICRO];
+  __device__ __forceinline__ void load(int q0, int q_end, int c0, int n) {
+    using namespace regtile;
+    const int tx = thread_x(), ty = thread_y();
+#pragma unroll
+    for (int i = 0; i < MICRO; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      lq[i] = qi < q_end ? lamq[qi] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < MICRO; ++j) {
+      const int col = c0 + tx + 16 * j;
+      lc[j] = col < n ? lam[col] : 0.0f;
+    }
+  }
+  __device__ __forceinline__ float value(float acc, int i, int j, int,
+                                         int col, int n) const {
+    return col >= n ? tile::NEG_SCORE : tile::blend(tau, omt, acc, lc[j],
+                                                      lq[i]);
+  }
+};
 
 template <class T>
 int launch(const void* xu, const float* lam, int n, int f, const void* qn,
            const float* lamq, int q, float tau, int k, int splits,
-           float* part_s, int* part_i, float* out_s, int* out_i, int device,
+           void* part, float* out_s, int* out_i, int device,
            cudaStream_t st) {
+  const T* x = static_cast<const T*>(xu);
+  const T* qs = static_cast<const T*>(qn);
+  if (regtile::list_words(k) == 0)
+    return knn_wide::launch<T>(qs, x, BlendEpi{lam, lamq, tau, 1.0f - tau},
+                               n, f, 0, q, k, 0, 0, nullptr, splits, part,
+                               out_s, out_i, (size_t)k, 1, 1, device, st);
   const int n_tiles = (n + regtile::TILE - 1) / regtile::TILE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
     return (int)cudaErrorInvalidValue;
   // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
-  // a launch gets without opting in.  Wide lists take none.
+  // a launch gets without opting in.
   const size_t smem = regtile::smem_bytes(k);
   int smem_max = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  auto scan = &scan_kernel<T, 0>;
-  if (regtile::list_words(k) == 2)
-    scan = &scan_kernel<T, 2>;
-  else if (regtile::list_words(k) == 4)
-    scan = &scan_kernel<T, 4>;
+  auto scan = regtile::list_words(k) == 2 ? &scan_kernel<T, 2>
+                                          : &scan_kernel<T, 4>;
   err = cudaFuncSetAttribute(
       scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int vec =
       regtile::can_vectorize<T>(xu, f) && regtile::can_vectorize<T>(qn, f);
+  // The partial lists: [splits, q, k] scores, then as many ids.
+  float* part_s = static_cast<float*>(part);
+  int* part_i = reinterpret_cast<int*>(part_s + (size_t)splits * q * k);
   const dim3 grid((q + regtile::TILE - 1) / regtile::TILE, splits);
-  scan<<<grid, regtile::THREADS, smem, st>>>(
-      static_cast<const T*>(xu), lam, n, f, static_cast<const T*>(qn), lamq,
-      q, vec, tau, k, tiles_per_split, part_s, part_i);
+  scan<<<grid, regtile::THREADS, smem, st>>>(x, lam, n, f, qs, lamq, q, vec,
+                                             tau, k, tiles_per_split, part_s,
+                                             part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // The merge keeps tile_common.cuh's list layouts: narrow up to k 256.
+  // The merge keeps tile_common.cuh's narrow list layouts.
   const int words = tile::list_words(k);
-  const size_t list_bytes =
-      words == 0 ? 0 : (size_t)k * (sizeof(float) + sizeof(int));
-  auto merge = &tile::merge_splits<0>;
-  if (words == 2)
-    merge = &tile::merge_splits<2>;
-  else if (words == 4)
-    merge = &tile::merge_splits<4>;
-  else if (words == 8)
-    merge = &tile::merge_splits<8>;
-  const size_t smem2 = tile::WARPS * list_bytes;
+  auto merge = words == 2 ? &tile::merge_splits<2> : &tile::merge_splits<4>;
+  const size_t smem2 = tile::WARPS * (size_t)k * (sizeof(float) + sizeof(int));
   merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
       part_s, part_i, q, k, splits, out_s, out_i);
   return (int)cudaGetLastError();
@@ -191,13 +225,14 @@ extern "C" {
 
 // Queries qn [q, f] (unit rows) with lambdas lamq [q] against the corpus
 // xu [n, f] with lambdas lam [n] -> out_s / out_i [q, k].  xu and qn are
-// both float (dtype 0) or both bf16 (dtype 1).  part_s / part_i are
-// scratch of [splits, q, k].  Runs on the given device and stream.
-// Returns the CUDA error code (0 on success).
+// both float (dtype 0) or both bf16 (dtype 1).  part is scratch of 8-byte
+// words: [splits, q, k] for a narrow list (k <= 128); for a wide one
+// [splits, q, k + knn_wide::STAGE] and q more.  Runs on the given device
+// and stream.  Returns the CUDA error code (0 on success).
 int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
                      int f, const void* qn, const float* lamq, int q,
-                     float tau, int k, int splits, float* part_s, int* part_i,
-                     float* out_s, int* out_i, int device, void* stream) {
+                     float tau, int k, int splits, void* part, float* out_s,
+                     int* out_i, int device, void* stream) {
   if (n <= 0 || f <= 0 || q <= 0 || regtile::list_words(k) < 0 || k > n ||
       splits <= 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
@@ -205,8 +240,8 @@ int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   auto fn = dtype == 1 ? &launch<__nv_bfloat16> : &launch<float>;
-  return fn(xu, lam, n, f, qn, lamq, q, tau, k, splits, part_s, part_i,
-            out_s, out_i, device, st);
+  return fn(xu, lam, n, f, qn, lamq, q, tau, k, splits, part, out_s, out_i,
+            device, st);
 }
 
 const char* scan_topk_error_string(int err) {

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from ... import _build
-from .scan_topk import fit_scratch, sm_count, wave_splits
+from .scan_topk import fit_scratch, scratch_words, sm_count, wave_splits
 
 INF_DIST = 2.0
 # The kernel's running lists: up to WIDE_K entries in shared memory; longer
@@ -179,8 +179,8 @@ def scratch(row_count: int, n_cols: int, k: int, device,
     splits, chunk = plan_splits(row_count, n_cols, k, device, narrow)
     part = None
     if splits > 1 or k > WIDE_K:
-        rows = min(chunk, row_count)
-        words = splits * rows * (k + (_STAGE if k > WIDE_K else 0)) + rows
+        words = scratch_words(splits, min(chunk, row_count), k,
+                              _STAGE if k > WIDE_K else 0)
         part = torch.empty((words, 2), dtype=torch.int32, device=device)
     return splits, chunk, part
 

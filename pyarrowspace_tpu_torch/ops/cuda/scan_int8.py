@@ -22,8 +22,12 @@ Two routes on the card, chosen by ``tensor_core_route`` from dtype, shape
 and alignment alone: the int8 tensor-core kernel (``wgmma`` s8, on
 ``csrc/wgmma_tile.cuh``) for contiguous int8 rows with F % 16 == 0, F <=
 1,024 and 16-byte-aligned bases, else the SIMT kernel (``__dp4a``), which
-stays as the witness of the int32 sums.  A failed build or launch raises;
-nothing falls back to the other route or to the plain version.
+stays as the witness of the int32 sums.  On either, a list is narrow (in
+shared memory) or, past what shared memory holds (``wide_lists``), wide:
+its survivors staged, sorted and merged into partial lists in device
+memory (``csrc/knn_wide.cuh``'s keys and merge).  A failed build or
+launch raises; nothing falls back to the other route or to the plain
+version.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch.nn.functional as nnf
 
 from ... import _build
 from ..quantize import quantize_rows
-from .scan_topk import fit_scratch, sm_count
+from .scan_topk import fit_scratch, scratch_words, sm_count
 
 # Queries per block and corpus items per tile: of the SIMT kernel, and of
 # the tensor-core kernel.
@@ -43,11 +47,21 @@ _TILE = 64
 _TC_TILE = 128
 # The tensor-core kernel keeps its block's 128 query rows in shared memory.
 TC_MAX_F = 1024
+# A narrow list holds up to 256 entries.  The tensor-core kernel keeps its
+# 128 narrow lists in shared memory beside the queries' stages (16 KB a
+# 128 features), two ring stages (16 KB each), the warps' survivor buffers
+# (16 KB) and its barriers, within a block's 232,448 bytes; a wide list's
+# query stages _SROW keys (csrc/scan_int8.cu SROW).
+_NARROW_MAX = 256
+_TC_STAGE_BYTES = 16_384
+_TC_SMEM = 232_448
+_SROW = 512
 
 # Kernel launches since import (or since the caller last reset it): all
-# of them, and those of the tensor-core route.
+# of them, those of the tensor-core route, and those with wide lists.
 LAUNCHES = 0
 TC_LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 # The unfilled slot's score (its id is -1).
 NEG_SCORE = -3.0e38
@@ -57,23 +71,39 @@ NEG_SCORE = -3.0e38
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
-def plan_splits(n: int, q: int, k: int, device,
-                tensor_core: bool = False) -> tuple[int, int]:
-    """K7's (splits, queries a launch), then ``scan_topk.fit_scratch``.
-    SIMT route: at least about two 64-query blocks per SM, every split
-    holding at least one 64-item tile.  Tensor-core route (one block an
-    SM): the fewest corpus splits whose grid of 128-query blocks fills its
-    last wave to 90% or more, as K2 plans."""
+def wide_lists(k: int, f: int, tensor_core: bool) -> bool:
+    """Whether K7 keeps lists of k wide: past 256 entries, or, on the
+    tensor-core route at F features, when 128 narrow lists do not fit its
+    shared memory beside two ring stages (F 384: past 130; F 768: past
+    82).  csrc/scan_int8.cu decides so too (scan_int8_tc_wide)."""
+    if k > _NARROW_MAX:
+        return True
+    if not tensor_core:
+        return False
+    nk = -(-f // 128)
+    used = (nk + 3) * _TC_STAGE_BYTES + 128 * k * 8 + 5 * 8
+    return used > _TC_SMEM
+
+
+def plan_splits(n: int, q: int, k: int, device, tensor_core: bool = False,
+                wide: bool = False) -> tuple[int, int]:
+    """K7's (splits, queries a launch), then ``scan_topk.fit_scratch`` (a
+    wide list's staging rows count with its partial lists).  SIMT route:
+    at least about two 64-query blocks per SM, every split holding at
+    least one 64-item tile.  Tensor-core route (one block an SM): the
+    fewest corpus splits whose grid of 128-query blocks fills its last
+    wave to 90% or more, as K2 plans."""
     sms = sm_count(device.index or 0)
+    per_query = k + (_SROW if wide else 0)
     if tensor_core:
         n_tiles, n_qblocks = -(-n // _TC_TILE), -(-q // _TC_TILE)
         want = next((s for s in range(1, n_tiles + 1)
                      if 10 * n_qblocks * s
                      >= 9 * sms * -(-n_qblocks * s // sms)), n_tiles)
-        return fit_scratch(n_tiles, want, q, k)
+        return fit_scratch(n_tiles, want, q, per_query)
     n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
     want = min(n_tiles, max(1, -(-2 * sms // n_qblocks)))
-    return fit_scratch(n_tiles, want, q, k)
+    return fit_scratch(n_tiles, want, q, per_query)
 
 
 def tensor_core_route(xq: torch.Tensor, qq: torch.Tensor) -> bool:
@@ -91,6 +121,16 @@ def tensor_core_route(xq: torch.Tensor, qq: torch.Tensor) -> bool:
 def route_name(xq: torch.Tensor, qq: torch.Tensor) -> str:
     """"tensor-core" or "simt": the route tensor_core_route picks."""
     return "tensor-core" if tensor_core_route(xq, qq) else "simt"
+
+
+def lists_name(xq: torch.Tensor, qq: torch.Tensor, k: int) -> str:
+    """The lists of a launch with lists of k: "narrow" or "wide", and
+    "/S<splits>"."""
+    tc = tensor_core_route(xq, qq)
+    wide = wide_lists(k, xq.shape[-1], tc)
+    splits = plan_splits(xq.shape[0], qq.shape[0], k, xq.device, tc,
+                         wide)[0]
+    return f"{'wide' if wide else 'narrow'}/S{splits}"
 
 
 def scan_int8_plain(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
@@ -138,15 +178,16 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     lib.scan_int8_tc_launch.restype = ctypes.c_int
     lib.scan_int8_tc_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.scan_int8_tc_wide.restype = ctypes.c_int
+    lib.scan_int8_tc_wide.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -180,7 +221,7 @@ def scan_int8(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
     qq [Q, F] int8 with scales qscale [Q] and lambdas lamq [Q] over the
     corpus xq [N, F] int8 with row scales srow [N] and lambdas lam [N];
     1 <= k <= N."""
-    global LAUNCHES, TC_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, WIDE_LAUNCHES
     if xq.dim() != 2 or qq.dim() != 2 or qq.shape[1] != xq.shape[1]:
         raise ValueError(f"shapes xq {tuple(xq.shape)} / qq "
                          f"{tuple(qq.shape)} do not match")
@@ -226,11 +267,15 @@ def scan_int8(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
     else:
         xa, qa = _words(xq), _words(qq)
         fa = xa.shape[1]
-    splits, q_chunk = plan_splits(n, q, k, device, tc)
-    part_s = torch.empty((splits, min(q, q_chunk), k), dtype=torch.float32,
-                         device=device)
-    part_i = torch.empty_like(part_s, dtype=torch.int32)
+    wide = wide_lists(k, fa, tc)
     lib = _lib()
+    if tc and bool(lib.scan_int8_tc_wide(fa, k)) != wide:
+        raise RuntimeError(f"the int8 scan kernel's lists at F={fa}, k={k} "
+                           f"are not wide={wide}, as wide_lists says")
+    splits, q_chunk = plan_splits(n, q, k, device, tc, wide)
+    part = torch.empty((scratch_words(splits, min(q, q_chunk), k,
+                                      _SROW if wide else 0), 2),
+                       dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     for s in range(0, q, q_chunk):
         qc = min(q_chunk, q - s)
@@ -238,19 +283,19 @@ def scan_int8(xq: torch.Tensor, srow: torch.Tensor, lam: torch.Tensor,
             err = lib.scan_int8_tc_launch(
                 xa.data_ptr(), cols.data_ptr(), n, fa, qa[s:].data_ptr(),
                 qscale[s:].data_ptr(), lamq[s:].data_ptr(), qc, float(tau),
-                k, splits, part_s.data_ptr(), part_i.data_ptr(),
-                out_s[s:].data_ptr(), out_i[s:].data_ptr(),
-                device.index or 0, stream)
+                k, splits, part.data_ptr(), out_s[s:].data_ptr(),
+                out_i[s:].data_ptr(), device.index or 0, stream)
         else:
             err = lib.scan_int8_launch(
                 xa.data_ptr(), srow.data_ptr(), lam.data_ptr(), n, fa,
                 qa[s:].data_ptr(), qscale[s:].data_ptr(),
                 lamq[s:].data_ptr(), qc, float(tau), k, splits,
-                part_s.data_ptr(), part_i.data_ptr(), out_s[s:].data_ptr(),
-                out_i[s:].data_ptr(), device.index or 0, stream)
+                part.data_ptr(), out_s[s:].data_ptr(), out_i[s:].data_ptr(),
+                device.index or 0, stream)
         _build.check(lib, "scan_int8", err)
         LAUNCHES += 1
         TC_LAUNCHES += tc
+        WIDE_LAUNCHES += wide
     return out_i, out_s
 
 

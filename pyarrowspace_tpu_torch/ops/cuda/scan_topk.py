@@ -6,7 +6,10 @@ CUDA kernel's wrapper and its plain PyTorch version.
 tensors it launches ``csrc/scan_topk.cu`` (built at first use) or raises.
 Both return, per query, the k largest
 ``tau * (qn . xu_i) + (1 - tau) / (1 + |lam_i - lam_q|)``, descending,
-ties to the smallest id.
+ties to the smallest id.  Lists past ``WIDE_K`` entries take the kernel's
+wide route (``csrc/knn_wide.cuh``, K1's: survivors staged, sorted and
+merged into partial lists in device memory); ``route_name`` names the
+route and its corpus splits.
 
 A bfloat16 corpus (the ``as_serving`` view) is scanned with the queries
 rounded to bfloat16 first and the products summed in float32, as the JAX
@@ -25,14 +28,21 @@ from ... import _build
 
 # Queries per block and corpus items per tile of the kernel.
 _TILE = 128
+# Lists up to WIDE_K entries stay in shared memory; longer ones take the
+# wide route, whose rows stage up to _STAGE keys each in the scratch
+# (csrc/knn_wide.cuh STAGE).
+WIDE_K = 128
+_STAGE = 896
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Partial lists of the split scans (K2, K7): [splits, Q, k] scores and ids
 # are held to this many bytes; fewer splits, then query chunks, keep them
 # there.
 SCRATCH_BYTES = 1 << 30
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it), and
+# those among them on the wide route.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 # The kernel's unfilled slot (tile::NEG_SCORE), rounded to float32.
 NEG_SCORE = -3.0e38
 
@@ -114,10 +124,27 @@ def wave_splits(n_tiles: int, n_blocks: int, sms: int) -> int:
 
 def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
     """K2's (splits, queries a launch): ``wave_splits`` over its grid of
-    128-query blocks, then ``fit_scratch``."""
+    128-query blocks, then ``fit_scratch`` (a wide list's staging rows
+    count with its partial lists)."""
     n_tiles, n_qblocks = -(-n // _TILE), -(-q // _TILE)
     want = wave_splits(n_tiles, n_qblocks, sm_count(device.index or 0))
-    return fit_scratch(n_tiles, want, q, k)
+    return fit_scratch(n_tiles, want, q, k + (_STAGE if k > WIDE_K else 0))
+
+
+def route_name(n: int, q: int, k: int, device) -> str:
+    """The route of a launch over n items for q queries with lists of k:
+    "narrow" or "wide", and "/S<splits>"."""
+    splits = plan_splits(n, q, k, device)[0]
+    return f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
+
+
+def scratch_words(splits: int, rows: int, k: int, wide: int) -> int:
+    """8-byte words of a split scan's scratch: the partial lists [splits,
+    rows, k]; with ``wide`` staged keys a row, also the staging rows
+    [splits, rows, wide] and each row's bound shared by its splits."""
+    if not wide:
+        return splits * rows * k
+    return splits * rows * (k + wide) + rows
 
 
 def _lib():
@@ -127,8 +154,7 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -137,7 +163,7 @@ def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     """Batched lambda-aware top-k: xu [N, F] unit rows (float32 or
     bfloat16), lam [N], qn [Q, F] unit queries, lam_q [Q] -> (idx [Q, k]
     int32, scores [Q, k]) with k = min(topk, N)."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     if xu.dim() != 2 or qn.dim() != 2 or qn.shape[1] != xu.shape[1]:
         raise ValueError(f"shapes xu {tuple(xu.shape)} / qn "
                          f"{tuple(qn.shape)} do not match")
@@ -173,9 +199,10 @@ def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     if q == 0:
         return out_i, out_s
     splits, q_chunk = plan_splits(n, q, k, device)
-    part_s = torch.empty((splits, min(q, q_chunk), k), dtype=torch.float32,
-                         device=device)
-    part_i = torch.empty_like(part_s, dtype=torch.int32)
+    wide = k > WIDE_K
+    part = torch.empty((scratch_words(splits, min(q, q_chunk), k,
+                                      _STAGE if wide else 0), 2),
+                       dtype=torch.int32, device=device)
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     for s in range(0, q, q_chunk):
@@ -183,9 +210,9 @@ def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
         err = lib.scan_topk_launch(
             xu.data_ptr(), _DTYPE_CODES[xu.dtype], lam.data_ptr(), n, f,
             qs[s:].data_ptr(), lam_q[s:].data_ptr(), qc, float(tau), k,
-            splits, part_s.data_ptr(), part_i.data_ptr(),
-            out_s[s:].data_ptr(), out_i[s:].data_ptr(), device.index or 0,
-            stream)
+            splits, part.data_ptr(), out_s[s:].data_ptr(),
+            out_i[s:].data_ptr(), device.index or 0, stream)
         _build.check(lib, "scan_topk", err)
         LAUNCHES += 1
+        WIDE_LAUNCHES += wide
     return out_i, out_s

@@ -149,7 +149,7 @@ def test_scan_kernel_exact_ties(dev):
     assert torch.equal(i, ip) and torch.equal(s, sp)
 
 
-@pytest.mark.parametrize("k", [15, 4990])
+@pytest.mark.parametrize("k", [15, 200, 4990])
 def test_scan_kernel_nan_scores_enter_no_list(dev, k):
     """Lambdas +inf on 52 items and on queries 3 and 100: inf - inf gives
     NaN scores, which enter no list in the kernel nor in the plain version;

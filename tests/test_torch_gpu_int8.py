@@ -53,20 +53,27 @@ def _scan_case(dev, seed, n, q, f):
 
 # -- K7 -------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [15, 60, 300, K_LONG])
+@pytest.mark.parametrize("k", [15, 60, 129, 200, 256, 257, 300, 1024,
+                               K_LONG])
 @pytest.mark.parametrize("f", [384, 385, 768])
 def test_scan_int8_kernel_equals_plain(dev, k, f):
-    """F 384 and 768 take the tensor-core route, F 385 the SIMT route."""
+    """F 384 and 768 take the tensor-core route, F 385 the SIMT route; the
+    lists are wide past 256, and on the tensor-core route past what fits
+    beside its stages (130 at F 384, 82 at F 768)."""
     xu, qn, lam, lamq = _scan_case(dev, k + f, 6000, 70, f)
     xq, sc = quantize_rows(xu)
     qq, qs = quantize_rows(qn)
     tc = f % 16 == 0
     assert scan_int8.tensor_core_route(xq, qq) is tc
+    wide = scan_int8.wide_lists(k, f, tc)
+    assert wide == (k > (256 if not tc else 130 if f == 384 else 82))
     launches, tc_launches = scan_int8.LAUNCHES, scan_int8.TC_LAUNCHES
+    wide_launches = scan_int8.WIDE_LAUNCHES
     i, s = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, TAU, k)
     torch.cuda.synchronize()
     assert scan_int8.LAUNCHES == launches + 1
     assert scan_int8.TC_LAUNCHES == tc_launches + tc
+    assert scan_int8.WIDE_LAUNCHES == wide_launches + wide
     ip, sp = scan_int8.scan_int8_plain(xq, sc, lam, qq, qs, lamq, TAU, k)
     assert i.shape == (70, k) and i.dtype == torch.int32
     assert torch.equal(i, ip)
@@ -118,7 +125,7 @@ def _bitwise(a, b):
             and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
 
 
-@pytest.mark.parametrize("k", [15, 60, 300, K_LONG])
+@pytest.mark.parametrize("k", [15, 60, 129, 200, 300, 1024, K_LONG])
 @pytest.mark.parametrize("f", [384, 768])
 def test_scan_int8_tensor_core_route_equals_simt(dev, k, f):
     xu, qn, lam, lamq = _scan_case(dev, 3 * k + f, 9000, 300, f)
@@ -140,7 +147,7 @@ def test_scan_int8_tensor_core_ties_at_the_kth(dev):
     lamq = torch.full((130,), 0.25, device=dev)
     xq, sc = quantize_rows(xu)
     qq, qs = quantize_rows(qn)
-    for k in (60, 250, 700):
+    for k in (60, 130, 131, 250, 257, 700):
         got, simt, plain = _both_routes(xq, sc, lam, qq, qs, lamq, k)
         assert _bitwise(got, plain) and _bitwise(got, simt)
 
@@ -161,7 +168,7 @@ def test_scan_int8_tensor_core_lambdas_off_the_fast_path(dev):
     assert _bitwise(got, plain) and _bitwise(got, simt)
 
 
-@pytest.mark.parametrize("k", [60, 4997])
+@pytest.mark.parametrize("k", [60, 200, 4997])
 def test_scan_int8_nan_scores_enter_no_list(dev, k):
     """Lambdas +inf on 52 items and on queries 3 and 150: inf - inf gives
     NaN scores, which enter no list on either route nor in the plain
@@ -179,19 +186,53 @@ def test_scan_int8_nan_scores_enter_no_list(dev, k):
     assert int((got[0] < 0).sum()) == 2 * tail
 
 
-def test_scan_int8_tensor_core_query_chunks(dev, monkeypatch):
+@pytest.mark.parametrize("k", [60, 200])
+def test_scan_int8_tensor_core_query_chunks(dev, monkeypatch, k):
     """Partial lists past the scratch budget: one split, then chunks of
-    130 queries (a partial 128-query block each), one launch each."""
+    130 queries (a partial 128-query block each), one launch each; a wide
+    list's (k 200) staging rows count with its lists."""
     xu, qn, lam, lamq = _scan_case(dev, 8, 5000, 300, 384)
     xq, sc = quantize_rows(xu)
     qq, qs = quantize_rows(qn)
-    monkeypatch.setattr(scan_topk, "SCRATCH_BYTES", 130 * 60 * 8)
+    staged = scan_int8._SROW if scan_int8.wide_lists(k, 384, True) else 0
+    assert (staged > 0) == (k == 200)
+    monkeypatch.setattr(scan_topk, "SCRATCH_BYTES", 130 * (k + staged) * 8)
     launches = scan_int8.TC_LAUNCHES
-    got = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, TAU, 60)
+    got = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, TAU, k)
     torch.cuda.synchronize()
     assert scan_int8.TC_LAUNCHES - launches == 3
-    plain = scan_int8.scan_int8_plain(xq, sc, lam, qq, qs, lamq, TAU, 60)
+    plain = scan_int8.scan_int8_plain(xq, sc, lam, qq, qs, lamq, TAU, k)
     assert _bitwise(got, plain)
+
+
+@pytest.mark.parametrize("k", [60, 700])
+def test_scan_int8_signed_zero_scores_tie_by_id(dev, k):
+    """Zero corpus rows with lambda +inf and row scales +-1 at tau 1.5
+    score (0 * qscale * srow) * 1.5 + (-0.5) * 0: +0.0 or -0.0, one score
+    for the order, tied by id, each keeping its bits; k 700 cuts through
+    them (wide lists on both routes)."""
+    xu, qn, lam, lamq = _scan_case(dev, 13, 3000, 150, 384)
+    xq, sc = quantize_rows(xu)
+    qq, qs = quantize_rows(qn)
+    zero = torch.arange(3000, device=dev) % 3 == 0
+    xq[zero] = 0
+    sc[zero] = torch.where(torch.arange(1000, device=dev) % 2 == 0, 1.0, -1.0)
+    lam[zero] = float("inf")
+    tc = scan_int8.TC_LAUNCHES
+    got = scan_int8.scan_int8(xq, sc, lam, qq, qs, lamq, 1.5, k)
+    simt = scan_int8.scan_int8(_simt_view(xq), sc, lam, qq, qs, lamq, 1.5, k)
+    torch.cuda.synchronize()
+    assert scan_int8.TC_LAUNCHES == tc + 1
+    # On the CPU: a stable sort there keeps -0.0 and +0.0 in id order,
+    # which torch.sort on the card does not promise.
+    plain = scan_int8.scan_int8_plain(
+        *(t.cpu() for t in (xq, sc, lam, qq, qs, lamq)), 1.5, k)
+    got = tuple(t.cpu() for t in got)
+    assert _bitwise(got, plain) and _bitwise(got, tuple(t.cpu() for t in simt))
+    zeros = plain[1] == 0
+    if k == 700:
+        assert bool(torch.signbit(plain[1][zeros]).any())
+        assert bool((~torch.signbit(plain[1][zeros])).any())
 
 
 # -- K2 over a bfloat16 corpus ---------------------------------------------------
@@ -258,20 +299,59 @@ def test_knn_kernel_k5000(dev):
     assert topk_disagreements(d.cpu(), i.cpu(), dp.cpu(), ip.cpu(), TOL) == []
 
 
-def test_scan_kernel_k5000(dev):
-    xu, qn, lam, lamq = _scan_case(dev, 2, 7000, 70, 32)
-    i, s = scan_topk.lambda_search(xu, lam, qn, lamq, TAU, K_LONG)
+def _tied_unit(rng, n, f):
+    """Rows with four entries of +-0.5: unit norm and dot products exact in
+    float32 and bfloat16 whatever the summation order, so scores tie
+    exactly and kernel and plain version agree bit for bit."""
+    x = np.zeros((n, f), np.float32)
+    for r in range(n):
+        x[r, rng.choice(f, size=4, replace=False)] = rng.choice([-.5, .5], 4)
+    return x
+
+
+@pytest.mark.parametrize("splits", ["wave", "one"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [129, 256, 257, 1024, K_LONG])
+def test_scan_kernel_k5000(dev, monkeypatch, k, dtype, splits):
+    """K2's wide route (k > 128): bit for bit the plain version on rows
+    tied at every rank, lambdas on a grid of 0.25 (exact blends), +inf on
+    items and on one query (NaN scores, a list short of k at k 5,000),
+    over as many corpus splits as fill a wave, or one (the scratch cut
+    to one split's lists)."""
+    rng = np.random.default_rng(k)
+    n, q = 6000, 70
+    xu = torch.from_numpy(_tied_unit(rng, n, 16)).to(dev)
+    xu = xu.to(getattr(torch, dtype))
+    qn = torch.from_numpy(_tied_unit(rng, q, 16)).to(dev)
+    lam = torch.from_numpy(rng.choice([0.25, 0.5, 0.75], n)
+                           .astype(np.float32)).to(dev)
+    lamq = torch.from_numpy(rng.choice([0.25, 0.5], q)
+                            .astype(np.float32)).to(dev)
+    lam[::5] = float("inf")
+    lamq[3] = float("inf")
+    if splits == "one":
+        monkeypatch.setattr(scan_topk, "SCRATCH_BYTES",
+                            q * 8 * (k + scan_topk._STAGE))
+    want = scan_topk.plan_splits(n, q, k, dev)
+    assert (want[0] == 1) == (splits == "one") and want[1] == q
+    assert scan_topk.route_name(n, q, k, dev) == f"wide/S{want[0]}"
+    wide = scan_topk.WIDE_LAUNCHES
+    i, s = scan_topk.lambda_search(xu, lam, qn, lamq, TAU, k)
     torch.cuda.synchronize()
-    ip, sp = scan_topk.scan_plain(xu, lam, qn, lamq, TAU, K_LONG)
-    assert topk_disagreements(s.cpu(), i.cpu(), sp.cpu(), ip.cpu(),
-                              TOL) == []
+    assert scan_topk.WIDE_LAUNCHES == wide + 1
+    ip, sp = scan_topk.scan_plain(xu, lam, qn, lamq, TAU, k)
+    assert torch.equal(i, ip)
+    assert torch.equal(s.view(torch.int32), sp.view(torch.int32))
+    assert int((i[3] < 0).sum()) == max(0, k - (n - n // 5))
 
 
 def test_scan_kernel_query_chunks(dev, monkeypatch):
     """Partial lists past the scratch budget: fewer splits, then query
-    chunks, one launch each; the lists stay the plain version's."""
+    chunks, one launch each (a wide list's staging rows of 896 keys count
+    with its lists); the lists stay the plain version's."""
     xu, qn, lam, lamq = _scan_case(dev, 3, 3000, 200, 16)
-    monkeypatch.setattr(scan_topk, "SCRATCH_BYTES", 60 * 8 * 500)
+    monkeypatch.setattr(scan_topk, "SCRATCH_BYTES",
+                        60 * 8 * (500 + scan_topk._STAGE))
     launches = scan_topk.LAUNCHES
     i, s = scan_topk.lambda_search(xu, lam, qn, lamq, TAU, 500)
     torch.cuda.synchronize()
