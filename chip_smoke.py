@@ -7,8 +7,9 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
 
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
-     all started together); ptxas's registers and spills of K1, K2, K3,
-     K5, K7 and K6;
+     all started together); ptxas's registers and spills of
+     K1, K2, K3, K5, K7 and K6 (K6's also by route, narrow and wide, with
+     its resident blocks an SM at k 15 and 260);
   1. K1 (csrc/knn.cu) against its plain version on a 313,841 x 384 unit
      corpus (eps 1.31, k 25): its one launch over the whole corpus timed
      beside its bound (each of the N (N + 1) / 2 distinct pairs' products
@@ -98,6 +99,11 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      beside its bound over the real rows of the probed clusters, the
      tiles K6 walks (the 64-row tiles up to each probed cluster's last
      real row) and the first version's bound over every probed cap row;
+     K6 at the wide pools of 260 and 1,040 (its staged merge) on the same
+     batch, each against its plain version and in turns with it, with its
+     wide launches and each query's merges; search_batch(mode="ivf_block",
+     topk=300) over the 8 batches (QPS, one wide launch a batch, the
+     first batch's overlap with exact);
   9. certified serving at 1,000,000 x 768, batches of 16,384, on a mixture
      corpus made on the card (4,096 centres, rows centre + 0.35 N(0, 1),
      queries a unit corpus row + 0.25 / sqrt(768) N(0, 1), as
@@ -106,9 +112,15 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      slabs and serving_stream(depth=4) over 4 batches (each batch equal to
      search_batch(mode="certified")); certified == exact (K2) on 1,024
      queries; the bf16 scan's scores within tau * (res_eps + 2F 2^-24) +
-     1e-5 of float32 scores; K6 against its plain version; the clustering
-     time, K, cap, slab GiB, base certification rate, QPS and peak device
-     memory;
+     1e-5 of float32 scores; K6 against its plain version, and at pools
+     260 and 1,040 (and over bf16 slabs at 60) on the first batch (16,384
+     routed queries, the plain version on the first 1,024); certified
+     serving at topk 65 over bf16 slabs (pool 260; a refused query widens
+     to 520, then 1,040): QPS, K6's share of the batches' time, and by
+     pool the queries, launches and wide launches (the counts reset just
+     before the batches; the wide route must have launched); the
+     clustering time, K, cap, slab GiB, base
+     certification rate, QPS and peak device memory;
   10. int8 serving on phase 3's index: search_batch(mode="int8") over
      phase 3's 8 batches after a warm-up, the counts reset before: K7
      (csrc/scan_int8.cu) must have run, on its tensor-core route; K7
@@ -222,8 +234,17 @@ K4b; null elsewhere).  K1's rows and K1t's carry kernel_route (K1:
 rows, k 1,024 on 2,048, each with its bound and route).  K4a, K4b, K6
 and K7 carry kernel_route (K4:
 "narrow", "radix" or "device" and, for the first two, how a row comes
-in, "bulk" or "scalar"; K7: "tensor-core" or "simt"; K6 has one route,
-"simt"), K7 simt_ms (its SIMT route on the same rows).  K1 and K2 also carry product_ms:
+in, "bulk" or "scalar"; K7: "tensor-core" or "simt"; K6: "narrow" or
+"wide"), K7 simt_ms (its SIMT route on the same rows), and K6 its wide
+lists ("wide": pools 260 and 1,040 at 313k and at 1M over float32 and
+bfloat16 slabs, and pool 60 over bfloat16, each with its time, plain
+time, bound, the wide route's list read-back beside the bound, and the
+launches of its route at that length on a main-path serving run, counted
+after a reset: phase 8's ivf_block topk 300 at 313k (lists of 300, the
+pools' route; no 313k run scans 260 or 1,040), phase 9's certified runs
+at 1M by list length (topk 65 over bfloat16 for 260 and 1,040, topk 15
+over each slab type for the rest; a length that no such run reaches gets
+0), with launches_run naming the run).  K1 and K2 also carry product_ms:
 one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
 library matmul on the same operands that the port never calls (it is not
 the same function: no mask, blend or top-k, and another summation order),
@@ -257,7 +278,8 @@ on phase 10's first batch (pools 60, 200 and 400) and over a
 seeded 1,000,000 x 768 int8 corpus with 16,384 queries (pools 60 and
 200), and K6 on phase
 8's routed first batch and on phase 9's 1M mixture over float32 and
-bfloat16 slabs (each held against its plain version).  Then every run's
+bfloat16 slabs at k 15 and at pools 260 and 1,040 (and 60 over bfloat16;
+each held against its plain version).  Then every run's
 k-NN lists (phase 3's, and phase 1's K1t lists at k 25 and K1's over the
 last 9,416 rows and at k 200 and 1,024), lambdas, exact top-k ids, K2's
 lists at k 200 and 1,024, K4b and K4a ids and K6 and K7 outputs (ids and
@@ -266,6 +288,7 @@ scores) must equal this tree's bit for bit.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -284,6 +307,10 @@ K1_WIDE, K2_WIDE, K2_WIDE_QUERIES = 100, 200, 1024
 K1_DEVICE_LIST = 200  # a K1 list past 128, in device memory: timed
 K_WIDEST = 1024       # the longest lists timed (K1, K2, K4a, K4b)
 K7_WIDE_POOLS = (200, 400)   # K7's wide pools (topk 50 and 100)
+# K6's wide pools: certified serving's rescored pool of topk 65 and its
+# second widening round; K6's pool of topk 15 over bf16 slabs.
+K6_WIDE_POOLS, K6_POOL_BF16 = (260, 1040), 60
+K6_TOPK_CERT, K6_TOPK_IVF = 65, 300   # phase 9's certified, 8's ivf_block
 MIN_OVERLAP = 0.99
 N1M, F1M, Q1M, Q1M_CHECK = 1_000_000, 768, 16_384, 1024
 N_PROBE, MIX_CLUSTERS, MIX_NOISE, Q_NOISE = 8, 4096, 0.35, 0.25
@@ -430,6 +457,7 @@ def _reset_launches() -> None:
     for mod in (knn, knn_t, scan_topk, subtile_max, gather_score, ivf_scan,
                 scan_int8):
         mod.LAUNCHES = 0
+    ivf_scan.WIDE_LAUNCHES = 0
     subtile_max.TC_LAUNCHES = gather_score.TC_LAUNCHES = 0
     scan_int8.TC_LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
@@ -456,6 +484,7 @@ def _launches() -> dict:
             "gather_score": gather_score.LAUNCHES,
             "gather_score_tc": getattr(gather_score, "TC_LAUNCHES", 0),
             "ivf_scan": ivf_scan.LAUNCHES,
+            "ivf_scan_wide": getattr(ivf_scan, "WIDE_LAUNCHES", 0),
             "scan_int8": scan_int8.LAUNCHES,
             "scan_int8_tc": getattr(scan_int8, "TC_LAUNCHES", 0)}
 
@@ -876,8 +905,10 @@ def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
     60) and over a 1,000,000 x 768 int8 corpus made from a seeded generator
     with 16,384 queries; K6 on phase 8's routed first batch and on phase
     9's 1M mixture (its clustering, float32 and bfloat16 slabs, 16,384
-    routed queries, n_probe 8), each held against its plain version (K7
-    bit for bit; K6 on the first 1,024 queries at 1M)."""
+    routed queries, n_probe 8) at k 15 and at the wide pools of 260 and
+    1,040 (and 60 over bf16 slabs; the long lists compared by a sha256
+    of their bits), each held against its plain version (K7 bit for bit;
+    K6 within TOL, on the first 1,024 queries)."""
     import inspect
     from pyarrowspace_tpu_torch.ops import ivf_scan as tis
     from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
@@ -933,7 +964,7 @@ def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
 
     has_tiles = "tiles" in inspect.signature(k6.ivf_scan).parameters
 
-    def k6_scan(name, ivf, space, queries):
+    def k6_scan(name, ivf, space, queries, pools):
         nonlocal ok
         q32 = queries.to(f32)
         lamq = _query_lambdas32(torch, space, q32)
@@ -941,34 +972,45 @@ def _phase_scans_ab(torch, aspace, gl, batches, dev, card, results) -> None:
                       n_probe=N_PROBE, use_bound=True)
         args = (ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad,
                 r.lamq_pad, r.probe_tbl, TAU)
-        kw = dict(k=topk, q_block=16, cap=ivf.cap)
-        kw_k = dict(kw, tiles=ivf.slab_tiles) if has_tiles else kw
-        s_k, i_k = k6.ivf_scan(*args, **kw_k)
         n_chk = min(r.qn_pad.shape[0], Q1M_CHECK)
         chk = args[:3] + (r.qn_pad[:n_chk], r.lamq_pad[:n_chk],
                           r.probe_tbl[:n_chk // 16], TAU)
-        s_p, i_p = k6.ivf_scan_plain(*chk, **kw)
-        bad = topk_disagreements(s_k[:n_chk].cpu().numpy(),
-                                 i_k[:n_chk].cpu().numpy(),
-                                 s_p.cpu().numpy(), i_p.cpu().numpy(), TOL)
-        ok &= not bad
-        out[f"{name}_ms"] = _twice_ms(torch,
-                                      lambda: k6.ivf_scan(*args, **kw_k))
-        dump[f"{name}_ids"], dump[f"{name}_scores"] = (i_k.cpu().numpy(),
-                                                       s_k.cpu().numpy())
-        print(f"phase 6c: {name} {out[name + '_ms']:.3f} ms, "
-              f"{r.qn_pad.shape[0]} routed queries x {N_PROBE} probes x "
-              f"cap {ivf.cap} x F {r.qn_pad.shape[1]} {ivf.slabs.dtype}; "
-              f"disagreeing with the plain version on {n_chk} queries: "
-              f"{len(bad)} {card}")
+        for k in pools:
+            key = name if k == topk else f"{name}_pool{k}"
+            kw = dict(k=k, q_block=16, cap=ivf.cap)
+            kw_k = dict(kw, tiles=ivf.slab_tiles) if has_tiles else kw
+            s_k, i_k = k6.ivf_scan(*args, **kw_k)
+            s_p, i_p = k6.ivf_scan_plain(*chk, **kw)
+            bad = topk_disagreements(s_k[:n_chk].cpu().numpy(),
+                                     i_k[:n_chk].cpu().numpy(),
+                                     s_p.cpu().numpy(), i_p.cpu().numpy(),
+                                     TOL)
+            ok &= not bad
+            out[f"{key}_ms"] = _twice_ms(torch,
+                                         lambda: k6.ivf_scan(*args, **kw_k))
+            i_np, s_np = i_k.cpu().numpy(), s_k.cpu().numpy()
+            if k == topk:
+                dump[f"{key}_ids"], dump[f"{key}_scores"] = i_np, s_np
+            else:   # the long lists by their digest, every bit of both
+                dump[f"{key}_digest"] = np.frombuffer(hashlib.sha256(
+                    i_np.tobytes() + s_np.tobytes()).digest(), np.uint8)
+            print(f"phase 6c: {key} {out[key + '_ms']:.3f} ms "
+                  f"({_k6_route(k6, k)} route), "
+                  f"{r.qn_pad.shape[0]} routed queries x {N_PROBE} probes x "
+                  f"cap {ivf.cap} x F {r.qn_pad.shape[1]} {ivf.slabs.dtype}, "
+                  f"k {k}; disagreeing with the plain version on {n_chk} "
+                  f"queries: {len(bad)} {card}")
 
+    pools = (topk,) + K6_WIDE_POOLS
     aspace.enable_ivf()
-    k6_scan("k6", aspace._ensure_ivf_blocked(), aspace, batches[0])
+    k6_scan("k6", aspace._ensure_ivf_blocked(), aspace, batches[0], pools)
     space, _, _, queries = _mixture_space(torch, dev)
     space.enable_ivf(n_clusters=MIX_CLUSTERS)
-    k6_scan("k6_1m_f32", space._ensure_ivf_blocked(), space, queries[0])
+    k6_scan("k6_1m_f32", space._ensure_ivf_blocked(), space, queries[0],
+            pools)
     space.enable_ivf(slab_dtype=torch.bfloat16)
-    k6_scan("k6_1m_bf16", space._ensure_ivf_blocked(), space, queries[0])
+    k6_scan("k6_1m_bf16", space._ensure_ivf_blocked(), space, queries[0],
+            (topk, K6_POOL_BF16) + K6_WIDE_POOLS)
     del space, queries
     results["scans_ab"] = out
     results.setdefault("ab_dump", {}).update(dump)
@@ -1210,14 +1252,67 @@ class _CertifiedCounts:
                 "widened": self.widened, "escalated": self.escalated}
 
 
+class _K6Record:
+    """Records K6 on the serving path for the duration of a with block, by
+    list length: the wrapper's calls (ops/ivf_scan.py calls it through
+    the module), their routed queries, the kernel launches and wide
+    launches the CUDA wrapper counted during each call (its counters,
+    which the caller resets before the block), and the calls' device time
+    (CUDA events around each, read after the block)."""
+
+    def __init__(self, torch):
+        from pyarrowspace_tpu_torch.ops import ivf_scan as tis
+        from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+        self._mod, self._k6, self._torch, self.calls = tis, k6, torch, []
+
+    def __enter__(self):
+        self._orig = scan = self._mod.ivf_scan
+        torch, k6 = self._torch, self._k6
+
+        def recorded(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            launches, wide = k6.LAUNCHES, k6.WIDE_LAUNCHES
+            start.record()
+            out = scan(*args, **kw)
+            stop.record()
+            self.calls.append((kw["k"], int(args[3].shape[0]),
+                               k6.LAUNCHES - launches,
+                               k6.WIDE_LAUNCHES - wide, start, stop))
+            return out
+
+        self._mod.ivf_scan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ivf_scan = self._orig
+
+    def summary(self) -> dict:
+        """{k: {calls, queries, launches, wide_launches, ms}}."""
+        self._torch.cuda.synchronize()
+        by_k: dict = {}
+        for k, q, n, n_wide, start, stop in self.calls:
+            row = by_k.setdefault(k, dict(calls=0, queries=0, launches=0,
+                                          wide_launches=0, ms=0.0))
+            row["calls"] += 1
+            row["queries"] += q
+            row["launches"] += n
+            row["wide_launches"] += n_wide
+            row["ms"] += start.elapsed_time(stop)
+        return by_k
+
+
 def _k6_bound(torch, ivf, r, k) -> tuple[dict, dict, int, int]:
     """K6's bound on the routed batch r: the function's least work, the
     real rows (id >= 0) of each block's probed clusters, 2 F operations
     for each of them and each query of the block, and the bytes of the
-    real rows of the distinct probed clusters read once.  Returns (bound,
-    the bound over every probed cap row, the first version's count, the
-    real rows over all blocks, the rows K6 walks: the 64-row tiles up to
-    each probed cluster's last real row)."""
+    real rows of the distinct probed clusters read once, and the lists
+    written once (on either route: the wide route's merges read its lists
+    back, traffic of the route, not of the function; _k6_pools reports
+    it beside the bound).  Returns (bound, the bound over every probed
+    cap row, the first version's count, the real rows over all blocks,
+    the rows K6 walks: the 64-row tiles up to each probed cluster's last
+    real row)."""
     q_pad, f = r.qn_pad.shape
     n_blocks, n_probe = r.probe_tbl.shape
     qb = q_pad // n_blocks
@@ -1236,14 +1331,10 @@ def _k6_bound(torch, ivf, r, k) -> tuple[dict, dict, int, int]:
     return bound, over_cap, rows, walked
 
 
-def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
-    """K6 against its plain version on the routed batch qb (the routing of
-    the certified path: bound-ordered, blocks of 16), timed in turns.
-    Returns (max_abs_err, kernel ms, plain ms, bound)."""
+def _k6_routed(torch, ivf, aspace, qb):
+    """The routing of the certified path (bound-ordered, blocks of 16) of
+    the batch qb, and K6's arguments on it."""
     from pyarrowspace_tpu_torch.ops import ivf_scan as tis
-    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
-    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
-                                                         topk_disagreements)
     from pyarrowspace_tpu_torch.ops.distance import unit_normalize
     q32 = qb.to(torch.float32)
     lamq = _query_lambdas32(torch, aspace, q32)
@@ -1251,6 +1342,23 @@ def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
                   n_probe=N_PROBE, use_bound=True)
     args = (ivf.slabs, ivf.slab_lambdas, ivf.slab_ids, r.qn_pad, r.lamq_pad,
             r.probe_tbl, TAU)
+    return r, args
+
+
+def _k6_route(k6, k) -> str:
+    """K6's route for lists of k ("simt" for a package with one route)."""
+    fn = getattr(k6, "route_name", None)
+    return fn(k) if fn else "simt"
+
+
+def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
+    """K6 against its plain version on the routed batch qb (the routing of
+    the certified path: bound-ordered, blocks of 16), timed in turns.
+    Returns (max_abs_err, kernel ms, plain ms, bound)."""
+    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    r, args = _k6_routed(torch, ivf, aspace, qb)
     kw = dict(k=k, q_block=16, cap=ivf.cap)
     kw_k = dict(kw, tiles=ivf.slab_tiles)
     s_k, i_k = k6.ivf_scan(*args, **kw_k)
@@ -1264,8 +1372,8 @@ def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
     q_pad, f = r.qn_pad.shape
     bound, over_cap, rows, walked = _k6_bound(torch, ivf, r, k)
     cap_rows = q_pad // 16 * N_PROBE * ivf.cap
-    print(f"{label}: K6 (its one route, simt) vs plain on {q_pad} routed "
-          f"queries x {N_PROBE} probes x cap {ivf.cap} x F {f} "
+    print(f"{label}: K6 ({_k6_route(k6, k)} route) vs plain on {q_pad} "
+          f"routed queries x {N_PROBE} probes x cap {ivf.cap} x F {f} "
           f"{ivf.slabs.dtype}, k {k}: max_abs_err {err:.3e}, disagreeing "
           f"queries {len(bad)}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
           f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}; the "
@@ -1277,6 +1385,93 @@ def _k6_against_plain(torch, ivf, aspace, qb, k, label, card) -> tuple:
         raise AssertionError(f"K6 disagrees with its plain version: queries "
                              f"{bad[:10]}, err {err}")
     return err, k_ms, p_ms, bound
+
+
+def _k6_pools(torch, ivf, aspace, qb, pools, label, card, main) -> dict:
+    """K6 on the routed batch qb at each list length of pools: its launch
+    over the whole batch (each query's merges counted), held against its
+    plain version on the first Q1M_CHECK queries (all of them at 313k)
+    within TOL, both timed there in turns, and the whole batch timed (at
+    1M), beside the bound and, on the wide route, the lists' read-back by
+    the merges (at least once: Q k 8 bytes), which the bound leaves out.
+    main: {k: (launches, run)}, the launches of K6's route for lists of k
+    on a main-path serving run of this corpus and slabs (run names it),
+    counted there after a reset; a list length that no such run reaches
+    gets (0, None)."""
+    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+    from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
+                                                         topk_disagreements)
+    r, args = _k6_routed(torch, ivf, aspace, qb)
+    q_pad, f = r.qn_pad.shape
+    n_chk = min(q_pad, Q1M_CHECK) if q_pad > Q_BATCH else q_pad
+    chk = args[:3] + (r.qn_pad[:n_chk], r.lamq_pad[:n_chk],
+                      r.probe_tbl[:n_chk // 16], TAU)
+    out, bad_pools = {}, []
+    for k in pools:
+        kw = dict(k=k, q_block=16, cap=ivf.cap)
+        kw_k = dict(kw, tiles=ivf.slab_tiles)
+        route = k6.route_name(k)
+        merges = (torch.zeros(q_pad, dtype=torch.int32, device=r.qn_pad.device)
+                  if route == "wide" else None)
+        s_k, i_k = k6.ivf_scan(*args, **kw_k, merges=merges)
+        launches, run = main.get(k, (0, None))
+        s_p, i_p = k6.ivf_scan_plain(*chk, **kw)
+        s_k, i_k = s_k[:n_chk].cpu().numpy(), i_k[:n_chk].cpu().numpy()
+        s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+        err = max_abs_err(s_k, s_p)
+        bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
+        ms, plain_ms = _in_turns(lambda: k6.ivf_scan_plain(*chk, **kw),
+                                 lambda: k6.ivf_scan(*chk, **kw_k), torch)
+        bound = _k6_bound(torch, ivf, r, k)[0]
+        row = dict(k=k, queries=q_pad, plain_queries=n_chk, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+                   disagreeing=len(bad), kernel_route=route,
+                   launches=launches, launches_run=run,
+                   blocks_per_sm=k6.blocks_per_sm(k, 16, ivf.slabs.dtype,
+                                                  r.qn_pad.device), **bound)
+        if n_chk != q_pad:
+            row["full_ms"] = _twice_ms(torch,
+                                       lambda: k6.ivf_scan(*args, **kw_k))
+            row["full_bound_ms"] = row["bound_ms"]
+            row.update(_bound_at(torch, ivf, r, k, n_chk))
+        if merges is not None:
+            m = merges.to(torch.float64)
+            row.update(merges_mean=float(m.mean()), merges_max=int(m.max()),
+                       list_readback_bytes=n_chk * k * 8,
+                       list_readback_ms=n_chk * k * 8 / HBM_BYTES_PER_S
+                       * 1e3)
+        out[f"pool{k}"] = row
+        if bad or err > TOL:
+            bad_pools.append(k)
+        print(f"{label}: K6 pool {k} ({route} route, "
+              f"{row['blocks_per_sm']} blocks an SM"
+              + (f", merges a query {row['merges_mean']:.2f} mean, "
+                 f"{row['merges_max']} max, lists read back by the merges "
+                 f"at least {row['list_readback_ms']:.4f} ms beside the "
+                 f"bound" if merges is not None else "")
+              + f"; {launches} launches of the route at this length on "
+              f"{run or 'no main-path run'}) on {n_chk} of {q_pad} routed "
+              f"queries x {N_PROBE} probes x cap {ivf.cap} x F {f} "
+              f"{ivf.slabs.dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms in turns, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']})"
+              + (f"; all {q_pad}: {row['full_ms']:.3f} ms, bound "
+                 f"{row['full_bound_ms']:.3f} ms" if n_chk != q_pad else "")
+              + f"; max_abs_err {err:.3e}, disagreeing queries {len(bad)} "
+              f"{card}")
+    if bad_pools:
+        raise AssertionError(f"K6 disagrees with its plain version at pools "
+                             f"{bad_pools}")
+    return out
+
+
+def _bound_at(torch, ivf, r, k, n_chk) -> dict:
+    """K6's bound on the first n_chk routed queries of r (the plain
+    version's share of a 1M batch)."""
+    from types import SimpleNamespace
+    part = SimpleNamespace(qn_pad=r.qn_pad[:n_chk],
+                           probe_tbl=r.probe_tbl[:n_chk // 16])
+    bound = _k6_bound(torch, ivf, part, k)[0]
+    return {"bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
 def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
@@ -1323,13 +1518,46 @@ def _phase_certified(torch, aspace, gl, batches, outs_exact, card,
           f"{TOL:g}: {bad} of {N_BATCHES * Q_BATCH}")
     err, k_ms, p_ms, bound = _k6_against_plain(torch, ivf, aspace, batches[0],
                                                topk, "phase 8", card)
-    results["ivf_scan"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                               library_ms=None, kernel_route="simt",
-                               **bound)
-    results["certified_313k"] = dict(qps=qps, overlap=overlap, **summary)
+    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+    # ivf_block at topk 300: lists past 256 on the serving path.
+    kw = dict(topk=K6_TOPK_IVF, mode="ivf_block", n_probe=N_PROBE)
+    aspace.search_batch(batches[-1], gl, TAU, **kw)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    wide_out = [aspace.search_batch(b, gl, TAU, **kw) for b in batches]
+    qps_wide = Q_BATCH * N_BATCHES / (time.perf_counter() - t0)
+    wide_launches = _launches()
+    # The wide pools' launches: this run's (its lists of 300 take the
+    # route of pools 260 and 1,040; no 313k serving run scans those).
+    run = f"phase 8 ivf_block topk {K6_TOPK_IVF} (lists of {K6_TOPK_IVF})"
+    pools = _k6_pools(torch, ivf, aspace, batches[0], K6_WIDE_POOLS,
+                      "phase 8", card,
+                      {k: (wide_launches["ivf_scan_wide"], run)
+                       for k in K6_WIDE_POOLS})
+    results["ivf_scan"] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+        kernel_route=k6.route_name(topk), **bound,
+        wide={f"313k_{key}": v for key, v in pools.items()})
+    exact300 = aspace.search_batch(batches[0], gl, TAU, topk=K6_TOPK_IVF,
+                                   mode="exact")
+    overlap300 = _overlap(wide_out[0][0], exact300[0])
+    print(f"phase 8: search_batch ivf_block topk {K6_TOPK_IVF} n_probe "
+          f"{N_PROBE}: {qps_wide:.1f} QPS over {N_BATCHES} x {Q_BATCH} "
+          f"queries; K6 launches {wide_launches['ivf_scan']} (wide "
+          f"{wide_launches['ivf_scan_wide']}); top-{K6_TOPK_IVF} overlap "
+          f"with exact on the first batch {overlap300:.6f} {card}")
+    results["certified_313k"] = dict(qps=qps, overlap=overlap, **summary,
+                                     ivf_block_topk300_qps=qps_wide,
+                                     ivf_block_topk300_overlap=overlap300)
     checks = {
         "K6 launched on the certified path":
             results["launches_certified"]["ivf_scan"] > 0,
+        "K6's wide route launched by ivf_block topk 300":
+            wide_launches["ivf_scan_wide"] == N_BATCHES,
+        "ivf_block topk 300 shapes": all(
+            o[0].shape == (Q_BATCH, K6_TOPK_IVF) and np.all(np.isfinite(o[1]))
+            for o in wide_out),
         "certified == exact outside near-ties": bad == 0,
         "result shapes": all(o[0].shape == (Q_BATCH, topk)
                              and np.all(np.isfinite(o[1]))
@@ -1437,12 +1665,15 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
         aspace.search_batch(queries[3], None, TAU, topk=topk,
                             mode="certified", n_probe=N_PROBE)
         torch.cuda.synchronize()
-        with _CertifiedCounts() as counts:
+        _reset_launches()
+        with _CertifiedCounts() as counts, _K6Record(torch) as k6_rec:
             t0 = time.perf_counter()
             got = [aspace.search_batch(b, None, TAU, topk=topk,
                                        mode="certified", n_probe=N_PROBE)
                    for b in queries]
             qps = 4 * Q1M / (time.perf_counter() - t0)
+        run = f"phase 9 certified topk {topk}, {name} slabs"
+        main = {k: (v["launches"], run) for k, v in k6_rec.summary().items()}
         exact = aspace.search_batch(queries[0][:Q1M_CHECK], None, TAU,
                                     topk=topk, mode="exact")
         bad = topk_disagreements(got[0][1][:Q1M_CHECK], got[0][0][:Q1M_CHECK],
@@ -1501,6 +1732,15 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
                   f"{dev_max:.3e} vs bound {bound:.3e} (res_eps max "
                   f"{res_max:.3e}) -> {'HOLDS' if dev_max <= bound else 'VIOLATED'}")
             ok &= dev_max <= bound
+            ok &= _certified_topk65(torch, aspace, queries, row, card)
+            run = f"phase 9 certified topk {K6_TOPK_CERT}, bf16 slabs"
+            main.update({int(k): (v["launches"], run) for k, v in
+                         row["certified_topk65"]["by_pool"].items()})
+        pools = ((K6_POOL_BF16,) if name == "bf16" else ()) + K6_WIDE_POOLS
+        row["k6_pools"] = _k6_pools(torch, ivf, aspace, queries[0], pools,
+                                    f"phase 9 ({name} slabs)", card, main)
+        results["ivf_scan"]["wide"].update(
+            {f"1m_{name}_{key}": v for key, v in row["k6_pools"].items()})
         out[name] = row
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     results["certified_1m"] = out
@@ -1508,6 +1748,52 @@ def _phase_certified_1m(torch, dev, card, results) -> None:
     del aspace, ivf, queries, xu
     if not ok:
         raise AssertionError("1M certified serving checks failed")
+
+
+def _certified_topk65(torch, aspace, queries, row, card) -> bool:
+    """Phase 9's certified serving at topk 65 over the bf16 slabs (K6's
+    rescored pool of 260, widening rounds at 520 and 1,040): QPS over the
+    4 batches after a warm-up, K6's share of the batches' time, its calls,
+    routed queries, launches and wide launches by pool (the counts reset
+    just before the batches), the widened and escalated queries; the
+    wide route must have launched; the first batch equal to exact outside
+    near-ties on Q1M_CHECK queries.  Adds the numbers to row; returns
+    whether the checks hold."""
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    kw = dict(topk=K6_TOPK_CERT, mode="certified", n_probe=N_PROBE)
+    aspace.search_batch(queries[3], None, TAU, **kw)
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _CertifiedCounts() as counts, _K6Record(torch) as k6_rec:
+        t0 = time.perf_counter()
+        got = [aspace.search_batch(b, None, TAU, **kw) for b in queries]
+        secs = time.perf_counter() - t0
+    launches = _launches()
+    by_k = k6_rec.summary()
+    k6_ms = sum(v["ms"] for v in by_k.values())
+    exact = aspace.search_batch(queries[0][:Q1M_CHECK], None, TAU,
+                                topk=K6_TOPK_CERT, mode="exact")
+    bad = topk_disagreements(got[0][1][:Q1M_CHECK], got[0][0][:Q1M_CHECK],
+                             exact[1], exact[0], TOL)
+    row["certified_topk65"] = dict(
+        qps=4 * Q1M / secs, k6_share=k6_ms / (secs * 1e3), k6_ms=k6_ms,
+        launches=launches["ivf_scan"],
+        wide_launches=launches["ivf_scan_wide"],
+        by_pool={str(k): v for k, v in by_k.items()},
+        differing=len(bad), **counts.summary())
+    print(f"phase 9: certified topk {K6_TOPK_CERT} bf16 slabs: "
+          f"{4 * Q1M / secs:.1f} QPS over 4 x {Q1M} queries, n_probe "
+          f"{N_PROBE}; K6 {k6_ms:.3f} ms of {secs * 1e3:.3f} "
+          f"({k6_ms / (secs * 1e3):.3f}); K6 launches {launches['ivf_scan']}"
+          f" (wide {launches['ivf_scan_wide']}); by pool: "
+          f"{row['certified_topk65']['by_pool']}; {counts.summary()}; "
+          f"queries of {Q1M_CHECK} differing from exact beyond near-ties "
+          f"{len(bad)} {card}")
+    recorded = sum(v["wide_launches"] for v in by_k.values())
+    return (not bad and launches["ivf_scan_wide"] > 0
+            and recorded == launches["ivf_scan_wide"]
+            and all(i.shape == (Q1M, K6_TOPK_CERT) and i.min() >= 0
+                    and np.all(np.isfinite(v)) for i, v in got))
 
 
 def _peak_run(torch, fn):
@@ -2931,6 +3217,35 @@ def _ptxas_summary(build, name: str) -> str:
             f"{max(spills, default=0)} B")
 
 
+def _ptxas_k6_routes(build) -> str:
+    """K6's registers and spill stores by route, from ptxas's report:
+    its narrow kernels (lists of 2, 4 or 8 words a lane) and its wide ones
+    (the staged merge), told apart by the kernel's W template argument."""
+    import re
+    log = build.library_path("ivf_scan").with_suffix(".ptxas.txt")
+    if not log.exists():
+        return "no report"
+    routes: dict = {}
+    entry = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            w = re.search(r"ivf_kernelI.*?Li\d+ELi(\d+)ELb[01]E", m.group(1))
+            entry = routes.setdefault(
+                "wide" if w and w.group(1) == "0" else "narrow",
+                {"regs": [], "spills": []}) if w else None
+        elif entry is not None and "Used" in line and "registers" in line:
+            entry["regs"].append(int(line.split("Used ")[1].split()[0]))
+        elif entry is not None and "spill stores" in line:
+            entry["spills"].append(
+                int(line.split("bytes stack frame, ")[1].split()[0]))
+    return "; ".join(
+        f"{name} route: {len(r['regs'])} kernels, registers "
+        f"{min(r['regs'], default=0)}-{max(r['regs'], default=0)}, spill "
+        f"stores up to {max(r['spills'], default=0)} B"
+        for name, r in sorted(routes.items()))
+
+
 def _measures(results: dict) -> dict:
     """The numbers --against compares, as this run's phases took them."""
     wide = results["wide"]
@@ -3041,6 +3356,14 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name in ("knn", "scan_topk", "subtile_max", "gather_score",
                  "scan_int8", "ivf_scan"):
         print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
+    from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
+    if hasattr(k6, "blocks_per_sm"):
+        occ = {(k, str(dt).split(".")[-1]): k6.blocks_per_sm(k, 16, dt, dev)
+               for k in (15, 260) for dt in (torch.float32, torch.bfloat16)}
+        print(f"phase 0: ptxas csrc/ivf_scan.cu by route: "
+              f"{_ptxas_k6_routes(_build)}; the wide route (k > 256) sorts "
+              f"in the ring's free stage, no list memory; blocks an SM at "
+              f"qb 16 by (k, slabs): {occ}")
 
     rng = np.random.default_rng(42)
     items_host = rng.standard_normal((N, F), dtype=np.float32) * 12.0

@@ -48,13 +48,30 @@
 // Each score is one fmaf chain over features 0..F-1 in ascending order
 // (tile::dot_step; the zero features past F leave it as it is, as in
 // ffma_tile.cuh), then tile::blend: the first version's bits.  The step's
-// scores go to a shared [qb][256] tile, and one warp per query merges
-// them into its list 64 at a time (tile::merge_row: a ballot against the
-// list's kth, then only the improving scores are offered), MaxLex: slab
-// ids arrive in slab order, not ascending.  Lists of k <= 256 live in
-// shared memory; longer ones (the rescored certificate's pool doubles with
-// every widening round) stay in place in the output rows
-// (tile_common.cuh offer_wide).
+// scores go to a shared [qb][256] tile with their ids.  Lists of k <= 256
+// live in shared memory: one warp per query merges the tile into its list
+// 64 at a time (tile::merge_row: a ballot against the list's kth, then only
+// the improving scores are offered), MaxLex: slab ids arrive in slab
+// order, not ascending.
+//
+// Longer lists (the rescored certificate's pool doubles with every
+// widening round: topk 65 scans a pool of 260) take knn_wide.cuh's staged,
+// sorted merge, in the output rows, which start as empty entries.  Each
+// query keeps a filter, its list's kth as of its last merge (WideRow, in
+// shared memory after the score tile), the strict MaxLex compare, so the
+// empty entry, a padding row and a NaN score never pass it.  Per step the
+// query's warp ballots its 256 scores against the filter and writes each
+// survivor, as a descending key, onto the query's staging row of SROW (512)
+// keys in device memory (the wrapper allocates the rows); a staging row
+// that could not take the next step's 256 rows is sorted and merged into
+// the list in one pass (knn_wide::flush_row on an OutList of stride 1),
+// which gives the new kth; what is left at the end of the walk too.  The
+// sort scratch (a warp's 4 KB, 32 KB a block) lies in the ring's stage that
+// holds no slab during the merges, so the route adds no shared memory
+// beside the rows' state (2 blocks an SM at qb 16, as the narrow route);
+// the price is one more block barrier a step, before the next step's
+// first slab is stored there.  A query merges about (its survivors) / 256
+// to / 384 times.
 
 #include <cstdint>
 
@@ -62,9 +79,15 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "knn_wide.cuh"
 #include "tile_common.cuh"
 
 namespace {
+
+using knn_wide::Desc;
+using knn_wide::OutList;
+using knn_wide::SROW;
+using knn_wide::WideRow;
 
 constexpr float NEG_INF = -3.0e38f;
 constexpr int THREADS = tile::THREADS;         // 256
@@ -78,6 +101,9 @@ constexpr int ROW_CHUNKS = STEP * CPR / THREADS;   // 8 a thread
 constexpr int SLD = STEP + 8;                  // row stride of the score tile
 constexpr int MAX_QB = 32;
 constexpr size_t SMEM_LIMIT = 232448;          // a block's most, sm_90
+static_assert((STEP + 8) * LD * sizeof(float) >=
+                  tile::WARPS * SROW * sizeof(uint64_t),
+              "a block's sort scratch fits one stage of the ring");
 
 // Four consecutive features of one row.
 template <class T>
@@ -210,7 +236,24 @@ __device__ __forceinline__ void slab_product(const float* __restrict__ stage,
   }
 }
 
-// QT: the query block padded to a multiple of 4 (8, 16 or 32).
+// Merge a query's w.staged keys (keys) into its list (out_s / out_i, k
+// entries), sorted in the warp's scratch in 256 or 512 keys, whichever
+// holds them: a staging row is merged once it holds more than 256 keys, or
+// at the end of the walk, and each sort width compiled into each of the
+// route's 18 kernels adds to the library's build time.  (On an H100 a 128
+// floor was no faster and a 512 one 20% slower at pools 260 and 1,040.)
+// Called by all 32 lanes of one warp.
+__device__ __forceinline__ void flush(const uint64_t* keys, uint64_t* scratch,
+                                      float* out_s, int* out_i, int k,
+                                      WideRow& w, int lane) {
+  knn_wide::flush_row<256>(keys, scratch, OutList{out_s, out_i, 1}, k, w,
+                           nullptr, lane);
+}
+
+// QT: the query block padded to a multiple of 4 (8, 16 or 32); W: the
+// words a lane of a narrow list (2, 4, 8), or 0 for wide lists, whose
+// queries stage their keys in stage_rows [n_blocks * qb, SROW] and count
+// their merges into merges (when not null).
 template <class T, int QT, int W, bool VEC>
 __global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
     ivf_kernel(const T* __restrict__ slabs, const float* __restrict__ slab_lam,
@@ -218,7 +261,8 @@ __global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
                const int* __restrict__ tiles, int f, int cap,
                const float* __restrict__ qn, const float* __restrict__ lamq,
                const int* __restrict__ probe, int n_probe, int qb, float tau,
-               int k, float* out_s, int* out_i) {
+               int k, float* out_s, int* out_i, uint64_t* stage_rows,
+               int* merges) {
   constexpr int QPT = QT / 4;
   constexpr int STAGE_FLOATS = (STEP + QT) * LD;
   extern __shared__ __align__(16) float smem[];
@@ -226,6 +270,8 @@ __global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
   float* Ss = ring + 2 * STAGE_FLOATS;                 // [QT][SLD]
   int* Is = reinterpret_cast<int*>(Ss + QT * SLD);     // [STEP]
   float* lists = reinterpret_cast<float*>(Is + STEP);  // [qb][k] x 2
+  WideRow* rows = reinterpret_cast<WideRow*>(Is + STEP);   // or [QT]
+  int* merged = reinterpret_cast<int*>(rows + QT);         // and [QT]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -238,12 +284,17 @@ __global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
 #pragma unroll
   for (int i = 0; i < QPT; ++i)
     lq[i] = g + 4 * i < qb ? lamq[q0 + g + 4 * i] : 0.0f;
-  float* run_s = W == 0 ? out_s + q0 * k : lists;
-  int* run_i = W == 0 ? out_i + q0 * k
-                      : reinterpret_cast<int*>(lists + (size_t)qb * k);
-  for (int e = tid; e < qb * k; e += THREADS) {
-    run_s[e] = NEG_INF;
-    run_i[e] = -1;
+  float* run_s = lists;
+  int* run_i = reinterpret_cast<int*>(lists + (size_t)qb * k);
+  if constexpr (W == 0) {
+    knn_wide::wide_start(OutList{out_s + q0 * k, out_i + q0 * k, 1}, qb, k,
+                         rows, qb, tid, THREADS);
+    for (int qq = tid; qq < qb; qq += THREADS) merged[qq] = 0;
+  } else {
+    for (int e = tid; e < qb * k; e += THREADS) {
+      run_s[e] = NEG_INF;
+      run_i[e] = -1;
+    }
   }
   const float omt = 1.0f - tau;
 
@@ -303,19 +354,68 @@ __global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
             id < 0 ? NEG_INF : tile::blend(tau, omt, acc[i][j], lam, lq[i]);
     }
     __syncthreads();
-    for (int qq = warp; qq < qb; qq += tile::WARPS)
+    if constexpr (W == 0) {
+      // Stage each query's survivors; a staging row that could not take
+      // the next step's rows is merged, sorted in the ring's stage that
+      // holds no slab (stage ^ 1: its slab was consumed before the last
+      // barrier, and the next step stores there after its first product).
+      uint64_t* scratch =
+          reinterpret_cast<uint64_t*>(ring + (stage ^ 1) * STAGE_FLOATS) +
+          warp * SROW;
+      const unsigned below = (1u << lane) - 1u;
+      for (int qq = warp; qq < qb; qq += tile::WARPS) {
+        WideRow& w = rows[qq];
+        const float tv = w.thr_v;
+        const int ti = w.thr_i;
+        uint64_t* keys = stage_rows + (q0 + qq) * SROW;
+        const float* srow = Ss + qq * SLD;
+        int n = w.staged;
 #pragma unroll
-      for (int c = 0; c < STEP_TILES; ++c)
-        tile::merge_row<tile::MaxLex, W>(
-            Ss + qq * SLD + c * TILE, 0, run_s + (size_t)qq * k,
-            run_i + (size_t)qq * k, k, lane, Is + c * TILE);
+        for (int c = 0; c < STEP / 32; ++c) {
+          const float v = srow[lane + 32 * c];
+          const int id = Is[lane + 32 * c];
+          const bool pass = tile::MaxLex::better(v, id, tv, ti);
+          const unsigned m = __ballot_sync(tile::FULL, pass);
+          if (pass) keys[n + __popc(m & below)] = Desc::key(v, id);
+          n += __popc(m);
+        }
+        __syncwarp();
+        if (lane == 0) w.staged = n;
+        __syncwarp();
+        if (n > SROW - STEP) {
+          flush(keys, scratch, out_s + (q0 + qq) * k, out_i + (q0 + qq) * k,
+                k, w, lane);
+          if (lane == 0) ++merged[qq];
+        }
+      }
+      __syncthreads();
+    } else {
+      for (int qq = warp; qq < qb; qq += tile::WARPS)
+#pragma unroll
+        for (int c = 0; c < STEP_TILES; ++c)
+          tile::merge_row<tile::MaxLex, W>(
+              Ss + qq * SLD + c * TILE, 0, run_s + (size_t)qq * k,
+              run_i + (size_t)qq * k, k, lane, Is + c * TILE);
+    }
     // The next write of Ss and Is comes after at least one barrier of the
     // next step's slabs.
 #pragma unroll
     for (int t = 0; t < STEP_TILES; ++t) base[t] = next[t];
   }
 
-  if (W != 0) {
+  if constexpr (W == 0) {
+    // What is left staged; the ring is free (the last step's barrier, or
+    // no step at all: the barrier before the walk).
+    uint64_t* scratch = reinterpret_cast<uint64_t*>(ring) + warp * SROW;
+    for (int qq = warp; qq < qb; qq += tile::WARPS) {
+      if (rows[qq].staged > 0) {
+        flush(stage_rows + (q0 + qq) * SROW, scratch, out_s + (q0 + qq) * k,
+              out_i + (q0 + qq) * k, k, rows[qq], lane);
+        if (lane == 0) ++merged[qq];
+      }
+      if (merges && lane == 0) merges[q0 + qq] = merged[qq];
+    }
+  } else {
     __syncthreads();
     for (int e = tid; e < qb * k; e += THREADS) {
       out_s[q0 * k + e] = run_s[e];
@@ -326,9 +426,31 @@ __global__ void __launch_bounds__(THREADS, QT > 16 ? 1 : 2)
 
 // Shared memory of a block besides its lists: the ring, the score tile and
 // its ids.
-size_t fixed_smem(int qt) {
+constexpr size_t fixed_smem(int qt) {
   return sizeof(float) * (2 * (size_t)(STEP + qt) * LD + (size_t)qt * SLD) +
          sizeof(int) * STEP;
+}
+static_assert(fixed_smem(MAX_QB) + (size_t)MAX_QB * tile::MAX_NARROW *
+                                       (sizeof(float) + sizeof(int)) <=
+                  SMEM_LIMIT,
+              "narrow lists fit beside the stages at every qb");
+
+// Whether lists of k take the wide route: past 256 (narrow lists fit at
+// every qb, above).
+bool lists_wide(int k) { return tile::list_words(k) == 0; }
+
+// The kernel of a launch and its shared memory.
+template <class T, int QT, bool VEC>
+auto pick(int qb, int k, size_t* smem) {
+  const bool wide = lists_wide(k);
+  const int words = wide ? 0 : tile::list_words(k);
+  *smem = fixed_smem(QT) +
+          (wide ? QT * (sizeof(WideRow) + sizeof(int))
+                : (size_t)qb * k * (sizeof(float) + sizeof(int)));
+  return words == 2   ? &ivf_kernel<T, QT, 2, VEC>
+         : words == 4 ? &ivf_kernel<T, QT, 4, VEC>
+         : words == 8 ? &ivf_kernel<T, QT, 8, VEC>
+                      : &ivf_kernel<T, QT, 0, VEC>;
 }
 
 template <class T, int QT, bool VEC>
@@ -336,24 +458,35 @@ int launch_t(const void* slabs, const float* slab_lam, const int* slab_ids,
              const int* tiles, int f, int cap, const float* qn,
              const float* lamq, const int* probe, int n_blocks, int n_probe,
              int qb, float tau, int k, float* out_s, int* out_i,
-             cudaStream_t st) {
-  const size_t fixed = fixed_smem(QT);
-  const size_t narrow = (size_t)qb * k * (sizeof(float) + sizeof(int));
-  int words = tile::list_words(k);
-  // Narrow lists that do not fit beside the stages go wide.
-  if (words > 0 && fixed + narrow > SMEM_LIMIT) words = 0;
-  const size_t smem = fixed + (words == 0 ? 0 : narrow);
-  auto kernel = words == 2   ? &ivf_kernel<T, QT, 2, VEC>
-                : words == 4 ? &ivf_kernel<T, QT, 4, VEC>
-                : words == 8 ? &ivf_kernel<T, QT, 8, VEC>
-                             : &ivf_kernel<T, QT, 0, VEC>;
+             uint64_t* stage_rows, int* merges, cudaStream_t st) {
+  if (lists_wide(k) && stage_rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  auto kernel = pick<T, QT, VEC>(qb, k, &smem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_blocks, THREADS, smem, st>>>(
       static_cast<const T*>(slabs), slab_lam, slab_ids, tiles, f, cap, qn,
-      lamq, probe, n_probe, qb, tau, k, out_s, out_i);
+      lamq, probe, n_probe, qb, tau, k, out_s, out_i, stage_rows, merges);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the (vectorized) kernel of lists of k for
+// blocks of qb, or a negated CUDA error code.
+template <class T>
+int blocks_per_sm(int qb, int k) {
+  size_t smem = 0;
+  auto kernel = qb <= 8    ? pick<T, 8, true>(qb, k, &smem)
+                : qb <= 16 ? pick<T, 16, true>(qb, k, &smem)
+                           : pick<T, 32, true>(qb, k, &smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS,
+                                                        smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // VEC: 16-byte (float) or 8-byte (bf16, f16) loads of four features, for
@@ -364,14 +497,15 @@ int launch_q(const void* slabs, const float* slab_lam, const int* slab_ids,
              const int* tiles, int f, int cap, const float* qn,
              const float* lamq, const int* probe, int n_blocks, int n_probe,
              int qb, float tau, int k, float* out_s, int* out_i,
-             cudaStream_t st) {
+             uint64_t* stage_rows, int* merges, cudaStream_t st) {
   const bool vec =
       f % 4 == 0 &&
       reinterpret_cast<std::uintptr_t>(slabs) % (4 * sizeof(T)) == 0 &&
       reinterpret_cast<std::uintptr_t>(qn) % 16 == 0;
   auto fn = vec ? &launch_t<T, QT, true> : &launch_t<T, QT, false>;
   return fn(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq, probe,
-            n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
+            n_blocks, n_probe, qb, tau, k, out_s, out_i, stage_rows, merges,
+            st);
 }
 
 template <class T>
@@ -379,12 +513,13 @@ int launch(const void* slabs, const float* slab_lam, const int* slab_ids,
            const int* tiles, int f, int cap, const float* qn,
            const float* lamq, const int* probe, int n_blocks, int n_probe,
            int qb, float tau, int k, float* out_s, int* out_i,
-           cudaStream_t st) {
+           uint64_t* stage_rows, int* merges, cudaStream_t st) {
   auto fn = qb <= 8    ? &launch_q<T, 8>
             : qb <= 16 ? &launch_q<T, 16>
                        : &launch_q<T, 32>;
   return fn(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq, probe,
-            n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
+            n_blocks, n_probe, qb, tau, k, out_s, out_i, stage_rows, merges,
+            st);
 }
 
 }  // namespace
@@ -396,14 +531,23 @@ extern "C" {
 // tiles up to its last real row, tiles [n_clusters] (every real row of
 // cluster c lies in its first tiles[c] tiles), queries qn [n_blocks * qb,
 // f] and lamq [n_blocks * qb] (float), the probe table [n_blocks, n_probe]
-// (each entry in [0, n_clusters)) -> out_s / out_i [n_blocks * qb, k].
-// cap is a multiple of 64, qb <= 32, k >= 1.  Runs on the given device and
-// stream; returns the CUDA error code (0 on success).
+// -> out_s / out_i [n_blocks * qb, k].  Each probe lies in [0,
+// n_clusters), and a block's probes are distinct clusters, as the routing
+// makes them (each block's n_probe best): then every id of a block's walk
+// is distinct.  A repeated probe walks its cluster again, and its rows
+// enter a list once for each time they are probed (the plain version's
+// lists, on both routes: the wide route's merge places a list entry
+// before an equal staged key).  cap is a multiple of 64, qb <= 32, k >= 1.
+// When k > 256 (the wide route), stage_rows is [n_blocks * qb, 512] 8-byte
+// words of scratch, and merges (null for none) [n_blocks * qb] receives
+// each query's count of merges.  Runs on the given device and stream;
+// returns the CUDA error code (0 on success).
 int ivf_scan_launch(const void* slabs, int dtype, const float* slab_lam,
                     const int* slab_ids, const int* tiles, int f, int cap,
                     const float* qn, const float* lamq, const int* probe,
                     int n_blocks, int n_probe, int qb, float tau, int k,
-                    float* out_s, int* out_i, int device, void* stream) {
+                    float* out_s, int* out_i, void* stage_rows, int* merges,
+                    int device, void* stream) {
   if (f <= 0 || cap <= 0 || cap % tile::TILE != 0 || n_blocks <= 0 ||
       n_probe <= 0 || qb <= 0 || qb > MAX_QB || tile::list_words(k) < 0 ||
       dtype < 0 || dtype > 2)
@@ -411,16 +555,31 @@ int ivf_scan_launch(const void* slabs, int dtype, const float* slab_lam,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
+  uint64_t* rows = static_cast<uint64_t*>(stage_rows);
   if (dtype == 1)
     return launch<__nv_bfloat16>(slabs, slab_lam, slab_ids, tiles, f, cap, qn,
                                  lamq, probe, n_blocks, n_probe, qb, tau, k,
-                                 out_s, out_i, st);
+                                 out_s, out_i, rows, merges, st);
   if (dtype == 2)
     return launch<__half>(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq,
                           probe, n_blocks, n_probe, qb, tau, k, out_s, out_i,
-                          st);
+                          rows, merges, st);
   return launch<float>(slabs, slab_lam, slab_ids, tiles, f, cap, qn, lamq,
-                       probe, n_blocks, n_probe, qb, tau, k, out_s, out_i, st);
+                       probe, n_blocks, n_probe, qb, tau, k, out_s, out_i,
+                       rows, merges, st);
+}
+
+// Resident blocks an SM of the launch of lists of k for blocks of qb over
+// slabs of dtype (as ivf_scan_launch's), or a negated CUDA error code.
+int ivf_scan_blocks_per_sm(int qb, int k, int dtype, int device) {
+  if (qb <= 0 || qb > MAX_QB || tile::list_words(k) < 0 || dtype < 0 ||
+      dtype > 2)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  return dtype == 1   ? blocks_per_sm<__nv_bfloat16>(qb, k)
+         : dtype == 2 ? blocks_per_sm<__half>(qb, k)
+                      : blocks_per_sm<float>(qb, k);
 }
 
 const char* ivf_scan_error_string(int err) {

@@ -2,13 +2,15 @@
 // are staged, sorted and merged into partial lists in device memory, and a
 // second launch that merges the splits.  K1's lists past 128 (knn.cu, and
 // K1t's in knn_t.cu) and K2's past 128 (scan_topk.cu) take all of it; K7's
-// wide lists (scan_int8.cu) take its keys, its sort, its in-place merge and
-// its split merge, under their own walk.
+// wide lists (scan_int8.cu) take its keys, its sort, its in-place merge,
+// its per-query staging (below) and its split merge, under their own walk;
+// K6's lists past 256 (ivf_scan.cu) its keys, sort, merge and per-query
+// staging, merged into the output rows.
 //
 // Two orders, one key each (below): Asc, K1's ascending (distance, id),
-// the empty entry (2.0, -1); Desc, K2's and K7's descending score with
-// ascending ids, the empty entry (-3e38, -1).  A list is the k least keys
-// of its candidates, the lexicographic top-k on any data.
+// the empty entry (2.0, -1); Desc, K2's, K6's and K7's descending score
+// with ascending ids, the empty entry (-3e38, -1).  A list is the k least
+// keys of its candidates, the lexicographic top-k on any data.
 //
 // Launch 1 (scan_kernel): one block of 256 threads per (128-row block,
 // column split).  The splits are contiguous ranges of the block's walk of
@@ -41,13 +43,18 @@
 // 32 | id << 1 | (s is -0.0): a larger score sorts first, then a smaller id
 // (ids of survivors lie in [0, 2^31)), and the low bit keeps a -0.0 score's
 // sign, which the fold loses, so the key decodes to the score's own bits.
-// Every list holds distinct ids, the columns of different splits and tiles
-// differ, and a seed's ids lie outside the walk's columns, so a survivor's
-// key never equals a list entry's: the merge places each entry by two
-// counts and needs no tie rule.  The filter in front of the keys is the
-// order's strict lexicographic compare against the kth (tile_common.cuh
-// MinLex / MaxLex), so the empty entry never enters, nor a masked value
-// (K1's 2.0, K2's -3e38), nor a NaN, which fails every compare.
+// Every list of K1, K2 and K7 holds distinct ids, the columns of different
+// splits and tiles differ, and a seed's ids lie outside the walk's columns,
+// so there a survivor's key never equals a list entry's.  K6's probe table
+// may name a cluster twice; its rows are then offered twice, and equal keys
+// meet in the merge, which places a list entry before an equal staged key
+// (merge_into's counts), so every slot is written once and the list stays
+// sorted: the top-k of the candidates counted with their repeats, as the
+// narrow insertion and the plain version keep them.  The filter in front of
+// the keys is the order's strict lexicographic compare against the kth
+// (tile_common.cuh MinLex / MaxLex), so the empty entry never enters, nor a
+// masked value (K1's 2.0, K2's and K6's -3e38), nor a NaN, which fails
+// every compare.
 //
 // What bounds it: the products, as the narrow routes (2 R N F fp32
 // multiply-adds).  A row's survivors number about k (1 + ln(C / k)) over a
@@ -56,7 +63,8 @@
 // the partial lists take 134 MB, past L2): staging about k survivors before
 // a merge makes those passes few (about log2 of the walk's tiles a split,
 // against about k (1 + ln(C / k)) / 128 with the buffer alone), in place of
-// offer_wide's warp-wide ballot and shift for every survivor.
+// a warp-wide ballot and shift for every survivor, the insertion the
+// narrow lists keep (tile_common.cuh offer).
 
 #pragma once
 
@@ -208,10 +216,11 @@ __device__ __forceinline__ void read_window(const List& L, int k, int g,
 }
 
 // Merge the m ascending entries of src into the ascending list L[0..k) in
-// place, keeping the k least.  No src key equals a list key.  List entry j
-// goes to j + (src entries below it), src entry i to i + (list entries
-// below it).  The list is walked in windows of 32 U slots from the top
-// down, lane l holding slots g + 32 u + l: every write lands at or above
+// place, keeping the k least.  List entry j goes to j + (src entries below
+// it), src entry i to i + (list entries below or equal to it): a list entry
+// comes before an equal src entry, so equal keys (K6's repeated probes) still
+// fill every slot once.  The list is walked in windows of 32 U slots from the
+// top down, lane l holding slots g + 32 u + l: every write lands at or above
 // its window, so the window below, read ahead during this one, is still
 // unchanged, and no barrier waits for that read.  The src entries between
 // slots j - 1 and j are written by the lane that holds j, those below a
@@ -312,21 +321,21 @@ __device__ __forceinline__ void gather_sorted(const uint64_t* stage,
 }
 
 // Sort cnt <= P keys (the first `staged` from stage, the rest from buf) in
-// the warp's scratch of P keys, in the narrowest power of two from 128 that
-// holds them, and merge them into the list of k in one pass; returns the
-// list's new kth.  Called by all 32 lanes of one warp.
-template <class O, int P>
+// the warp's scratch of P keys, in the narrowest power of two from MIN_P
+// that holds them, and merge them into the list l of k (PartList, OutList)
+// in one pass; returns the list's new kth.  Called by all 32 lanes of one
+// warp.
+template <class O, int P, int MIN_P = 128, class List>
 __device__ __forceinline__ Ent sort_merge(const uint64_t* stage, int staged,
                                           const uint64_t* buf, int cnt,
-                                          uint64_t* scratch, Ent* list, int k,
-                                          int lane) {
-  if constexpr (P > 128) {
+                                          uint64_t* scratch, const List& l,
+                                          int k, int lane) {
+  if constexpr (P > MIN_P) {
     if (cnt <= P / 2)
-      return sort_merge<O, P / 2>(stage, staged, buf, cnt, scratch, list, k,
-                                  lane);
+      return sort_merge<O, P / 2, MIN_P>(stage, staged, buf, cnt, scratch, l,
+                                         k, lane);
   }
   gather_sorted<P>(stage, staged, buf, cnt, scratch, lane);
-  const PartList l{list};
   merge_into<O>(l, k, KeySrc<O>{scratch}, cnt, lane);
   const Ent kth = l.get(k - 1);
   __syncwarp();
@@ -365,11 +374,76 @@ __device__ __forceinline__ void flush(const uint64_t* stage,
                                       unsigned long long* bound, int lane) {
   const int staged = rows.staged[rr], cnt = staged + rows.fill[rr];
   const Ent kth = sort_merge<O, SCRATCH>(stage, staged, buf, cnt, scratch,
-                                         list, k, lane);
+                                         PartList{list}, k, lane);
   if (lane == 0) {
     rows.fill[rr] = rows.staged[rr] = rows.due[rr] = 0;
     lower_filter<O>(rows, rr, kth.v, kth.id);
     if (bound) atomicMin(bound, (unsigned long long)O::key(kth.v, kth.id));
+  }
+  __syncwarp();
+}
+
+// -- per-query staging: K6's and K7's wide lists, under their own walks --
+//
+// Each query stages its survivors, as Desc keys, in a row of SROW keys in
+// device memory, and keeps a filter (WideRow: its list's kth, refreshed at
+// each merge, or its shared bound across splits when better); a staging
+// row that could not take the walk's next tile or step is sorted in the
+// warp's scratch of SROW keys (4 KB) and merged into the query's list in
+// one pass (flush_row).
+
+constexpr int SROW = 512;   // keys a query stages before a merge
+
+// A wide list's query in shared memory: its staged keys and its filter.
+struct WideRow {
+  int staged;    // keys in the query's staging row
+  float thr_v;   // the filter: the list's kth, or the query's shared
+  int thr_i;     // bound when better
+};
+
+// Empty lists [n_rows][k] (lists.put(e, ...) for e < n_rows * k: a
+// PartList or an OutList of stride 1) and rows [n_state].  Called by every
+// thread of the block; a barrier follows.
+template <class Lists>
+__device__ __forceinline__ void wide_start(const Lists& lists, int n_rows,
+                                           int k, WideRow* rows, int n_state,
+                                           int tid, int threads) {
+  for (int e = tid; e < n_rows * k; e += threads)
+    lists.put(e, Ent{Desc::EMPTY, -1});
+  for (int r = tid; r < n_state; r += threads)
+    rows[r] = WideRow{0, Desc::EMPTY, -1};
+}
+
+// Tighten a query's filter to its shared bound b (read from L2).
+__device__ __forceinline__ void refresh(WideRow& w, unsigned long long b) {
+  if (b < Desc::key(w.thr_v, w.thr_i)) {
+    const Ent e = Desc::unkey(b);
+    w.thr_v = e.v;
+    w.thr_i = e.id;
+  }
+}
+
+// Sort a query's w.staged keys (stage) in the warp's scratch of SROW keys
+// (in the narrowest power of two from MIN_P that holds them) and merge them
+// into its list; the list's new kth tightens the query's filter and its
+// shared bound (null for none).  Called by all 32 lanes of one warp.
+template <int MIN_P = 128, class List>
+__device__ __forceinline__ void flush_row(const uint64_t* stage,
+                                          uint64_t* scratch, const List& list,
+                                          int k, WideRow& w,
+                                          unsigned long long* bound,
+                                          int lane) {
+  const int staged = w.staged;
+  const Ent kth = sort_merge<Desc, SROW, MIN_P>(stage, staged, nullptr,
+                                                staged, scratch, list, k,
+                                                lane);
+  if (lane == 0) {
+    w.staged = 0;
+    if (Desc::better(kth.v, kth.id, w.thr_v, w.thr_i)) {
+      w.thr_v = kth.v;
+      w.thr_i = kth.id;
+    }
+    if (bound) atomicMin(bound, (unsigned long long)Desc::key(kth.v, kth.id));
   }
   __syncwarp();
 }
@@ -661,13 +735,16 @@ inline int launch(const T* a, const T* b, const Epi& epi, int n, int f,
 
 // K1's route: rows [row_start, row_start + row_count) of the unit corpus xu
 // [n, f] against its columns [col_start, n), out already holding each row's
-// seed list or (2.0, -1) entries.
+// seed list or (2.0, -1) entries.  A template, so that K1's kernels are
+// compiled only where it is called (knn.cu, knn_t.cu), not in every file
+// that includes this header.
+template <class Epi = KnnEpi>
 inline int launch(const float* xu, int n, int f, int row_start,
                   int row_count, float eps, int k, int col_start,
                   int diag_start, const int* perm, int splits, void* part,
                   float* out_d, int* out_i, size_t row_stride,
                   size_t slot_stride, int device, cudaStream_t st) {
-  return launch<float>(xu, xu, KnnEpi{eps}, n, f, row_start, row_count, k,
+  return launch<float>(xu, xu, Epi{eps}, n, f, row_start, row_count, k,
                        col_start, diag_start, perm, splits, part, out_d,
                        out_i, row_stride, slot_stride, 0, device, st);
 }

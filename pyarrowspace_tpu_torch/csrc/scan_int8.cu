@@ -104,9 +104,14 @@ namespace {
 
 using knn_wide::Desc;
 using knn_wide::Ent;
+using knn_wide::flush_row;
+using knn_wide::PartList;
+using knn_wide::refresh;
+using knn_wide::SROW;               // keys a wide list's query stages
+using knn_wide::wide_start;
+using knn_wide::WideRow;
 
 constexpr int WSLAB = tile::SLAB;   // 32-bit words (4 features) per slab
-constexpr int SROW = 512;           // keys a wide list's query stages
 
 // acc[i][j] = sum over words w of dp4a(A[a0 + ty + 16 i][w],
 // B[b0 + tx + 16 j][w]) for rows of fw words; rows at or past a_end / b_end
@@ -178,55 +183,6 @@ inline Part part_layout(void* part, int splits, int q, int k, bool wide) {
   return p;
 }
 
-// A wide list's query in shared memory: its staged keys and its filter.
-struct WideRow {
-  int staged;    // keys in the query's staging row
-  float thr_v;   // the filter: the partial list's kth, or the query's
-  int thr_i;     // shared bound when better
-};
-
-// The first wide-list steps of a block: empty partial lists [n_rows][k]
-// and rows.  Called by every thread of the block; a barrier follows.
-__device__ __forceinline__ void wide_start(Ent* lists, int n_rows, int k,
-                                           WideRow* rows, int n_state,
-                                           int tid, int threads) {
-  for (int e = tid; e < n_rows * k; e += threads)
-    lists[e] = Ent{Desc::EMPTY, -1};
-  for (int r = tid; r < n_state; r += threads)
-    rows[r] = WideRow{0, Desc::EMPTY, -1};
-}
-
-// Tighten a query's filter to its shared bound b (read from L2).
-__device__ __forceinline__ void refresh(WideRow& w, unsigned long long b) {
-  if (b < Desc::key(w.thr_v, w.thr_i)) {
-    const Ent e = Desc::unkey(b);
-    w.thr_v = e.v;
-    w.thr_i = e.id;
-  }
-}
-
-// Sort a query's staged keys in the warp's scratch of SROW keys and merge
-// them into its partial list; the list's new kth tightens the query's
-// filter and its shared bound.  Called by all 32 lanes of one warp.
-__device__ __forceinline__ void flush_row(const uint64_t* stage,
-                                          uint64_t* scratch, Ent* list,
-                                          int k, WideRow& w,
-                                          unsigned long long* bound,
-                                          int lane) {
-  const int staged = w.staged;
-  const Ent kth = knn_wide::sort_merge<Desc, SROW>(
-      stage, staged, nullptr, staged, scratch, list, k, lane);
-  if (lane == 0) {
-    w.staged = 0;
-    if (Desc::better(kth.v, kth.id, w.thr_v, w.thr_i)) {
-      w.thr_v = kth.v;
-      w.thr_i = kth.id;
-    }
-    if (bound) atomicMin(bound, (unsigned long long)Desc::key(kth.v, kth.id));
-  }
-  __syncwarp();
-}
-
 template <int W>
 __global__ void __launch_bounds__(tile::THREADS)
     scan_int8_kernel(const int* __restrict__ xq,
@@ -264,7 +220,7 @@ __global__ void __launch_bounds__(tile::THREADS)
   uint64_t* stage = part.stage + row0 * SROW;
   unsigned long long* bound = part.bound ? part.bound + q0 : nullptr;
   if constexpr (W == 0) {
-    wide_start(lists, n_rows, k, rows, TILE, tid, THREADS);
+    wide_start(PartList{lists}, n_rows, k, rows, TILE, tid, THREADS);
   } else {
     for (int e = tid; e < n_rows * k; e += THREADS) {
       run_s[e] = NEG_SCORE;
@@ -326,8 +282,9 @@ __global__ void __launch_bounds__(tile::THREADS)
         if (lane == 0) w.staged = base + __popc(m0) + __popc(m1);
         __syncwarp();
         if (w.staged > SROW - TILE)
-          flush_row(stage + (size_t)rr * SROW, scratch, lists + (size_t)rr * k,
-                    k, w, bound ? bound + rr : nullptr, lane);
+          flush_row(stage + (size_t)rr * SROW, scratch,
+                    PartList{lists + (size_t)rr * k}, k, w,
+                    bound ? bound + rr : nullptr, lane);
       }
     }
     __syncthreads();
@@ -336,8 +293,9 @@ __global__ void __launch_bounds__(tile::THREADS)
   if constexpr (W == 0) {
     for (int rr = warp; rr < n_rows; rr += WARPS)
       if (rows[rr].staged > 0)
-        flush_row(stage + (size_t)rr * SROW, scratch, lists + (size_t)rr * k,
-                  k, rows[rr], bound ? bound + rr : nullptr, lane);
+        flush_row(stage + (size_t)rr * SROW, scratch,
+                  PartList{lists + (size_t)rr * k}, k, rows[rr],
+                  bound ? bound + rr : nullptr, lane);
   } else {
     float* o_s = part.s + row0 * k;
     int* o_i = part.i + row0 * k;
@@ -512,7 +470,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   uint64_t* stage = part.stage + row0_all * SROW;
   unsigned long long* bound = part.bound ? part.bound + q0 : nullptr;
   if constexpr (W == 0) {
-    wide_start(lists, n_rows, k, rows, TC_QB, tid, TC_THREADS);
+    wide_start(PartList{lists}, n_rows, k, rows, TC_QB, tid,
+               TC_THREADS);
   } else {
     for (int e = tid; e < n_rows * k; e += TC_THREADS) {
       run_s[e] = tile::NEG_SCORE;
@@ -650,8 +609,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       while (due) {
         const int r = row0 + __ffs(due) - 1;
         due &= due - 1;
-        flush_row(stage + (size_t)r * SROW, scratch, lists + (size_t)r * k,
-                  k, rows[r], bound ? bound + r : nullptr, lane);
+        flush_row(stage + (size_t)r * SROW, scratch,
+                  PartList{lists + (size_t)r * k}, k, rows[r],
+                  bound ? bound + r : nullptr, lane);
       }
     } else {
       // Survivors, compacted by ballot in groups of 4 sums (one column
@@ -688,8 +648,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   if constexpr (W == 0) {
     for (int r = row0; r < row0 + 16 && r < n_rows; ++r)
       if (rows[r].staged > 0)
-        flush_row(stage + (size_t)r * SROW, scratch, lists + (size_t)r * k,
-                  k, rows[r], bound ? bound + r : nullptr, lane);
+        flush_row(stage + (size_t)r * SROW, scratch,
+                  PartList{lists + (size_t)r * k}, k, rows[r],
+                  bound ? bound + r : nullptr, lane);
   } else {
     // The warp's 16 lists to the partial lists.
     for (int r = row0; r < row0 + 16 && r < n_rows; ++r) {

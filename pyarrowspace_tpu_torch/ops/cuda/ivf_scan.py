@@ -16,6 +16,14 @@ A padded row scores -3e38 with id -1 and so never displaces an unfilled
 slot: the kernel walks, in each probed cluster, only the 64-row tiles up to
 the cluster's last real row (``slab_tiles``), and its results are those of
 the whole slabs.
+
+Two routes for the running lists (``route_name``): "narrow" lists (k <=
+256) live in shared memory and take each survivor by a warp-wide
+insertion; "wide" ones (past 256) take csrc/knn_wide.cuh's staged, sorted
+merge: each query stages its survivors' keys in a row of ``SROW`` keys
+that this wrapper allocates in device memory, and a full row is sorted and
+merged into the query's list in the output rows in one pass.
+``WIDE_LAUNCHES`` counts the launches of the wide route.
 """
 
 from __future__ import annotations
@@ -27,14 +35,20 @@ import torch
 from ... import _build
 
 NEG_INF = -3.0e38
-# The kernel's running lists: up to 256 entries in shared memory, longer
-# ones in place in the output rows; at most MAX_Q_BLOCK queries a block.
+# At most MAX_Q_BLOCK queries a block.  The kernel's running lists: up to
+# _NARROW_MAX entries in shared memory (they fit beside the stages at every
+# q_block, csrc/ivf_scan.cu asserts it); longer ones staged, SROW keys a
+# query (csrc/knn_wide.cuh SROW), and merged into the output rows.
 MAX_Q_BLOCK = 32
 _CAP_MULTIPLE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_NARROW_MAX = 256
+SROW = 512
 
-# Kernel launches since import (or since the caller last reset it).
+# Kernel launches since import (or since the caller last reset it): all
+# of them, and those of the wide route.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 # Plain version: query blocks per chunk keep the gathered float32 slab rows
 # near this many elements.
@@ -51,6 +65,21 @@ def slab_tiles(slab_ids: torch.Tensor, cap: int) -> torch.Tensor:
     last = torch.amax(torch.where(ids2 >= 0, pos, 0), dim=1)
     return torch.div(last + (_CAP_MULTIPLE - 1), _CAP_MULTIPLE,
                      rounding_mode="floor").to(torch.int32)
+
+
+def route_name(k: int) -> str:
+    """The kernel's route for lists of k: "narrow" (k <= 256, in shared
+    memory) or "wide" (the staged, sorted merge), whatever the query block
+    and F."""
+    return "narrow" if k <= _NARROW_MAX else "wide"
+
+
+def staging_rows(q_pad: int, k: int, device):
+    """The wide route's staging rows, int64 [q_pad, SROW] (a query's keys,
+    4 KB) on device; None on the narrow route."""
+    if route_name(k) == "narrow":
+        return None
+    return torch.empty((q_pad, SROW), dtype=torch.int64, device=device)
 
 
 def ivf_scan_plain(slabs, slab_lambdas, slab_ids, qn, lamq, probe, tau, *,
@@ -108,22 +137,40 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.ivf_scan_blocks_per_sm.restype = ctypes.c_int
+    lib.ivf_scan_blocks_per_sm.argtypes = [ctypes.c_int] * 4
     return lib
+
+
+def blocks_per_sm(k: int, q_block: int, dtype, device) -> int:
+    """Resident blocks an SM of the kernel's launch of lists of k for
+    blocks of q_block over slabs of dtype on the CUDA device (its
+    occupancy, from the CUDA runtime)."""
+    lib = _lib()
+    n = lib.ivf_scan_blocks_per_sm(q_block, k, _DTYPE_CODES[dtype],
+                                   torch.device(device).index or 0)
+    if n < 0:
+        _build.check(lib, "ivf_scan", -n)
+    return n
 
 
 def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
              slab_ids: torch.Tensor, qn: torch.Tensor, lamq: torch.Tensor,
              probe: torch.Tensor, tau, *, k: int, q_block: int, cap: int,
-             tiles: torch.Tensor):
+             tiles: torch.Tensor, merges: torch.Tensor | None = None):
     """(scores [Q_pad, k] float32, ids [Q_pad, k] int32) of the sorted,
     padded queries qn [Q_pad, F] / lamq [Q_pad] (Q_pad = n_blocks x
     q_block) over the slabs [K x cap, F] with their lambdas and ids
     [K x cap], block b probing the clusters probe[b] ([n_blocks, n_probe],
-    each in [0, K), as the routing makes them).  tiles: the layout's
-    ``slab_tiles`` (``BlockedIVF.slab_tiles``), int32 [K] on the slabs'
-    device."""
-    global LAUNCHES
+    each in [0, K), distinct within a row, as the routing makes them: a
+    repeated probe walks its cluster again and its rows enter a list once
+    for each time they are probed, as in the plain version).  tiles: the
+    layout's ``slab_tiles`` (``BlockedIVF.slab_tiles``), int32 [K] on the
+    slabs' device.  merges (the wide route on the card only): an int32
+    [Q_pad] tensor that receives each query's count of merges."""
+    global LAUNCHES, WIDE_LAUNCHES
     if slabs.dim() != 2 or qn.dim() != 2 or qn.shape[1] != slabs.shape[1]:
         raise ValueError(f"shapes slabs {tuple(slabs.shape)} / qn "
                          f"{tuple(qn.shape)} do not match")
@@ -151,6 +198,9 @@ def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
         raise ValueError(f"tiles must be a contiguous int32 [{rows // cap}] "
                          f"on {device}")
     if device.type == "cpu":
+        if merges is not None:
+            raise ValueError("merges counts the kernel's merges: CUDA "
+                             "tensors only")
         return ivf_scan_plain(slabs, slab_lambdas, slab_ids, qn, lamq, probe,
                               tau, k=k, q_block=q_block, cap=cap,
                               tiles=tiles)
@@ -175,16 +225,27 @@ def ivf_scan(slabs: torch.Tensor, slab_lambdas: torch.Tensor,
                          f"{_CAP_MULTIPLE}, got {q_block} and {cap}")
     if rows >= 2 ** 31 // max(f, 1) or q_pad >= 2 ** 31 // max(f, k):
         raise ValueError(f"unsupported shapes rows={rows}, Q={q_pad}, F={f}")
+    lib = _lib()
+    wide = route_name(k) == "wide"
+    if merges is not None and (
+            not wide or merges.shape != (q_pad,)
+            or merges.dtype != torch.int32 or merges.device != device
+            or not merges.is_contiguous()):
+        raise ValueError(f"merges must be a contiguous int32 [{q_pad}] on "
+                         f"{device}, for the wide route")
     out_s = torch.empty((q_pad, k), dtype=torch.float32, device=device)
     out_i = torch.empty((q_pad, k), dtype=torch.int32, device=device)
-    lib = _lib()
+    stage = staging_rows(q_pad, k, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ivf_scan_launch(
         slabs.data_ptr(), _DTYPE_CODES[slabs.dtype], slab_lambdas.data_ptr(),
         slab_ids.data_ptr(), tiles.data_ptr(), f, cap, qn.data_ptr(),
         lamq.data_ptr(), probe.data_ptr(), n_blocks, n_probe, q_block,
         float(tau), k, out_s.data_ptr(), out_i.data_ptr(),
+        stage.data_ptr() if stage is not None else None,
+        merges.data_ptr() if merges is not None else None,
         device.index or 0, stream)
     _build.check(lib, "ivf_scan", err)
     LAUNCHES += 1
+    WIDE_LAUNCHES += wide
     return out_s, out_i

@@ -1,5 +1,7 @@
 """Kernel K6 (the blocked-IVF probe scan) against its plain PyTorch
-version on the card over float32, bfloat16 and float16 slabs; the wide
+version on the card over float32, bfloat16 and float16 slabs, its lists
+past 256 (csrc/knn_wide.cuh's staged, sorted merge) also against the
+numpy model of tests/_ivf_wide_model.py, merge counts included; the wide
 running lists (k > 256) of K1, K2, K4a and K4b against their plain
 versions; and blocked-IVF and certified serving on the card against the
 same serving on the CPU.
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _ivf_wide_model as model
 from pyarrowspace_tpu_torch import ArrowSpaceBuilder
 from pyarrowspace_tpu_torch.ops import ivf_scan as tis
 from pyarrowspace_tpu_torch.ops.cuda import extract, ivf_scan, knn, scan_topk
@@ -61,14 +64,16 @@ def _queries(rng, n_blocks, qb, n_clusters, n_probe, f, dev):
     return qn, lamq, torch.from_numpy(probe).to(dev)
 
 
-def _scan_both(slabs, lam, ids, qn, lamq, probe, k, qb, cap):
-    launches = ivf_scan.LAUNCHES
-    s, i = ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU, k=k,
+def _scan_both(slabs, lam, ids, qn, lamq, probe, k, qb, cap, tau=TAU):
+    launches, wide = ivf_scan.LAUNCHES, ivf_scan.WIDE_LAUNCHES
+    s, i = ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, tau, k=k,
                              q_block=qb, cap=cap,
                              tiles=ivf_scan.slab_tiles(ids, cap))
     torch.cuda.synchronize()
     assert ivf_scan.LAUNCHES == launches + 1
-    sp, ip = ivf_scan.ivf_scan_plain(slabs, lam, ids, qn, lamq, probe, TAU,
+    assert ivf_scan.WIDE_LAUNCHES == wide + (k > 256)
+    assert ivf_scan.route_name(k) == ("wide" if k > 256 else "narrow")
+    sp, ip = ivf_scan.ivf_scan_plain(slabs, lam, ids, qn, lamq, probe, tau,
                                      k=k, q_block=qb, cap=cap)
     return s.cpu().numpy(), i.cpu().numpy(), sp.cpu().numpy(), \
         ip.cpu().numpy()
@@ -89,19 +94,33 @@ def test_ivf_scan_kernel_matches_plain(dev, k, dt):
     assert topk_disagreements(s, i, sp, ip, TOL) == []
 
 
-@pytest.mark.parametrize("f,qb,n_probe,cap,k", [
-    (33, 8, 1, 128, 10),      # unaligned rows: one value a load
-    (768, 16, 8, 128, 64),    # the north-star width
-    (384, 5, 3, 192, 300),    # an odd block, a wide list
-    (64, 32, 2, 64, 128),     # the widest block
-    (40, 8, 4, 128, 512),     # every slot of every probed slab
+@pytest.mark.parametrize("f,qb,n_probe,cap,k,empty", [
+    (33, 8, 1, 128, 10, False),     # unaligned rows: one value a load
+    (768, 16, 8, 128, 64, False),   # the north-star width
+    (384, 5, 3, 192, 300, False),   # an odd block, a wide list
+    (64, 32, 2, 64, 128, False),    # the widest block
+    (40, 8, 4, 128, 512, False),    # every slot of every probed slab
+    (96, 16, 6, 256, 257, False),   # one past the narrow limit
+    (768, 16, 8, 192, 1040, True),  # the certified pool of topk 65, x 4
+    (768, 32, 8, 192, 1040, False),
+    (768, 16, 6, 128, 257, True),   # an all-padding probed cluster
+    (48, 8, 8, 640, 4096, True),    # most of every probed slab
 ])
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_ivf_scan_kernel_shapes(dev, f, qb, n_probe, cap, k, dt):
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+def test_ivf_scan_kernel_shapes(dev, f, qb, n_probe, cap, k, empty, dt):
+    """empty: cluster 0 holds padding only (tiles 0) and every block
+    probes it first."""
     rng = np.random.default_rng(f + qb + k)
     n_clusters = max(n_probe, 5)
     slabs, lam, ids = _slabs(rng, n_clusters, cap, f, DTYPES[dt], dev)
     qn, lamq, probe = _queries(rng, 4, qb, n_clusters, n_probe, f, dev)
+    if empty:
+        ids[:cap] = -1
+        lam[:cap] = float("inf")
+        probe = torch.stack([torch.cat([torch.zeros_like(p[:1]),
+                                        p[p != 0][:n_probe - 1]])
+                             for p in probe])
+        assert int(ivf_scan.slab_tiles(ids, cap)[0]) == 0
     s, i, sp, ip = _scan_both(slabs, lam, ids, qn, lamq, probe, k, qb, cap)
     np.testing.assert_allclose(s, sp, rtol=0, atol=TOL)
     assert topk_disagreements(s, i, sp, ip, TOL) == []
@@ -195,7 +214,7 @@ def test_ivf_scan_kernel_exact_ties(dev):
     assert np.array_equal(i, ip) and np.array_equal(s, sp)
 
 
-@pytest.mark.parametrize("k", [60, 1200])
+@pytest.mark.parametrize("k", [60, 300, 1200])
 def test_ivf_scan_kernel_nan_scores_enter_no_list(dev, k):
     """Lambdas +inf on every 13th slab row and on queries 3 and 40: inf -
     inf gives NaN scores, which enter no list in the kernel nor in the
@@ -212,6 +231,110 @@ def test_ivf_scan_kernel_nan_scores_enter_no_list(dev, k):
     np.testing.assert_allclose(s, sp, rtol=0, atol=TOL)
     assert topk_disagreements(s, i, sp, ip, TOL) == []
     assert np.array_equal(i < 0, ip < 0)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ivf_scan_kernel_wide_prefix_is_the_narrow_list(dev, dt):
+    """At k 300 (the wide route) the first 256 entries are the narrow
+    route's k 256 list on the same inputs, bit for bit."""
+    rng = np.random.default_rng(300)
+    n_clusters, cap, f, n_probe, qb = 24, 256, 96, 6, 16
+    slabs, lam, ids = _slabs(rng, n_clusters, cap, f, DTYPES[dt], dev)
+    qn, lamq, probe = _queries(rng, 9, qb, n_clusters, n_probe, f, dev)
+    tiles = ivf_scan.slab_tiles(ids, cap)
+    kw = dict(q_block=qb, cap=cap, tiles=tiles)
+    s_n, i_n = ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU,
+                                 k=256, **kw)
+    s_w, i_w = ivf_scan.ivf_scan(slabs, lam, ids, qn, lamq, probe, TAU,
+                                 k=300, **kw)
+    assert ivf_scan.route_name(256) == "narrow"
+    assert ivf_scan.route_name(300) == "wide"
+    assert torch.equal(i_w[:, :256], i_n)
+    assert torch.equal(s_w[:, :256].contiguous().view(torch.int32),
+                       s_n.view(torch.int32))
+
+
+def _tied_case(rng, n_clusters, cap, f, qb, n_blocks, n_probe, dev):
+    """Tied slab rows (ids shuffled, a fifth of them padding) and queries,
+    lambdas on a grid of 0.25: exact products and ties at every rank."""
+    rows = n_clusters * cap
+    slabs = _tied_unit(rng, rows, f)
+    ids = rng.permutation(3 * rows)[:rows].astype(np.int32)
+    ids[rng.uniform(size=rows) > 0.8] = -1
+    lam = rng.choice([0.25, 0.5, 0.75], rows).astype(np.float32)
+    lam[ids < 0] = np.inf
+    qn = _tied_unit(rng, n_blocks * qb, f)
+    lamq = rng.choice([0.25, 0.5], n_blocks * qb).astype(np.float32)
+    probe = np.stack([rng.permutation(n_clusters)[:n_probe]
+                      for _ in range(n_blocks)]).astype(np.int32)
+    return slabs, lam, ids, qn, lamq, probe
+
+
+@pytest.mark.parametrize("k,qb", [(257, 8), (300, 16), (1040, 16),
+                                  (1040, 32), (2500, 8)])
+def test_ivf_scan_kernel_wide_equals_model(dev, k, qb):
+    """The wide route on tied data equals the numpy model bit for bit, ids,
+    scores and each query's count of merges (a staging row that could not
+    take the next step's 256 rows, and the rest at the end)."""
+    rng = np.random.default_rng(k + qb)
+    cap, f = 256, 32
+    case = _tied_case(rng, 14, cap, f, qb, 5, 10, dev)
+    slabs, lam, ids, qn, lamq, probe = case
+    tiles = ivf_scan.slab_tiles(torch.from_numpy(ids), cap).numpy()
+    ms, mi, mm = model.scan(slabs, lam, ids, qn, lamq, probe, 0.5, k, qb,
+                            cap, tiles)
+    t = [torch.from_numpy(a).to(dev) for a in case]
+    merges = torch.full((len(qn),), -1, dtype=torch.int32, device=dev)
+    s, i = ivf_scan.ivf_scan(*t, 0.5, k=k, q_block=qb, cap=cap,
+                             tiles=torch.from_numpy(tiles).to(dev),
+                             merges=merges)
+    assert np.array_equal(i.cpu().numpy(), mi)
+    assert np.array_equal(s.cpu().numpy().view(np.uint32), ms.view(np.uint32))
+    assert np.array_equal(merges.cpu().numpy(), mm)
+
+
+@pytest.mark.parametrize("k", [15, 300, 1040])
+def test_ivf_scan_kernel_repeated_probe(dev, k):
+    """A probe row naming a cluster twice walks it twice: its rows enter a
+    list once for each probe, copies side by side (a list entry before an
+    equal staged key in the wide merge), every slot written and the list
+    sorted; the plain version's lists bit for bit on tied data."""
+    rng = np.random.default_rng(k)
+    cap, f, qb = 256, 32, 8
+    case = _tied_case(rng, 10, cap, f, qb, 4, 6, dev)
+    slabs, lam, ids, qn, lamq, probe = case
+    probe[:, 3] = probe[:, 1]
+    t = [torch.from_numpy(a).to(dev) for a in case]
+    s, i, sp, ip = _scan_both(*t, k, qb, cap, tau=0.5)
+    assert np.array_equal(i, ip)
+    assert np.array_equal(s.view(np.uint32), sp.view(np.uint32))
+    assert np.all(np.diff(s, axis=1) <= 0) and np.all(i >= -1)
+    twice = [len(np.unique(r[r >= 0])) < (r >= 0).sum() for r in i]
+    assert any(twice)
+
+
+@pytest.mark.parametrize("k", [256, 1040])
+def test_ivf_scan_kernel_zero_scores_tie_by_id(dev, k):
+    """Orthogonal items at tau 1.5 with item lambdas +inf score tau * (+0.0)
+    + (1 - tau) * 0 = +0.0 + -0.0 = +0.0 (at F 128 most rows are
+    orthogonal to a query, so the zeros reach both lists): the zeros tie
+    and fall to the smallest ids, on both routes as in the plain version.
+    K6 never scores -0.0 (its product chain starts at +0.0, so both terms
+    are never -0.0); the wide route's keys keep a -0.0 all the same
+    (tests/test_torch_ivf_wide.py)."""
+    rng = np.random.default_rng(k)
+    cap, f, qb = 256, 128, 8
+    case = _tied_case(rng, 10, cap, f, qb, 4, 6, dev)
+    slabs, lam, ids, qn, lamq, probe = case
+    lam[:] = np.inf
+    t = [torch.from_numpy(a).to(dev) for a in case]
+    s, i, sp, ip = _scan_both(*t, k, qb, cap, tau=1.5)
+    assert np.array_equal(i, ip) and np.array_equal(s, sp)
+    zero = s == 0
+    assert zero.any() and not np.signbit(s[zero]).any()
+    for r in range(s.shape[0]):
+        z = i[r][zero[r]]
+        assert np.all(np.diff(z) > 0)
 
 
 def test_ivf_scan_kernel_rejects(dev):
@@ -338,6 +461,34 @@ def test_blocked_ivf_search_card_matches_cpu(dev, dt, certify):
     assert topk_disagreements(got[1], got[0], ref[1], ref[0], TOL) == []
     if certify:
         assert np.array_equal(got[2], ref[2]) and got[2].mean() >= 0.85
+
+
+def test_certified_bf16_topk65_on_card(dev):
+    """Certified serving over bf16 slabs at topk 65 from n_probe 4 with
+    n_widen 2 (K6 at pools 260, 520 and 1,040, its wide route) on the card
+    against the same serving on the CPU (tests/test_torch_ivf_wide.py's
+    corpus)."""
+    rng = np.random.default_rng(5)
+    sizes = [128] * 16 + [512] * 4
+    base = rng.normal(size=(len(sizes), 16)) * 2.0
+    items = (base[np.repeat(np.arange(len(sizes)), sizes)]
+             + 0.25 * rng.normal(size=(sum(sizes), 16))).astype(np.float32)
+    gp = {"eps": 0.9, "k": 6, "topk": 10, "p": 2.0, "sigma": 0.3}
+    queries = np.concatenate([items[rng.choice(128, 8, replace=False)],
+                              items[2048 + rng.choice(512, 8,
+                                                      replace=False)]]) * 1.02
+    out = {}
+    for where in ("cpu", "cuda"):
+        a, gl = ArrowSpaceBuilder.build(gp, items, device=where)
+        a.enable_ivf(n_clusters=64, slab_dtype=torch.bfloat16)
+        wide = ivf_scan.WIDE_LAUNCHES
+        out[where] = a.search_batch(queries, gl, TAU, topk=65,
+                                    mode="certified", n_probe=4, n_widen=2)
+        if where == "cuda":
+            assert ivf_scan.WIDE_LAUNCHES >= wide + 3
+    (ci, cv), (gi, gv) = out["cpu"], out["cuda"]
+    assert gi.shape == (16, 65)
+    assert topk_disagreements(gv, gi, cv, ci, TOL) == []
 
 
 def test_certified_and_stream_on_card(dev):
