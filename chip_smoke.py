@@ -8,12 +8,15 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
      all started together); ptxas's registers and spills of
-     K1, K2, K3, K5, K7 and K6 (K6's also by route, narrow and wide, with
-     its resident blocks an SM at k 15 and 260);
+     K1, K2, K3, K5, K7 and K6 (K1's also by walk, symmetric and full; K6's
+     also by route, narrow and wide, with its resident blocks an SM at k 15
+     and 260);
   1. K1 (csrc/knn.cu) against its plain version on a 313,841 x 384 unit
-     corpus (eps 1.31, k 25): its one launch over the whole corpus timed
-     beside its bound (each of the N (N + 1) / 2 distinct pairs' products
-     once: d(i, j) == d(j, i)); 2,048 random rows, distances within 1e-5
+     corpus (eps 1.31, k 25): its one launch over the whole corpus, on the
+     symmetric route (each of the N (N + 1) / 2 distinct pairs' products
+     once: d(i, j) == d(j, i)) and on the full walk in turns, beside its
+     bound, their lists bit for bit on every row, the route printed;
+     2,048 random rows, distances within 1e-5
      and ids equal up to near-ties; d(i, j) == d(j, i) bitwise on 10,000
      kept mutual pairs; on the 16,384 timed rows K1's lists equal K1t's
      (csrc/knn_t.cu, on K1's product) bit for bit, and every distance K1
@@ -30,8 +33,9 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   3. the main path: ArrowSpaceBuilder.build at 313,841 x 384 with the CVE
      graph params (a warm-up build, then a timed one), search_batch(
      mode="exact") over 8 batches of 4,096 queries, 3 single searches.
-     Launch counts are reset just before and read just after: both
-     kernels must have run.  The Laplacian must be exactly symmetric,
+     Launch counts are reset just before the timed build and read just
+     after the searches: both kernels must have run, K1 once, on the
+     symmetric route.  The Laplacian must be exactly symmetric,
      every lambda finite in [0, 1], and no edge dropped; the warm-up and
      the timed build must give the same lambdas, centroids and lists bit
      for bit (the Lloyd sums use no float atomics);
@@ -160,7 +164,9 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      for bit, with its build and knn seconds and its launches;
   15. the index lifecycle: ArrowSpaceBuilder.extend of phase 3's index by
      9,416 rows (N(0, 1) x 12, default_rng(43)), warm, against a rebuild of
-     the 323,257 rows (lists, Laplacian, lambdas and tau* bit for bit);
+     the 323,257 rows (lists, Laplacian, lambdas and tau* bit for bit: the
+     extend's full walks witness the rebuild's symmetric one, the launches
+     of each counted);
      seeded K1 against its plain version on 2,048 old rows and timed on
      16,384; save_index / load_index of the extended index in a temporary
      directory (MB, seconds; exact search on the loaded index bitwise the
@@ -171,12 +177,14 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      seconds, peak device memory, ell_width, nedges, n_dropped, tau* and
      the lambdas' mean and standard deviation printed beside the JAX
      package's TPU v5e record (TPU_1M_RECORD; not compared); the Laplacian
-     exactly symmetric, K1 launched once, no NaN lambda, and edges dropped
+     exactly symmetric, K1 launched once, on the symmetric route, no NaN
+     lambda, and edges dropped
      only where the union width bound passes the ELL budget's width cap;
      K1's launch over the whole corpus again, timed beside its bound, its
      lists the build's bit for bit; the build's lists against the plain
-     version on 2,048 random rows and the last 1,024 (the largest
-     offsets), and K5's distance bit for bit on them; the one-pass and the
+     version on 2,048 random rows, the first 1,024 (their lists all but
+     from their own walks) and the last 1,024 (the largest offsets), and
+     K5's distance bit for bit on them; the one-pass and the
      chunked symmetrize on the build's lists, in turns, each with its
      seconds and the device memory it adds, equal bit for bit (and to the
      build's graph), the one-pass op's bytes per directed entry held under
@@ -248,7 +256,9 @@ over each slab type for the rest; a length that no such run reaches gets
 one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
 library matmul on the same operands that the port never calls (it is not
 the same function: no mask, blend or top-k, and another summation order),
-and K1 its whole-corpus launches (full_ms, full_bound_ms at 313k; phase
+and K1 its whole-corpus launches (full_ms on full_route, the symmetric
+one, full_walk_ms on the full walk, in turns, full_bound_ms at 313k;
+sym_launches, the symmetric launches of phase 3's main-path run; phase
 16's full_1m_ms, full_1m_bound_ms, full_1m_launches at 1M).  The last line
 is {"ok": true, "device": {...}}.
 
@@ -449,6 +459,16 @@ def _route(mod, rows: int, n: int, k: int, device) -> str:
     return fn(rows, n, k, device) if fn else "single"
 
 
+def _has_sym(knn) -> bool:
+    """The package's K1 has the symmetric route (a parent's may not)."""
+    return hasattr(knn, "SYM_LAUNCHES")
+
+
+def _full_walk(knn) -> dict:
+    """knn_scan's keywords for K1's full walk over a whole corpus."""
+    return {"symmetric": False} if _has_sym(knn) else {}
+
+
 def _reset_launches() -> None:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
                                                  ivf_scan, knn, knn_t,
@@ -463,6 +483,8 @@ def _reset_launches() -> None:
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
     knn.SEEDED_LAUNCHES = knn.DIAG_START_LAUNCHES = knn.PERM_LAUNCHES = 0
     knn.SPLIT_LAUNCHES = knn_t.SPLIT_LAUNCHES = 0
+    if _has_sym(knn):
+        knn.SYM_LAUNCHES = 0
 
 
 def _launches() -> dict:
@@ -475,6 +497,7 @@ def _launches() -> dict:
             "knn_diagstart": knn.DIAG_START_LAUNCHES,
             "knn_reorder": knn.PERM_LAUNCHES,
             "knn_split": getattr(knn, "SPLIT_LAUNCHES", 0),
+            "knn_sym": getattr(knn, "SYM_LAUNCHES", 0),
             "knn_t_split": getattr(knn_t, "SPLIT_LAUNCHES", 0),
             "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
@@ -1878,6 +1901,8 @@ def _phase_build_1m(torch, dev, aspace, gl, card, results) -> None:
         failed.append("L symmetric")
     if launches["knn"] != 1:
         failed.append("K1 launched once")
+    if launches["knn_sym"] != 1 and _has_sym(knn):
+        failed.append("K1 on the symmetric route")
     if bool(torch.isnan(lam).any()):
         failed.append("no NaN lambda")
     if g1m.n_dropped_edges > 0 and bound <= width_cap:
@@ -1903,10 +1928,13 @@ def _phase_build_1m(torch, dev, aspace, gl, card, results) -> None:
     if not same:
         failed.append("K1 at 1M deterministic")
     # The build's lists against the plain version on K1_CHECK_ROWS random
-    # rows and the last 1,024, whose offsets into the corpus are the
-    # largest (N * F passes 2^31 bytes), and K5's distance bit for bit.
+    # rows, the first 1,024 (the symmetric walk's first 8 row blocks: their
+    # lists all but from their own walks) and the last 1,024, whose offsets
+    # into the corpus are the largest (N * F passes 2^31 bytes), and K5's
+    # distance bit for bit.
     rows = np.union1d(np.random.default_rng(0).choice(
-        N1M, K1_CHECK_ROWS, replace=False), np.arange(N1M - 1024, N1M))
+        N1M, K1_CHECK_ROWS, replace=False),
+        np.r_[np.arange(1024), np.arange(N1M - 1024, N1M)])
     rows_t = torch.as_tensor(rows, device=dev)
     dp, ip = (t.cpu().numpy() for t in knn.knn_plain(xu, k, eps,
                                                       rows=rows_t))
@@ -1922,8 +1950,9 @@ def _phase_build_1m(torch, dev, aspace, gl, card, results) -> None:
     results["knn"].update(
         full_1m_max_abs_err=err,
         max_abs_err=max(results["knn"].get("max_abs_err", 0.0), err))
-    print(f"phase 16: K1 vs plain on {rows.size} rows of {N1M} (the last "
-          f"1,024 among them): max_abs_err {err:.3e}, disagreeing rows "
+    print(f"phase 16: K1 vs plain on {rows.size} rows of {N1M} (the first "
+          f"and the last 1,024 among them): max_abs_err {err:.3e}, "
+          f"disagreeing rows "
           f"{len(bad)}; K1 == K5 distance bit for bit: {witness_k5}")
     if bad or err > TOL:
         failed.append(f"K1 at 1M vs plain (rows {bad[:10]}, err {err})")
@@ -2619,11 +2648,20 @@ def _phase_lifecycle(torch, items, aspace, gl, batches, card,
     t_extend = time.perf_counter() - t0
     results["launches_extend"] = _launches()
     ext_phases = pt.get_phase_timings()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ra, rg = pt.ArrowSpaceBuilder.build(GP, torch.cat([items, new]))
     t_rebuild = time.perf_counter() - t0
     rb_phases = pt.get_phase_timings()
+    rb_launches = _launches()
+    # The extend's K1 launches walk their rows in full, the rebuild's one
+    # launch symmetrically: equal lists witness the symmetric walk.
+    walks = {"extend_sym": results["launches_extend"]["knn_sym"],
+             "rebuild_k1": rb_launches["knn"],
+             "rebuild_sym": rb_launches["knn_sym"]}
+    walks_ok = walks["extend_sym"] == 0 and walks["rebuild_k1"] == 1 and (
+        walks["rebuild_sym"] == 1 or not _has_sym(knn))
     diff = _same(torch, [
         ("knn_dist", ea._knn_dist, ra._knn_dist),
         ("knn_idx", ea._knn_idx, ra._knn_idx),
@@ -2635,7 +2673,7 @@ def _phase_lifecycle(torch, items, aspace, gl, batches, card,
           f"(knn_extend {ext_phases['knn_extend']:.3f} s); rebuild of "
           f"{N + N_EXTEND} rows {t_rebuild:.3f} s (knn "
           f"{rb_phases['knn']:.3f} s); launches {results['launches_extend']};"
-          f" differing: {diff} {card}")
+          f" K1 by walk {walks}; differing: {diff} {card}")
     print(f"phase 15: extend phases (s) "
           f"{json.dumps({kk: round(v, 4) for kk, v in ext_phases.items()})}")
     del ra, rg
@@ -2706,8 +2744,9 @@ def _phase_lifecycle(torch, items, aspace, gl, batches, card,
           f"{life['emit_s']:.3f} s {card}")
     results["lifecycle"] = life
     del ea, eg
-    if diff or bad or err > TOL or not life["served_same"]:
+    if diff or bad or err > TOL or not life["served_same"] or not walks_ok:
         raise AssertionError(f"lifecycle checks failed: differing {diff}, "
+                             f"K1 by walk {walks}, "
                              f"seeded rows {bad[:10]} err {err}, served "
                              f"same {life['served_same']}")
 
@@ -3217,12 +3256,12 @@ def _ptxas_summary(build, name: str) -> str:
             f"{max(spills, default=0)} B")
 
 
-def _ptxas_k6_routes(build) -> str:
-    """K6's registers and spill stores by route, from ptxas's report:
-    its narrow kernels (lists of 2, 4 or 8 words a lane) and its wide ones
-    (the staged merge), told apart by the kernel's W template argument."""
+def _ptxas_routes(build, name: str, route_of) -> str:
+    """Registers and spill stores of csrc/<name>.cu's kernels by route, from
+    ptxas's report: route_of(mangled entry name) names an entry's route,
+    or None for an entry left out."""
     import re
-    log = build.library_path("ivf_scan").with_suffix(".ptxas.txt")
+    log = build.library_path(name).with_suffix(".ptxas.txt")
     if not log.exists():
         return "no report"
     routes: dict = {}
@@ -3230,26 +3269,42 @@ def _ptxas_k6_routes(build) -> str:
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            w = re.search(r"ivf_kernelI.*?Li\d+ELi(\d+)ELb[01]E", m.group(1))
-            entry = routes.setdefault(
-                "wide" if w and w.group(1) == "0" else "narrow",
-                {"regs": [], "spills": []}) if w else None
+            route = route_of(m.group(1))
+            entry = routes.setdefault(route, {"regs": [], "spills": []}) \
+                if route else None
         elif entry is not None and "Used" in line and "registers" in line:
             entry["regs"].append(int(line.split("Used ")[1].split()[0]))
         elif entry is not None and "spill stores" in line:
             entry["spills"].append(
                 int(line.split("bytes stack frame, ")[1].split()[0]))
     return "; ".join(
-        f"{name} route: {len(r['regs'])} kernels, registers "
+        f"{route} route: {len(r['regs'])} kernels, registers "
         f"{min(r['regs'], default=0)}-{max(r['regs'], default=0)}, spill "
         f"stores up to {max(r['spills'], default=0)} B"
-        for name, r in sorted(routes.items()))
+        for route, r in sorted(routes.items()))
+
+
+def _k6_route_of(entry: str):
+    """K6's narrow kernels (lists of 2, 4 or 8 words a lane) and its wide
+    ones (the staged merge), told apart by the W template argument."""
+    import re
+    w = re.search(r"ivf_kernelI.*?Li\d+ELi(\d+)ELb[01]E", entry)
+    return ("wide" if w.group(1) == "0" else "narrow") if w else None
+
+
+def _k1_route_of(entry: str):
+    """K1's narrow kernels by walk: the symmetric route (SYM true) or the
+    full walk."""
+    if "knn_kernel" not in entry:
+        return None
+    return "sym" if "ELb1EE" in entry else "full-walk"
 
 
 def _measures(results: dict) -> dict:
     """The numbers --against compares, as this run's phases took them."""
     wide = results["wide"]
     return {"k1_full_ms": results["knn"]["full_ms"],
+            "k1_full_walk_ms": results["knn"]["full_walk_ms"],
             "k1_ms": results["knn"]["ms"],
             "k1t_ms": results["knn"]["k1t_ms"],
             "k1_9416_rows_ms": results["knn"]["tail_ms"],
@@ -3356,12 +3411,15 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name in ("knn", "scan_topk", "subtile_max", "gather_score",
                  "scan_int8", "ivf_scan"):
         print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
+    print(f"phase 0: ptxas csrc/knn.cu's narrow kernels by walk: "
+          f"{_ptxas_routes(_build, 'knn', _k1_route_of)}")
     from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
     if hasattr(k6, "blocks_per_sm"):
         occ = {(k, str(dt).split(".")[-1]): k6.blocks_per_sm(k, 16, dt, dev)
                for k in (15, 260) for dt in (torch.float32, torch.bfloat16)}
         print(f"phase 0: ptxas csrc/ivf_scan.cu by route: "
-              f"{_ptxas_k6_routes(_build)}; the wide route (k > 256) sorts "
+              f"{_ptxas_routes(_build, 'ivf_scan', _k6_route_of)}; the wide "
+              f"route (k > 256) sorts "
               f"in the ring's free stage, no list memory; blocks an SM at "
               f"qb 16 by (k, slabs): {occ}")
 
@@ -3373,10 +3431,16 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     # -- phase 1: K1 against its plain version --------------------------------
     try:
         k, eps = GP["k"], GP["eps"]
-        out = {}
-        full_ms = _events_ms(
-            lambda: out.update(di=knn.knn_scan(xu, k, eps)), torch)
-        d, i = out.pop("di")
+        # The whole corpus on its route (symmetric) and on the full walk:
+        # the same bits on every row, then both timed in turns.
+        full_route = _route(knn, N, N, k, dev)
+        d, i = knn.knn_scan(xu, k, eps)
+        d_f, i_f = knn.knn_scan(xu, k, eps, **_full_walk(knn))
+        walks_same = _bits_equal(torch, d, d_f) and torch.equal(i, i_f)
+        del d_f, i_f
+        full_ms, full_walk_ms = _in_turns(
+            lambda: knn.knn_scan(xu, k, eps, **_full_walk(knn)),
+            lambda: knn.knn_scan(xu, k, eps), torch)
         rows = np.sort(np.random.default_rng(0).choice(
             N, K1_CHECK_ROWS, replace=False))
         rows_t = torch.as_tensor(rows, device=dev)
@@ -3434,15 +3498,19 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             **_bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
                      N * F * 4 + K1_TIME_ROWS * k * 8),
             kernel_route=_route(knn, K1_TIME_ROWS, N, k, dev),
-            product_ms=mm_ms, full_ms=full_ms,
+            product_ms=mm_ms, full_ms=full_ms, full_route=full_route,
+            full_walk_ms=full_walk_ms, full_walk_same=walks_same,
             full_bound_ms=full_bound["bound_ms"], k1t_ms=k1t_ms,
             tail_ms=tail_ms, tail_rows=N_EXTEND,
             tail_route=_route(knn, N_EXTEND, N, k, dev),
             tail_bound_ms=_bound(2.0 * _k1_pairs(N_EXTEND, N) * F, "fp32",
                                  N * F * 4 + N_EXTEND * k * 8)["bound_ms"])
-        print(f"phase 1: K1 full corpus {N}x{F} k={k}: {full_ms:.3f} ms, "
-              f"bound {full_bound['bound_ms']:.3f} ms "
-              f"({full_bound['bound_by']}); {K1_TIME_ROWS} rows: kernel "
+        print(f"phase 1: K1 full corpus {N}x{F} k={k}: route {full_route} "
+              f"{full_ms:.3f} ms, the full walk {full_walk_ms:.3f} ms (in "
+              f"turns), bound {full_bound['bound_ms']:.3f} ms "
+              f"({full_bound['bound_by']}); the two walks' lists bit for "
+              f"bit on all {N} rows: {walks_same} {card}")
+        print(f"phase 1: K1 on {K1_TIME_ROWS} rows: kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
               f"{results['knn']['bound_ms']:.3f} ms; yardstick torch.mm "
               f"[{K1_TIME_ROWS},{F}]x[{F},{N}] fp32 (not called by the "
@@ -3524,9 +3592,10 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         results["knn"]["max_abs_err"] = max(err, err_w, err_x)
         if bad or err > TOL or not sym or r.size < 10_000 or bad_w \
                 or err_w > TOL or bad_x or err_x > TOL or not witness \
-                or not witness_k5 or not tail_same:
+                or not witness_k5 or not tail_same or not walks_same:
             raise AssertionError(f"K1 check failed: rows {bad[:10]}, "
-                                 f"err {err}, symmetric {sym}, K1t {witness}, "
+                                 f"err {err}, symmetric {sym}, walks "
+                                 f"{walks_same}, K1t {witness}, "
                                  f"K5 {witness_k5}, tail {tail_same}, "
                                  f"pairs {r.size}, k={K1_WIDE} rows "
                                  f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
@@ -3539,15 +3608,16 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     # -- phase 3: the main path -----------------------------------------------
     aspace = gl = batches = src = outs = None
     try:
-        _reset_launches()
         t0 = time.perf_counter()
         warm, _ = pt.ArrowSpaceBuilder.build(GP, items)
         t_warm = time.perf_counter() - t0
+        _reset_launches()
         t0 = time.perf_counter()
         aspace, gl = pt.ArrowSpaceBuilder.build(GP, items)
         t_build = time.perf_counter() - t0
         phases = pt.get_phase_timings()
         k1_build = knn.LAUNCHES
+        sym_build = getattr(knn, "SYM_LAUNCHES", 0)
         # Two builds of the same rows: the same bits (no float atomics).
         repeat_diff = _same(torch, [
             ("lambdas", warm._lambdas, aspace._lambdas),
@@ -3580,8 +3650,11 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
               f"{N_BATCHES} x {Q_BATCH} queries, {t_search:.3f} s, "
               f"N={N} F={F} topk={GP['topk']} {card}")
         print(f"phase 3: launches on the main path {launches} "
-              f"(K1 during the builds: {k1_build})")
+              f"(K1 during the timed build: {k1_build}, on the symmetric "
+              f"route: {sym_build})")
         results["launches"] = launches
+        if "knn" in results:
+            results["knn"]["sym_launches"] = launches["knn_sym"]
         top1 = all(int(o[0][row, 0]) == int(s_[row])
                    for o, s_ in zip(outs, src) for row in range(Q_BATCH))
         single_ok = all(h[0][0] == x and len(h) == GP["topk"]
@@ -3601,6 +3674,8 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
               f" warm-up and timed builds differing in {repeat_diff}")
         checks = {
             "K1 launched on the main path": launches["knn"] > 0,
+            "K1 once a build, on the symmetric route": k1_build == 1 and (
+                sym_build == 1 or not _has_sym(knn)),
             "K2 launched on the main path": launches["scan_topk"] > 0,
             "L exactly symmetric": sym,
             "lambdas finite in [0, 1]": bool(

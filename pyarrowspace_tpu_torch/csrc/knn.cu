@@ -9,13 +9,13 @@
 // and d > eps masked to 2.0 before the merge; missing entries stay (2.0,
 // -1).  Rows come out ascending by (distance, id).
 //
-// What bounds it on the H100: the products.  At 313,841 x 384 the scan
-// computes 313,841^2 x 384 x 2 = 75.6 TFLOP of fp32 multiply-adds, against
-// 67 TFLOP/s of fp32 outside the tensor cores (1.129 s); since d(i, j) ==
-// d(j, i) bit for bit, the function needs only half of them (0.564 s: a
-// walk over one triangle is not built yet).  The merge touches
-// each of the N^2 candidates once (a compare against the row's kth) and
-// inserts only about k (1 + ln(N / k)) times per row.
+// What bounds it on the H100: the products.  At 313,841 x 384 a walk of
+// every row block over every column tile computes 313,841^2 x 384 x 2 =
+// 75.6 TFLOP of fp32 multiply-adds, against 67 TFLOP/s of fp32 outside the
+// tensor cores (1.129 s); since d(i, j) == d(j, i) bit for bit, the function
+// needs only half of them (0.564 s), which the symmetric route below
+// computes.  The merge touches each candidate once (a compare against the
+// row's kth) and inserts only about k (1 + ln(N / k)) times per row.
 //
 // The design: one block of 256 threads per 128-row block; the block walks
 // the 128-column tiles (nothing carries between blocks on a GPU, so the
@@ -31,6 +31,49 @@
 // of knn_wide.cuh: the column walk split across blocks when the row blocks
 // leave SMs idle, each tile's survivors buffered, sorted and merged into
 // partial lists in device memory, and a second launch merging the splits.
+//
+// The symmetric route ("sym": ops/cuda/knn.py::route_name picks it, for
+// the self-join of a whole corpus: all rows against all columns, no seed,
+// rotation or permutation, k <= 128; this launcher refuses it elsewhere).
+// Block b walks only the column tiles t >= b, so the walk computes each
+// d(i, j) once: its diagonal tile first, then the others in a strided order
+// of its own (at the walk below).  The diagonal tile holds both (i, j) and
+// (j, i) and is merged into the block's own lists as above.  Every other
+// tile is merged twice from the same masked distances: row-wise into the
+// block's own lists, and column-wise, the transposed tile (row r0 + rr
+// offered to the list of row c0 + c), into the transposed lists of the
+// tile's rows: partial lists [N, k] of knn_wide::Ent in device memory,
+// allocated by the wrapper, in which each row gathers the rows of the
+// blocks below its own.
+//   - The lock: a tile's transposed lists are merged under a spin lock of
+//     that tile in device memory (a compare-and-swap with acquire
+//     semantics, __nanosleep in the spin, a release store after a block
+//     barrier).  A block holds one lock at a time, so nothing deadlocks;
+//     the strided walks make blocks meet on a tile rarely, and part soon
+//     when they do.
+//   - The filter: each column's transposed kth, copied into shared memory
+//     under the tile's product (cp.async, without the lock: any kth the
+//     list ever had bounds its final one, so a stale copy lets more
+//     through, never fewer), compared in the epilogue from registers.  A
+//     flagged column is merged, under the lock, against its list as it is
+//     then; a warp loads up to 4 of its flagged columns' lists at once.
+//   - The end: a second launch merges each row's own list (in the output)
+//     with its transposed list (knn_wide::merge, as the split walk's
+//     partial lists); rows of block 0 have empty ones.
+// Own and transposed merges take MinLex, so each list is the lexicographic
+// (distance, id) top-k whatever the order in which blocks reach a tile:
+// every list is the full walk's bit for bit.  Hazards:
+//   - the distances tile Ds lives in the ring, so the transposed merge ends
+//     (a block barrier) before the next tile's product overwrites it: it
+//     lies on the critical path, beside the row-wise merge;
+//   - a column of Ds is strided by RES_LD = 136 floats, so a warp reading
+//     32 rows of one column meets 8-way bank conflicts: the filter runs on
+//     the epilogue's registers, and only a flagged column's merge reads a
+//     column (4 conflicted reads a lane, then broadcasts);
+//   - transposed ids arrive in no fixed order: both merges take MinLex, so
+//     a tie at the kth goes to the smaller id whatever the order of arrival;
+//   - a transposed list is read and written around L1 (ld.cg / st.cg), so
+//     no block reads another block's older copy of it from its SM's L1.
 //
 // Launch options, each keeping the one fmaf chain per pair, so every
 // distance stays bitwise the default scan's:
@@ -54,6 +97,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 #include "ffma_tile.cuh"
 #include "knn_wide.cuh"
@@ -63,13 +107,157 @@ namespace {
 
 constexpr float INF_DIST = 2.0f;
 
-template <class Order, int W>
+// A list entry as the 64 bits of a knn_wide::Ent: the distance's bits low,
+// the id high.
+__device__ __forceinline__ unsigned long long ent_bits(float v, int id) {
+  return (unsigned long long)__float_as_uint(v) |
+         (unsigned long long)(unsigned)id << 32;
+}
+
+// The symmetric route's lock of a column tile: taken by one thread of the
+// block, released by one thread after a block barrier (the pattern of a
+// serial split-K semaphore), so the block's list writes before the barrier
+// are visible to the next holder.
+__device__ __forceinline__ void lock_tile(int* lock) {
+  int old;
+  do {
+    asm volatile("atom.acquire.gpu.global.cas.b32 %0, [%1], %2, %3;\n"
+                 : "=r"(old)
+                 : "l"(lock), "r"(0), "r"(1)
+                 : "memory");
+    if (old != 0) __nanosleep(256);
+  } while (old != 0);
+}
+
+__device__ __forceinline__ void unlock_tile(int* lock) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(lock), "r"(0)
+               : "memory");
+}
+
+// Merge the warp's flagged columns of the tile (c = warp + 8 i with
+// col_hit[c] set; col_hit cleared) into the transposed lists of the tile's
+// rows (lists + c k, sorted in device memory), MinLex, since the blocks
+// reach the tile in any order.  Up to BATCH columns at a time: their lists
+// are loaded together, so the warp waits on device memory once a batch;
+// each is then copied into the warp's (vals, ids) in shared memory, its
+// rows (row r0 + rr at Ds[rr * RES_LD + c], rr < n_rows) ballotted against
+// its kth, the survivors offered and the list written back if it changed.
+// Called by all 32 lanes of one warp while the block holds the tile's
+// lock.  The ballot's reads of a column are 8-way bank conflicts (RES_LD =
+// 136); only columns that the epilogue flagged come here.
+template <int W>
+__device__ __forceinline__ void merge_columns(const float* Ds, int* col_hit,
+                                              int r0, int n_rows,
+                                              knn_wide::Ent* lists, int k,
+                                              float* vals, int* ids,
+                                              int warp, int lane) {
+  using regtile::RES_LD;
+  constexpr int BATCH = 4, MINE = regtile::TILE / regtile::WARPS;
+  unsigned todo = __ballot_sync(
+      tile::FULL, lane < MINE && col_hit[warp + regtile::WARPS * lane]);
+  if (lane < MINE) col_hit[warp + regtile::WARPS * lane] = 0;
+  while (todo) {
+    int col[BATCH];
+    unsigned long long e[BATCH][W];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      col[b] = -1;
+      if (todo) {
+        col[b] = warp + regtile::WARPS * (__ffs(todo) - 1);
+        todo &= todo - 1;
+      }
+      const auto* bits = reinterpret_cast<const unsigned long long*>(
+          lists + (size_t)max(col[b], 0) * k);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int s = lane + 32 * w;
+        e[b][w] = col[b] >= 0 && s < k ? __ldcg(bits + s) : 0ull;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      if (col[b] < 0) break;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int s = lane + 32 * w;
+        if (s < k) {
+          vals[s] = __uint_as_float((unsigned)e[b][w]);
+          ids[s] = (int)(e[b][w] >> 32);
+        }
+      }
+      __syncwarp();
+      const float* c_d = Ds + col[b];
+      const float kth = vals[k - 1];
+      const int kth_id = ids[k - 1];
+      unsigned m[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int rr = lane + 32 * q;
+        m[q] = __ballot_sync(tile::FULL,
+                             rr < n_rows && tile::MinLex::better(
+                                                c_d[rr * RES_LD], r0 + rr,
+                                                kth, kth_id));
+      }
+      if (m[0] | m[1] | m[2] | m[3]) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          while (m[q]) {
+            const int rr = 32 * q + __ffs(m[q]) - 1;
+            m[q] &= m[q] - 1;
+            tile::offer<tile::MinLex, W>(vals, ids, k, c_d[rr * RES_LD],
+                                         r0 + rr, lane);
+          }
+        }
+        auto* out = reinterpret_cast<unsigned long long*>(
+            lists + (size_t)col[b] * k);
+        for (int s = lane; s < k; s += 32)
+          __stcg(out + s, ent_bits(vals[s], ids[s]));
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The stride of a symmetric walk over len tiles: the first integer from
+// 0.618 len (at least 1) that is coprime with len.
+__device__ __forceinline__ int sym_stride(int len) {
+  int g = max(1, (int)(0.618034f * len));
+  while (true) {
+    int a = g, b = len;
+    while (b) {
+      const int r = a % b;
+      a = b;
+      b = r;
+    }
+    if (a == 1) return g;
+    ++g;
+  }
+}
+
+// Dynamic shared memory of a block of the symmetric route: the full walk's
+// (the ring and the lists), a warp's copy of a transposed list, each
+// column's filter (8 bytes) and flag, and the block's flag.
+inline size_t sym_smem_bytes(int k) {
+  return regtile::smem_bytes(k) + (size_t)regtile::WARPS * k * 8 +
+         (size_t)regtile::TILE * (8 + 4) + 16;
+}
+
+// The symmetric route's transposed lists, empty: (2.0, -1) entries.
+__global__ void empty_lists(knn_wide::Ent* lists, size_t count) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < count;
+       e += (size_t)gridDim.x * blockDim.x)
+    lists[e] = knn_wide::Ent{INF_DIST, -1};
+}
+
+// SYM: the symmetric route (the top of this file); part then holds the
+// transposed lists [n, k] and locks one int a column tile.
+template <class Order, int W, bool SYM>
 __global__ void __launch_bounds__(regtile::THREADS, 1)
     knn_kernel(const float* __restrict__ xu, int n, int f, int vec,
                int row_start, int row_count, float eps, int k, int col_start,
                int diag_start, const int* __restrict__ perm, int seeded,
-               int tiles_per_split, knn_wide::Ent* part, float* out_d,
-               int* out_i) {
+               int tiles_per_split, knn_wide::Ent* part, int* locks,
+               float* out_d, int* out_i) {
   using namespace regtile;
   extern __shared__ __align__(16) float ffma_smem[];
   float* ring = ffma_smem;
@@ -92,6 +280,14 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   // The block's lists [n_rows][k] in shared memory.
   float* run_d = ffma_smem + RING_FLOATS;
   int* run_i = reinterpret_cast<int*>(run_d + TILE * k);
+  // SYM: the warp's copy of a transposed list, each column's filter (the
+  // 64 bits of an Ent), each column's flag and the block's.
+  float* tr_d = reinterpret_cast<float*>(run_i + TILE * k) + warp * k;
+  int* tr_i = run_i + TILE * k + WARPS * k + warp * k;
+  auto* col_kth =
+      reinterpret_cast<unsigned long long*>(run_i + TILE * k + 2 * WARPS * k);
+  int* col_hit = reinterpret_cast<int*>(col_kth + TILE);
+  int* col_any = col_hit + TILE;
   // A split (part != null) starts from empty lists: the merge of the
   // splits starts from the seed.
   const bool from_out = seeded && !part;
@@ -102,6 +298,8 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     run_i[e] = from_out ? out_i[o] : -1;
   }
   if (tid < TILE) row_hit[tid] = 0;
+  if (SYM && tid < TILE) col_hit[tid] = 0;
+  if (SYM && tid == 0) *col_any = 0;
   // The first barrier inside regtile::product orders these writes before any
   // merge reads them.
   auto list_d = [&](int rr) { return run_d + rr * k; };
@@ -115,17 +313,49 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     const int t = t0 + s < n_tiles ? t0 + s : t0 + s - n_tiles;
     return col_start + t * TILE;
   };
-  const int s_begin = blockIdx.y * tiles_per_split;
-  const int s_end = min(n_tiles, s_begin + tiles_per_split);
+  // SYM: block b walks its L = n_tiles - b tiles as b + (s g mod L), s = 0
+  // .. L - 1, from its diagonal tile, g coprime with L near 0.618 L.  An
+  // ascending walk would put the blocks of every wave after the first in
+  // step (a block that starts as another ends reaches each tile together
+  // with the blocks started before it), all queueing for one tile's lock;
+  // with these strides (near 0.618 L, so a walk wraps about every other
+  // step, at its own L), two blocks that meet on a tile part within a step
+  // or two (tests/test_torch_knn_sym.py bounds how often a pair meets).
+  const int sym_len = n_tiles - (int)blockIdx.x;
+  const int sym_g = SYM ? sym_stride(sym_len) : 1;
+  const int s_begin = SYM ? 0 : blockIdx.y * tiles_per_split;
+  const int s_end = SYM ? sym_len : min(n_tiles, s_begin + tiles_per_split);
   for (int s = s_begin; s < s_end; ++s) {
-    const int c0 = tile_c0(s);
+    const int t = SYM ? (int)blockIdx.x +
+                            (int)((long long)s * sym_g % sym_len)
+                      : 0;
+    const int c0 = SYM ? t * TILE : tile_c0(s);
+    // SYM, past the diagonal: the tile is merged into its rows' transposed
+    // lists too.  Their filters come into shared memory under the product.
+    const bool trans = SYM && s > 0;
+    if (trans && tid < TILE) {
+      if (c0 + tid < n) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(col_kth + tid)),
+                     "l"(part + (size_t)(c0 + tid) * k + k - 1)
+                     : "memory");
+      } else {
+        col_kth[tid] = ent_bits(INF_DIST, -1);   // no row: nothing beats it
+      }
+    }
     if (perm && tid < TILE)
       col_ids[tid] = c0 + tid < n ? perm[c0 + tid] : INT_MAX;
     float acc[MICRO][MICRO];
     product(xu, r0, r_end, xu, c0, n, f, vec != 0, ring, acc);
+    if (trans) {   // the filters, for every thread of the epilogue
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
     // The masked distances into Ds; a row whose thread holds a candidate
     // better than the row's kth entry is flagged for the merge (the lists
-    // do not change before it).
+    // do not change before it), and (SYM) a column whose thread holds a row
+    // better than the column's filter.
+    unsigned col_bits = 0;
 #pragma unroll
     for (int i = 0; i < MICRO; ++i) {
       const int rr = ty + 16 * i;
@@ -144,10 +374,30 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
         Ds[rr * RES_LD + tx + 16 * j] = d;
         hit |= Order::better(d, perm ? col_ids[tx + 16 * j] : col, kth,
                              kth_id);
+        if (trans && rr < n_rows) {
+          const unsigned long long fk = col_kth[tx + 16 * j];
+          if (tile::MinLex::better(d, r0 + rr, __uint_as_float((unsigned)fk),
+                                   (int)(fk >> 32)))
+            col_bits |= 1u << j;
+        }
       }
       if (hit) row_hit[rr] = 1;
     }
+    if (col_bits) {
+#pragma unroll
+      for (int j = 0; j < MICRO; ++j)
+        if ((col_bits >> j) & 1u) col_hit[tx + 16 * j] = 1;
+      *col_any = 1;
+    }
     __syncthreads();
+    // SYM: lane 0 of warp 0 takes the tile's lock (its warp waiting for it)
+    // while the other warps merge their own rows; the barrier after those
+    // merges orders it before the transposed merges.
+    const bool trans_merge = trans && *col_any;
+    if (trans_merge && warp == 0) {
+      if (lane == 0) lock_tile(locks + t);
+      __syncwarp();
+    }
     for (int rr = warp; rr < n_rows; rr += WARPS) {
       if (!row_hit[rr]) continue;
       const float* drow = Ds + rr * RES_LD;
@@ -160,9 +410,20 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
       if (lane == 0) row_hit[rr] = 0;
     }
     __syncthreads();
+    if (trans_merge) {
+      merge_columns<W>(Ds, col_hit, r0, n_rows, part + (size_t)c0 * k, k,
+                       tr_d, tr_i, warp, lane);
+      // Every list written, and Ds read, before the lock goes and the next
+      // product overwrites the ring.
+      __syncthreads();
+      if (tid == 0) {
+        *col_any = 0;
+        unlock_tile(locks + t);
+      }
+    }
   }
 
-  if (part) {   // the split's partial lists [splits, row_count, k]
+  if (part && !SYM) {   // the split's partial lists [splits, row_count, k]
     knn_wide::Ent* lists =
         part + ((size_t)blockIdx.y * row_count + (r0 - row_start)) * k;
     for (int e = tid; e < n_rows * k; e += THREADS)
@@ -190,16 +451,24 @@ extern "C" {
 // lists into part (scratch of [splits, row_count, k] entries of 8 bytes,
 // and row_count more for a wide list), which a second launch merges into
 // out as it is: each row's seed or (2.0, -1) entries; a wide list (k > 128)
-// always takes that second launch.  Returns the CUDA error code of the
-// launch (0 on success).
+// always takes that second launch.  With sym != 0, the symmetric route:
+// only for all n rows against all n columns, without seed, diag_start or
+// perm, one split, k <= 128; part then holds n k entries of 8 bytes (the
+// transposed lists) and an int a 128-column tile (the locks), and a second
+// launch merges the transposed lists into out.  Returns the CUDA error code
+// of the launch (0 on success).
 int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                float eps, int k, int col_start, int diag_start,
-               const int* perm, int seeded, int splits, void* part,
+               const int* perm, int seeded, int splits, int sym, void* part,
                float* out_d, int* out_i, int device, void* stream) {
   const int words = regtile::list_words(k);
   if (n <= 0 || f <= 0 || row_count <= 0 || words < 0 || row_start < 0 ||
       row_start + row_count > n || col_start < 0 || col_start >= n ||
       splits < 1 || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (sym && (row_start != 0 || row_count != n || col_start != 0 ||
+              diag_start || perm || seeded || splits != 1 || words == 0 ||
+              part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -210,19 +479,24 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                             (cudaStream_t)stream);
   // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
   // a launch gets without opting in.
-  const size_t smem = regtile::smem_bytes(k);
+  const size_t smem = sym ? sym_smem_bytes(k) : regtile::smem_bytes(k);
   int smem_max = 0;
   err = cudaDeviceGetAttribute(&smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  // A rotated or permuted walk, or a seed list of any ids, offers ids out
-  // of order: MinLex.
+  // A rotated or permuted walk, a seed list of any ids, or the transposed
+  // half of the symmetric route offers ids out of order: MinLex.
   const bool lex = diag_start || perm || seeded;
-  auto kernel = lex ? &knn_kernel<tile::MinLex, 2> : &knn_kernel<tile::Min, 2>;
+  auto kernel = lex ? &knn_kernel<tile::MinLex, 2, false>
+                    : &knn_kernel<tile::Min, 2, false>;
   if (words == 4)
-    kernel = lex ? &knn_kernel<tile::MinLex, 4> : &knn_kernel<tile::Min, 4>;
+    kernel = lex ? &knn_kernel<tile::MinLex, 4, false>
+                 : &knn_kernel<tile::Min, 4, false>;
+  if (sym)
+    kernel = words == 4 ? &knn_kernel<tile::MinLex, 4, true>
+                        : &knn_kernel<tile::MinLex, 2, true>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -230,14 +504,33 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
     return (int)cudaErrorInvalidValue;
+  const int vec = regtile::can_vectorize<float>(xu, f);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sym) {
+    // The transposed lists start empty and every lock free; block b (the
+    // blocks start in ascending order, the longest walks first) walks
+    // n_tiles - b tiles.
+    knn_wide::Ent* lists = static_cast<knn_wide::Ent*>(part);
+    int* locks = reinterpret_cast<int*>(lists + (size_t)n * k);
+    empty_lists<<<1024, 256, 0, st>>>(lists, (size_t)n * k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(locks, 0, (size_t)n_tiles * sizeof(int), st);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<n_tiles, regtile::THREADS, smem, st>>>(
+        xu, n, f, vec, 0, n, eps, k, 0, 0, nullptr, 0, n_tiles, lists, locks,
+        out_d, out_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return knn_wide::merge<knn_wide::Asc>(lists, 0, n, k, 1, nullptr, out_d,
+                                          out_i, (size_t)k, 1, 0, st);
+  }
   knn_wide::Ent* lists =
       splits > 1 ? static_cast<knn_wide::Ent*>(part) : nullptr;
-  const int vec = regtile::can_vectorize<float>(xu, f);
   const dim3 grid((row_count + regtile::TILE - 1) / regtile::TILE, splits);
-  cudaStream_t st = (cudaStream_t)stream;
   kernel<<<grid, regtile::THREADS, smem, st>>>(
       xu, n, f, vec, row_start, row_count, eps, k, col_start, diag_start,
-      perm, seeded, tiles_per_split, lists, out_d, out_i);
+      perm, seeded, tiles_per_split, lists, nullptr, out_d, out_i);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return knn_wide::merge<knn_wide::Asc>(lists, row_start, row_count, k,

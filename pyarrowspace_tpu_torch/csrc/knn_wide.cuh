@@ -33,7 +33,9 @@
 //
 // Launch 2 (merge_kernel): one warp per row merges the S partial lists, in
 // split order, into the output row, which holds the row's seed list (K1's
-// col_start + seed), or empty entries (written first when asked: K2, K7):
+// col_start + seed), its own walk's list (K1's symmetric route, whose one
+// partial list a row is its transposed list), or empty entries (written
+// first when asked: K2, K7):
 // any row-major or slot-major output (K1, K1t), and rows placed by perm.
 //
 // The keys.  Asc: order_key(d) << 32 | id ^ 0x80000000 (select.cuh's
@@ -654,7 +656,8 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
   }
 }
 
-// Launch 2 alone (K1's narrow split walk, K7's wide lists, and below).
+// Launch 2 alone (K1's narrow split walk and symmetric route, K7's wide
+// lists, and below).
 template <class O>
 inline int merge(const Ent* lists, int row_start, int row_count, int k,
                  int splits, const int* perm, float* out_v, int* out_i,

@@ -11,7 +11,9 @@ each row from a sorted list), ``diag_start`` (a rotated column walk) and
 ``perm`` (a corpus sorted for locality); every one returns the default
 scan's result bit for bit.  Lists past ``WIDE_K`` entries take the
 kernel's wide route (csrc/knn_wide.cuh); ``plan_splits`` splits the column
-walk across blocks when the row blocks leave SMs idle.
+walk across blocks when the row blocks leave SMs idle.  The self-join of a
+whole corpus takes the symmetric route, which computes each d(i, j) once
+(``route_name`` decides, the one place that does).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import ctypes
 import torch
 
 from ... import _build
-from .scan_topk import fit_scratch, scratch_words, sm_count, wave_splits
+from .scan_topk import (SCRATCH_BYTES, fit_scratch, scratch_words, sm_count,
+                        wave_splits)
 
 INF_DIST = 2.0
 # The kernel's running lists: up to WIDE_K entries in shared memory; longer
@@ -36,13 +39,14 @@ _TILE = 128      # rows per block and columns per tile
 _STAGE = 896
 
 # Kernel launches since import (or since the caller last reset it), the
-# launches among them that used each option, and the launches whose column
-# walk was split.
+# launches among them that used each option, the launches whose column
+# walk was split, and those on the symmetric route.
 LAUNCHES = 0
 SEEDED_LAUNCHES = 0
 DIAG_START_LAUNCHES = 0
 PERM_LAUNCHES = 0
 SPLIT_LAUNCHES = 0
+SYM_LAUNCHES = 0
 
 # The plain version's products: every distance comes from a product
 # [_ROW_BLOCK, F] x [F, W], zero padded, with W = N rounded up to a multiple
@@ -163,9 +167,29 @@ def plan_splits(row_count: int, n_cols: int, k: int, device,
                        k + (_STAGE if k > WIDE_K else 0))
 
 
+def sym_words(n: int, k: int) -> int:
+    """8-byte words of the symmetric route's scratch for an [n, F] corpus:
+    the transposed lists [n, k] and an int32 lock a 128-column tile."""
+    tiles = -(-n // _TILE)
+    return n * k + -(-tiles // 2)
+
+
 def route_name(row_count: int, n_cols: int, k: int, device,
-               narrow: bool = True) -> str:
-    """The route of such a launch: "narrow" or "wide", and "/S<splits>"."""
+               narrow: bool = True, *, row_start: int = 0,
+               col_start: int = 0, seeded: bool = False,
+               diag_start: bool = False, perm: bool = False,
+               symmetric: bool = True) -> str:
+    """The route of a launch over row_count rows from row_start against the
+    n_cols columns from col_start: "sym", the symmetric route, for K1's
+    (``narrow``) self-join of a whole corpus (every row against every
+    column) at k <= WIDE_K without a seed, diag_start or perm, when its
+    scratch (``sym_words``) fits SCRATCH_BYTES and ``symmetric`` does not
+    ask for the full walk; else "narrow" or "wide", and "/S<splits>"."""
+    if (narrow and symmetric and k <= WIDE_K and row_start == 0
+            and col_start == 0 and row_count == n_cols
+            and not (seeded or diag_start or perm)
+            and 8 * sym_words(n_cols, k) <= SCRATCH_BYTES):
+        return "sym"
     splits = plan_splits(row_count, n_cols, k, device, narrow)[0]
     return f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
 
@@ -192,8 +216,8 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -227,7 +251,8 @@ def check_corpus(xu: torch.Tensor, k: int, row_start: int,
 
 def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
              row_count: int | None = None, *, col_start: int = 0, seed=None,
-             diag_start: bool = False, perm: torch.Tensor | None = None):
+             diag_start: bool = False, perm: torch.Tensor | None = None,
+             symmetric: bool = True):
     """(dist [R, k], idx [R, k] int32) for rows [row_start, row_start + R)
     of the unit corpus ``xu`` [N, F] against the columns [col_start, N).
 
@@ -236,7 +261,9 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
     ``diag_start`` walks each row block's columns from its own tile.
     ``perm``: xu is the corpus permuted by it (int32 or int64, on xu's
     device); the result is then [N, k] indexed by original row, with the
-    rows outside perm[row_start:row_start + R] left (2.0, -1)."""
+    rows outside perm[row_start:row_start + R] left (2.0, -1).
+    ``symmetric=False`` keeps the full walk where ``route_name`` would take
+    the symmetric route: the same result, for timing the two."""
     n = xu.shape[0] if xu.dim() == 2 else 0
     row_count = check_corpus(xu, k, row_start, row_count)
     if not 0 <= col_start <= n:
@@ -265,20 +292,30 @@ def knn_scan(xu: torch.Tensor, k: int, eps: float, row_start: int = 0,
         perm32 = perm.to(device=xu.device, dtype=torch.int32).contiguous()
     _launch(xu.data_ptr(), n, xu.shape[1], row_start, row_count, eps, k,
             col_start, diag_start, perm32, seed is not None, out_d, out_i,
-            xu.device)
+            xu.device, symmetric)
     return out_d, out_i
 
 
 def _launch(base: int, n: int, f: int, row_start: int, row_count: int,
             eps: float, k: int, col_start: int, diag_start: bool, perm32,
             seeded: bool, out_d: torch.Tensor, out_i: torch.Tensor,
-            device: torch.device) -> None:
+            device: torch.device, symmetric: bool = True) -> None:
     """K1's launches for rows [row_start, row_start + row_count) of the
     float32 rows at address ``base`` ([n, f]) against the columns
-    [col_start, n), in row chunks when the scratch asks for them."""
+    [col_start, n), on ``route_name``'s route, in row chunks when the
+    scratch asks for them."""
     global LAUNCHES, SEEDED_LAUNCHES, DIAG_START_LAUNCHES, PERM_LAUNCHES
-    global SPLIT_LAUNCHES
-    splits, chunk, part = scratch(row_count, n - col_start, k, device)
+    global SPLIT_LAUNCHES, SYM_LAUNCHES
+    sym = route_name(row_count, n - col_start, k, device,
+                     row_start=row_start, col_start=col_start,
+                     seeded=seeded, diag_start=diag_start,
+                     perm=perm32 is not None, symmetric=symmetric) == "sym"
+    if sym:
+        splits, chunk = 1, row_count
+        part = torch.empty((sym_words(n, k), 2), dtype=torch.int32,
+                           device=device)
+    else:
+        splits, chunk, part = scratch(row_count, n - col_start, k, device)
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     for s in range(0, row_count, chunk):
@@ -288,7 +325,7 @@ def _launch(base: int, n: int, f: int, row_start: int, row_count: int,
             base, n, f, row_start + s, rc, float(eps), k, col_start,
             int(diag_start),
             perm32.data_ptr() if perm32 is not None else None,
-            int(seeded), splits,
+            int(seeded), splits, int(sym),
             part.data_ptr() if part is not None else None,
             out_d[at:].data_ptr(), out_i[at:].data_ptr(),
             device.index or 0, stream)
@@ -298,6 +335,7 @@ def _launch(base: int, n: int, f: int, row_start: int, row_count: int,
         DIAG_START_LAUNCHES += bool(diag_start)
         PERM_LAUNCHES += perm32 is not None
         SPLIT_LAUNCHES += splits > 1
+        SYM_LAUNCHES += sym
 
 
 def visit_plain(buf: torch.Tensor, n_loc: int, row_count: int,

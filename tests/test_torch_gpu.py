@@ -192,8 +192,10 @@ def test_build_and_search_on_card_count_launches(dev):
     items = rng.standard_normal((600, 20)).astype(np.float32) + 0.2
     gp = {"eps": 0.9, "k": 8, "topk": 6, "p": 2.0, "sigma": 0.4}
     k1, k2 = knn.LAUNCHES, scan_topk.LAUNCHES
+    sym = knn.SYM_LAUNCHES
     a, gl = ArrowSpaceBuilder.build(gp, items)
     assert a.device.type == "cuda" and knn.LAUNCHES == k1 + 1
+    assert knn.SYM_LAUNCHES == sym + 1    # the build's self-join: one walk
     hits = a.search(items[4], gl, 0.8)
     idx, vals = a.search_batch(items[:5], gl, 0.8)
     assert scan_topk.LAUNCHES == k2 + 2
