@@ -452,11 +452,46 @@ def _k1_pairs(rows: int, n: int) -> float:
     return rows * n - rows * (rows - 1) / 2
 
 
-def _route(mod, rows: int, n: int, k: int, device) -> str:
-    """K1's or K1t's route for a launch over rows of an [n, F] corpus
-    ("single" for a package whose scans have one route)."""
+def _route(mod, rows: int, n: int, k: int, device, *tensors) -> str:
+    """K1's, K1t's or K2's route for a launch over rows of an [n, F] corpus
+    ("single" for a package whose scans have one route), with the product's
+    loader when ``tensors`` (the launch's operands) are given and the
+    package has two."""
     fn = getattr(mod, "route_name", None)
-    return fn(rows, n, k, device) if fn else "single"
+    route = fn(rows, n, k, device) if fn else "single"
+    loader = _loader(*tensors) if tensors else None
+    return f"{route}/{loader}" if loader else route
+
+
+def _loader(*tensors):
+    """The product's loader for these operands ("tma" or "regs"), or None
+    for a package with one loader (a parent's)."""
+    try:
+        from pyarrowspace_tpu_torch.ops.cuda import ffma_tile
+    except ImportError:
+        return None
+    return ffma_tile.loader_of(*tensors)
+
+
+def _last_route(mod):
+    """The route the wrapper's last launch took, its loader included (None
+    for a package that does not record it)."""
+    return getattr(mod, "LAST_ROUTE", None)
+
+
+def _ring_of(entry: str):
+    """The ring of a K1, K1t or K2 kernel: "tma<S> <type>" or "regs
+    <type>" (None for other entries)."""
+    import re
+    if not re.search(r"knn_kernel|knn_t_kernel|scan_kernel", entry):
+        return None
+    m = re.search(r"(TmaRing|RegRing)I(f|13__nv_bfloat16)(?:Li(\d)E)?",
+                  entry)
+    if not m:
+        return "one loader"
+    kind = "f32" if m.group(2) == "f" else "bf16"
+    return (f"tma{m.group(3)} {kind}" if m.group(1) == "TmaRing"
+            else f"regs {kind}")
 
 
 def _has_sym(knn) -> bool:
@@ -485,6 +520,9 @@ def _reset_launches() -> None:
     knn.SPLIT_LAUNCHES = knn_t.SPLIT_LAUNCHES = 0
     if _has_sym(knn):
         knn.SYM_LAUNCHES = 0
+    for mod in (knn, knn_t, scan_topk):
+        if hasattr(mod, "TMA_LAUNCHES"):
+            mod.TMA_LAUNCHES = 0
 
 
 def _launches() -> dict:
@@ -498,6 +536,9 @@ def _launches() -> dict:
             "knn_reorder": knn.PERM_LAUNCHES,
             "knn_split": getattr(knn, "SPLIT_LAUNCHES", 0),
             "knn_sym": getattr(knn, "SYM_LAUNCHES", 0),
+            "knn_tma": getattr(knn, "TMA_LAUNCHES", 0),
+            "knn_t_tma": getattr(knn_t, "TMA_LAUNCHES", 0),
+            "scan_topk_tma": getattr(scan_topk, "TMA_LAUNCHES", 0),
             "knn_t_split": getattr(knn_t, "SPLIT_LAUNCHES", 0),
             "scan_topk": scan_topk.LAUNCHES,
             "subtile_max": subtile_max.LAUNCHES,
@@ -2253,15 +2294,18 @@ def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
         lambda: scan_topk.lambda_search(xb, lam, qn, lamq, TAU, topk), torch)
     bound = _bound(2.0 * Q_BATCH * N * F, "bf16",
                    N * (2 * F + 4) + Q_BATCH * ((F + 1) * 4 + topk * 8))
+    route = _route(scan_topk, N, Q_BATCH, topk, xb.device, xb,
+                   qn.to(xb.dtype))
     results["scan_topk_bf16"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                     library_ms=None, **bound)
+                                     library_ms=None, kernel_route=route,
+                                     **bound)
     results["bf16_313k"] = dict(qps=qps, overlap=overlap)
     print(f"phase 11: as_serving bf16 exact: {qps:.1f} QPS over {N_BATCHES} "
           f"x {Q_BATCH} queries (float32 exact {results['exact_qps']:.1f}); "
           f"top-{topk} overlap with float32 exact {overlap:.6f}; launches "
           f"{launches} {card}")
-    print(f"phase 11: K2 over bf16 rows vs plain: max_abs_err {err:.3e}, "
-          f"disagreeing queries {len(bad)}; kernel {k_ms:.3f} ms, plain "
+    print(f"phase 11: K2 over bf16 rows ({route}) vs plain: max_abs_err "
+          f"{err:.3e}, disagreeing queries {len(bad)}; kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
           f"({bound['bound_by']}) {card}")
     print(f"phase 11: K2 over bf16 rows == K5 + blend bit for bit on "
@@ -3321,6 +3365,15 @@ def _measures(results: dict) -> dict:
             **results["subtile_ab"], **results["scans_ab"]}
 
 
+def _turn_line(line: str) -> bool:
+    """The lines of a --measure run that --against prints for its turn:
+    ptxas's reports, and the phases' launches with their routes (and the
+    product's loader, where the tree has two)."""
+    return "ptxas" in line or (
+        line.startswith(("phase 1:", "phase 2:", "phase 11:"))
+        and ("route" in line or "(narrow/" in line or "(wide/" in line))
+
+
 def _against(trees: list[str]) -> int:
     """--against: each tree's package through this script's phases 0-3, 6b and
     11, in turns, then every run's k-NN lists, lambdas and exact top-k ids
@@ -3343,7 +3396,7 @@ def _against(trees: list[str]) -> int:
             if turn == 0:
                 print(lines[0])                        # the card
             for line in lines:
-                if "ptxas" in line:
+                if _turn_line(line):
                     print(f"turn {turn}: {line}")
             runs.append(json.loads(lines[-1]))
             print(f"turn {turn} {tree}: {json.dumps(runs[-1])}", flush=True)
@@ -3408,11 +3461,14 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name, secs in _build.load_all(KERNEL_SOURCES).items():
         print(f"phase 0: built csrc/{name}.cu in {secs:.3f} s {card}")
     print(f"phase 0: all kernels built in {time.perf_counter() - t0:.3f} s")
-    for name in ("knn", "scan_topk", "subtile_max", "gather_score",
+    for name in ("knn", "knn_t", "scan_topk", "subtile_max", "gather_score",
                  "scan_int8", "ivf_scan"):
         print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
     print(f"phase 0: ptxas csrc/knn.cu's narrow kernels by walk: "
           f"{_ptxas_routes(_build, 'knn', _k1_route_of)}")
+    for name in ("knn", "knn_t", "scan_topk"):
+        print(f"phase 0: ptxas csrc/{name}.cu's product kernels by ring: "
+              f"{_ptxas_routes(_build, name, _ring_of)}")
     from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
     if hasattr(k6, "blocks_per_sm"):
         occ = {(k, str(dt).split(".")[-1]): k6.blocks_per_sm(k, 16, dt, dev)
@@ -3433,8 +3489,9 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         k, eps = GP["k"], GP["eps"]
         # The whole corpus on its route (symmetric) and on the full walk:
         # the same bits on every row, then both timed in turns.
-        full_route = _route(knn, N, N, k, dev)
+        full_route = _route(knn, N, N, k, dev, xu)
         d, i = knn.knn_scan(xu, k, eps)
+        full_route = _last_route(knn) or full_route
         d_f, i_f = knn.knn_scan(xu, k, eps, **_full_walk(knn))
         walks_same = _bits_equal(torch, d, d_f) and torch.equal(i, i_f)
         del d_f, i_f
@@ -3497,12 +3554,12 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
             **_bound(2.0 * _k1_pairs(K1_TIME_ROWS, N) * F, "fp32",
                      N * F * 4 + K1_TIME_ROWS * k * 8),
-            kernel_route=_route(knn, K1_TIME_ROWS, N, k, dev),
+            kernel_route=_route(knn, K1_TIME_ROWS, N, k, dev, xu),
             product_ms=mm_ms, full_ms=full_ms, full_route=full_route,
             full_walk_ms=full_walk_ms, full_walk_same=walks_same,
             full_bound_ms=full_bound["bound_ms"], k1t_ms=k1t_ms,
             tail_ms=tail_ms, tail_rows=N_EXTEND,
-            tail_route=_route(knn, N_EXTEND, N, k, dev),
+            tail_route=_route(knn, N_EXTEND, N, k, dev, xu),
             tail_bound_ms=_bound(2.0 * _k1_pairs(N_EXTEND, N) * F, "fp32",
                                  N * F * 4 + N_EXTEND * k * 8)["bound_ms"])
         print(f"phase 1: K1 full corpus {N}x{F} k={k}: route {full_route} "
@@ -3510,14 +3567,18 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
               f"turns), bound {full_bound['bound_ms']:.3f} ms "
               f"({full_bound['bound_by']}); the two walks' lists bit for "
               f"bit on all {N} rows: {walks_same} {card}")
-        print(f"phase 1: K1 on {K1_TIME_ROWS} rows: kernel "
+        print(f"phase 1: K1 on {K1_TIME_ROWS} rows "
+              f"({results['knn']['kernel_route']}): kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
               f"{results['knn']['bound_ms']:.3f} ms; yardstick torch.mm "
               f"[{K1_TIME_ROWS},{F}]x[{F},{N}] fp32 (not called by the "
-              f"port) {mm_ms:.3f} ms {card}")
+              f"port) {mm_ms:.3f} ms; K1 / torch.mm "
+              f"{k_ms / mm_ms:.3f}, K1 / bound "
+              f"{k_ms / results['knn']['bound_ms']:.3f}, torch.mm / bound "
+              f"{mm_ms / results['knn']['bound_ms']:.3f} {card}")
         print(f"phase 1: K1 == K1t bit for bit on {K1_TIME_ROWS} rows: "
               f"{witness}; K1 == K5 distance bit for bit: {witness_k5}; K1t "
-              f"{k1t_ms:.3f} ms ({_route(knn_t, K1_TIME_ROWS, N, k, dev)}); K1"
+              f"{k1t_ms:.3f} ms ({_route(knn_t, K1_TIME_ROWS, N, k, dev, xu)}); K1"
               f" on the {N_EXTEND} last rows {tail_ms:.3f} ms "
               f"({results['knn']['tail_route']}), bitwise the whole scan's: "
               f"{tail_same} {card}")
@@ -3568,13 +3629,13 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             "knn": dict(k=K_WIDEST, rows=K1_CHECK_ROWS, ms=wide_ms,
                         plain_ms=wide_plain_ms, narrow_ms=narrow_ms,
                         kernel_route=_route(knn, K1_CHECK_ROWS, N, K_WIDEST,
-                                            dev), **bound_x),
+                                            dev, xu), **bound_x),
             "knn_k100": dict(k=K1_WIDE, rows=K1_TIME_ROWS, ms=k_wide_ms),
             "knn_k200": dict(k=K1_DEVICE_LIST, rows=K1_TIME_ROWS,
                              ms=k_device_ms, plain_ms=k200_plain_ms,
                              k25_ms=k_ms,
                              kernel_route=_route(knn, K1_TIME_ROWS, N,
-                                                 K1_DEVICE_LIST, dev),
+                                                 K1_DEVICE_LIST, dev, xu),
                              **bound_200)}
         print(f"phase 1: K1 at k={K1_DEVICE_LIST} on {K1_TIME_ROWS} rows "
               f"{k_device_ms:.3f} ms ({k_device_ms / k_ms:.3f}x K1 at k={k})"
@@ -3677,6 +3738,10 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             "K1 once a build, on the symmetric route": k1_build == 1 and (
                 sym_build == 1 or not _has_sym(knn)),
             "K2 launched on the main path": launches["scan_topk"] > 0,
+            "K1 and K2 staged by TMA on the main path": not hasattr(
+                knn, "TMA_LAUNCHES") or (
+                launches["knn_tma"] == launches["knn"]
+                and launches["scan_topk_tma"] == launches["scan_topk"]),
             "L exactly symmetric": sym,
             "lambdas finite in [0, 1]": bool(
                 np.all(np.isfinite(lam)) and lam.min() >= 0
@@ -3726,11 +3791,17 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             **_bound(2.0 * Q_BATCH * N * F, "fp32",
                      N * (F + 1) * 4 + Q_BATCH * ((F + 1) * 4 + topk * 8)),
             product_ms=mm_ms)
-        print(f"phase 2: K2 Q={Q_BATCH} N={N} F={F} k={topk}: kernel "
+        results["scan_topk"]["kernel_route"] = _route(
+            scan_topk, N, Q_BATCH, topk, dev, xs, qn)
+        print(f"phase 2: K2 Q={Q_BATCH} N={N} F={F} k={topk} "
+              f"({results['scan_topk']['kernel_route']}): kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
               f"{results['scan_topk']['bound_ms']:.3f} ms; yardstick "
               f"torch.mm [{Q_BATCH},{F}]x[{F},{N}] fp32 (not called by the "
-              f"port) {mm_ms:.3f} ms {card}")
+              f"port) {mm_ms:.3f} ms; K2 / torch.mm {k_ms / mm_ms:.3f}, "
+              f"K2 / bound {k_ms / results['scan_topk']['bound_ms']:.3f}, "
+              f"torch.mm / bound "
+              f"{mm_ms / results['scan_topk']['bound_ms']:.3f} {card}")
         print(f"phase 2: K2 vs plain: max_abs_err {err:.3e}, disagreeing "
               f"queries {len(bad)}")
         qw, lw = qn[:K2_WIDE_QUERIES], lam_q[:K2_WIDE_QUERIES]
@@ -3762,7 +3833,7 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
             wide[key] = dict(
                 k=k_w, queries=q_w, ms=ms_w, plain_ms=plain_w,
                 narrow_ms=narrow_w, library_ms=None, launches=launches_w,
-                lists=_route(scan_topk, N, q_w, k_w, dev),
+                lists=_route(scan_topk, N, q_w, k_w, dev, xs, qv),
                 **_bound(2.0 * q_w * N * F, "fp32",
                          N * (F + 1) * 4 + q_w * ((F + 1) * 4 + k_w * 8)))
             results.setdefault("ab_dump", {}).update(

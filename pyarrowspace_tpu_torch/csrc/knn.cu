@@ -20,9 +20,11 @@
 // The design: one block of 256 threads per 128-row block; the block walks
 // the 128-column tiles (nothing carries between blocks on a GPU, so the
 // TPU's sequential grid axis becomes this loop).  Per tile: the
-// register-tiled fp32 product of ffma_tile.cuh (8 x 8 outputs a thread,
-// a two-stage ring of 32-feature slabs fed by register prefetch), the mask
-// epilogue into a shared 128 x 128 tile, then one warp per row offers the
+// register-tiled fp32 product of ffma_tile.cuh (8 x 8 outputs a thread, a
+// TMA-fed ring of 128-byte slabs on mbarriers, the walk's next tile loading
+// during this one's epilogue where shared memory allows; the
+// register-staged loader where F % 4 != 0 or the rows are unaligned), the
+// mask epilogue into a shared 128 x 128 tile, then one warp per row offers the
 // improving candidates to the row's running list, 64 columns at a time in
 // ascending column order.  The result is exact in fp32, and d(i, j) ==
 // d(j, i) bitwise.  Lists of k <= 128 live in shared memory (2 or 4 words
@@ -63,9 +65,10 @@
 // Own and transposed merges take MinLex, so each list is the lexicographic
 // (distance, id) top-k whatever the order in which blocks reach a tile:
 // every list is the full walk's bit for bit.  Hazards:
-//   - the distances tile Ds lives in the ring, so the transposed merge ends
-//     (a block barrier) before the next tile's product overwrites it: it
-//     lies on the critical path, beside the row-wise merge;
+//   - the distances tile Ds lies in the epilogue region (over the ring when
+//     the lists leave no room beside it), so the transposed merge ends (a
+//     block barrier) before the next tile's epilogue or product overwrites
+//     it: it lies on the critical path, beside the row-wise merge;
 //   - a column of Ds is strided by RES_LD = 136 floats, so a warp reading
 //     32 rows of one column meets 8-way bank conflicts: the filter runs on
 //     the epilogue's registers, and only a flagged column's merge reads a
@@ -98,6 +101,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "ffma_tile.cuh"
 #include "knn_wide.cuh"
@@ -234,12 +238,18 @@ __device__ __forceinline__ int sym_stride(int len) {
   }
 }
 
-// Dynamic shared memory of a block of the symmetric route: the full walk's
-// (the ring and the lists), a warp's copy of a transposed list, each
-// column's filter (8 bytes) and flag, and the block's flag.
-inline size_t sym_smem_bytes(int k) {
-  return regtile::smem_bytes(k) + (size_t)regtile::WARPS * k * 8 +
-         (size_t)regtile::TILE * (8 + 4) + 16;
+// Shared memory of a block beside the product's ring and the distances
+// tile: the lists, and the tile's ids and flagged rows; on the symmetric
+// route also a warp's copy of a transposed list, each column's filter (8
+// bytes) and flag, and the block's flag.
+inline size_t rest_bytes(int k, bool sym) {
+  return (size_t)regtile::TILE * k * 8 + 2 * regtile::TILE * sizeof(int) +
+         (sym ? (size_t)regtile::WARPS * k * 8 + regtile::TILE * (8 + 4) + 16
+              : 0);
+}
+
+inline regtile::Plan block_plan(int k, bool sym, bool tma) {
+  return regtile::plan(regtile::RES_BYTES, rest_bytes(k, sym), tma);
 }
 
 // The symmetric route's transposed lists, empty: (2.0, -1) entries.
@@ -250,20 +260,20 @@ __global__ void empty_lists(knn_wide::Ent* lists, size_t count) {
 }
 
 // SYM: the symmetric route (the top of this file); part then holds the
-// transposed lists [n, k] and locks one int a column tile.
-template <class Order, int W, bool SYM>
+// transposed lists [n, k] and locks one int a column tile.  ops: the rows
+// from row_start and the columns from col_start; Ring: the product's loader
+// over the shared memory laid out by pl.
+template <class Ring, class Order, int W, bool SYM>
 __global__ void __launch_bounds__(regtile::THREADS, 1)
-    knn_kernel(const float* __restrict__ xu, int n, int f, int vec,
-               int row_start, int row_count, float eps, int k, int col_start,
-               int diag_start, const int* __restrict__ perm, int seeded,
-               int tiles_per_split, knn_wide::Ent* part, int* locks,
-               float* out_d, int* out_i) {
+    knn_kernel(const __grid_constant__ regtile::Operands<float> ops,
+               const regtile::Plan pl, int n, int row_start, int row_count,
+               float eps, int k, int col_start, int diag_start,
+               const int* __restrict__ perm, int seeded, int tiles_per_split,
+               knn_wide::Ent* part, int* locks, float* out_d, int* out_i) {
   using namespace regtile;
-  extern __shared__ __align__(16) float ffma_smem[];
-  float* ring = ffma_smem;
-  float* Ds = ffma_smem;   // the tile's distances [128][RES_LD], in the ring
-  __shared__ int col_ids[TILE];          // the ids offered for the tile (perm)
-  __shared__ int row_hit[TILE];          // rows with a candidate to offer
+  extern __shared__ __align__(1024) char ffma_smem[];
+  // The tile's distances [128][RES_LD], in the epilogue region.
+  float* Ds = reinterpret_cast<float*>(ffma_smem + pl.epi);
 
   const int tid = threadIdx.x;
   const int tx = thread_x(), ty = thread_y();
@@ -278,7 +288,7 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   };
 
   // The block's lists [n_rows][k] in shared memory.
-  float* run_d = ffma_smem + RING_FLOATS;
+  float* run_d = reinterpret_cast<float*>(ffma_smem + pl.rest);
   int* run_i = reinterpret_cast<int*>(run_d + TILE * k);
   // SYM: the warp's copy of a transposed list, each column's filter (the
   // 64 bits of an Ent), each column's flag and the block's.
@@ -288,6 +298,9 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
       reinterpret_cast<unsigned long long*>(run_i + TILE * k + 2 * WARPS * k);
   int* col_hit = reinterpret_cast<int*>(col_kth + TILE);
   int* col_any = col_hit + TILE;
+  // The ids offered for the tile (perm) and the rows with a candidate.
+  int* col_ids = SYM ? col_any + 4 : run_i + TILE * k;
+  int* row_hit = col_ids + TILE;
   // A split (part != null) starts from empty lists: the merge of the
   // splits starts from the seed.
   const bool from_out = seeded && !part;
@@ -300,8 +313,8 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   if (tid < TILE) row_hit[tid] = 0;
   if (SYM && tid < TILE) col_hit[tid] = 0;
   if (SYM && tid == 0) *col_any = 0;
-  // The first barrier inside regtile::product orders these writes before any
-  // merge reads them.
+  Ring ring(ffma_smem, pl, ops, r0 - row_start);
+  ring.start();   // its barrier orders these writes before any merge
   auto list_d = [&](int rr) { return run_d + rr * k; };
   auto list_i = [&](int rr) { return run_i + rr * k; };
 
@@ -325,11 +338,17 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   const int sym_g = SYM ? sym_stride(sym_len) : 1;
   const int s_begin = SYM ? 0 : blockIdx.y * tiles_per_split;
   const int s_end = SYM ? sym_len : min(n_tiles, s_begin + tiles_per_split);
+  // SYM: the column tile of step s.
+  auto sym_tile = [&](int s) {
+    return (int)blockIdx.x + (int)((long long)s * sym_g % sym_len);
+  };
   for (int s = s_begin; s < s_end; ++s) {
-    const int t = SYM ? (int)blockIdx.x +
-                            (int)((long long)s * sym_g % sym_len)
-                      : 0;
+    const int t = SYM ? sym_tile(s) : 0;
     const int c0 = SYM ? t * TILE : tile_c0(s);
+    // The walk's next tile, whose slabs the ring may load under this one.
+    const int nb = s + 1 >= s_end ? -1
+                   : SYM          ? sym_tile(s + 1) * TILE
+                                  : tile_c0(s + 1) - col_start;
     // SYM, past the diagonal: the tile is merged into its rows' transposed
     // lists too.  Their filters come into shared memory under the product.
     const bool trans = SYM && s > 0;
@@ -346,7 +365,7 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     if (perm && tid < TILE)
       col_ids[tid] = c0 + tid < n ? perm[c0 + tid] : INT_MAX;
     float acc[MICRO][MICRO];
-    product(xu, r0, r_end, xu, c0, n, f, vec != 0, ring, acc);
+    ring.product(c0 - col_start, nb, acc);
     if (trans) {   // the filters, for every thread of the epilogue
       asm volatile("cp.async.wait_all;\n" ::: "memory");
       __syncthreads();
@@ -414,7 +433,7 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
       merge_columns<W>(Ds, col_hit, r0, n_rows, part + (size_t)c0 * k, k,
                        tr_d, tr_i, warp, lane);
       // Every list written, and Ds read, before the lock goes and the next
-      // product overwrites the ring.
+      // tile overwrites Ds.
       __syncthreads();
       if (tid == 0) {
         *col_any = 0;
@@ -455,12 +474,15 @@ extern "C" {
 // only for all n rows against all n columns, without seed, diag_start or
 // perm, one split, k <= 128; part then holds n k entries of 8 bytes (the
 // transposed lists) and an int a 128-column tile (the locks), and a second
-// launch merges the transposed lists into out.  Returns the CUDA error code
-// of the launch (0 on success).
+// launch merges the transposed lists into out.  With tma != 0 the product's
+// operands reach shared memory by TMA (F % 4 == 0, 16-byte-aligned rows),
+// else by the register-staged loader; a tensor map that fails to encode
+// fails the launch.  Returns the CUDA error code of the launch (0 on
+// success).
 int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
                float eps, int k, int col_start, int diag_start,
                const int* perm, int seeded, int splits, int sym, void* part,
-               float* out_d, int* out_i, int device, void* stream) {
+               float* out_d, int* out_i, int tma, int device, void* stream) {
   const int words = regtile::list_words(k);
   if (n <= 0 || f <= 0 || row_count <= 0 || words < 0 || row_start < 0 ||
       row_start + row_count > n || col_start < 0 || col_start >= n ||
@@ -475,67 +497,89 @@ int knn_launch(const float* xu, int n, int f, int row_start, int row_count,
   if (words == 0)
     return knn_wide::launch(xu, n, f, row_start, row_count, eps, k,
                             col_start, diag_start, perm, splits, part, out_d,
-                            out_i, (size_t)k, 1, device,
+                            out_i, (size_t)k, 1, tma, device,
                             (cudaStream_t)stream);
-  // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
-  // a launch gets without opting in.
-  const size_t smem = sym ? sym_smem_bytes(k) : regtile::smem_bytes(k);
+  // The ring and the lists take more than the 48 KB a launch gets without
+  // opting in.
+  const regtile::Plan pl = block_plan(k, sym != 0, tma != 0);
   int smem_max = 0;
   err = cudaDeviceGetAttribute(&smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  // A rotated or permuted walk, a seed list of any ids, or the transposed
-  // half of the symmetric route offers ids out of order: MinLex.
-  const bool lex = diag_start || perm || seeded;
-  auto kernel = lex ? &knn_kernel<tile::MinLex, 2, false>
-                    : &knn_kernel<tile::Min, 2, false>;
-  if (words == 4)
-    kernel = lex ? &knn_kernel<tile::MinLex, 4, false>
-                 : &knn_kernel<tile::Min, 4, false>;
-  if (sym)
-    kernel = words == 4 ? &knn_kernel<tile::MinLex, 4, true>
-                        : &knn_kernel<tile::MinLex, 2, true>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (pl.stages == 0 || pl.bytes > smem_max) return (int)cudaErrorInvalidValue;
   const int n_tiles = (n - col_start + regtile::TILE - 1) / regtile::TILE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
     return (int)cudaErrorInvalidValue;
-  const int vec = regtile::can_vectorize<float>(xu, f);
+  regtile::Operands<float> ops;
+  int e = regtile::make_operands<float>(
+      &ops, xu + (size_t)row_start * f, row_count, xu + (size_t)col_start * f,
+      n - col_start, f, tma != 0);
+  if (e != 0) return e;
   cudaStream_t st = (cudaStream_t)stream;
+  knn_wide::Ent* lists = static_cast<knn_wide::Ent*>(part);
+  int* locks = nullptr;
   if (sym) {
     // The transposed lists start empty and every lock free; block b (the
     // blocks start in ascending order, the longest walks first) walks
     // n_tiles - b tiles.
-    knn_wide::Ent* lists = static_cast<knn_wide::Ent*>(part);
-    int* locks = reinterpret_cast<int*>(lists + (size_t)n * k);
+    locks = reinterpret_cast<int*>(lists + (size_t)n * k);
     empty_lists<<<1024, 256, 0, st>>>(lists, (size_t)n * k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = cudaMemsetAsync(locks, 0, (size_t)n_tiles * sizeof(int), st);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<n_tiles, regtile::THREADS, smem, st>>>(
-        xu, n, f, vec, 0, n, eps, k, 0, 0, nullptr, 0, n_tiles, lists, locks,
-        out_d, out_i);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  } else if (splits == 1) {
+    lists = nullptr;
+  }
+  // A rotated or permuted walk, a seed list of any ids, or the transposed
+  // half of the symmetric route offers ids out of order: MinLex.
+  const bool lex = diag_start || perm || seeded;
+  const dim3 grid(
+      sym ? n_tiles : (row_count + regtile::TILE - 1) / regtile::TILE,
+      splits);
+  e = regtile::with_ring<float>(pl, tma != 0, [&](auto* ring) {
+    using Ring = std::remove_pointer_t<decltype(ring)>;
+    auto kernel = lex ? &knn_kernel<Ring, tile::MinLex, 2, false>
+                      : &knn_kernel<Ring, tile::Min, 2, false>;
+    if (words == 4)
+      kernel = lex ? &knn_kernel<Ring, tile::MinLex, 4, false>
+                   : &knn_kernel<Ring, tile::Min, 4, false>;
+    if (sym)
+      kernel = words == 4 ? &knn_kernel<Ring, tile::MinLex, 4, true>
+                          : &knn_kernel<Ring, tile::MinLex, 2, true>;
+    cudaError_t r = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+    if (r != cudaSuccess) return (int)r;
+    kernel<<<grid, regtile::THREADS, pl.bytes, st>>>(
+        ops, pl, n, row_start, row_count, eps, k, col_start, diag_start,
+        perm, seeded, sym ? n_tiles : tiles_per_split, lists, locks, out_d,
+        out_i);
+    return (int)cudaGetLastError();
+  });
+  if (e != 0) return e;
+  if (sym)
     return knn_wide::merge<knn_wide::Asc>(lists, 0, n, k, 1, nullptr, out_d,
                                           out_i, (size_t)k, 1, 0, st);
-  }
-  knn_wide::Ent* lists =
-      splits > 1 ? static_cast<knn_wide::Ent*>(part) : nullptr;
-  const dim3 grid((row_count + regtile::TILE - 1) / regtile::TILE, splits);
-  kernel<<<grid, regtile::THREADS, smem, st>>>(
-      xu, n, f, vec, row_start, row_count, eps, k, col_start, diag_start,
-      perm, seeded, tiles_per_split, lists, nullptr, out_d, out_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  if (splits == 1) return 0;
   return knn_wide::merge<knn_wide::Asc>(lists, row_start, row_count, k,
                                         splits, perm, out_d, out_i,
                                         (size_t)k, 1, 0, st);
+}
+
+// The shared memory of a launch of k-lists (sym: the symmetric route; a
+// wide list: the wide route) with the TMA loader (tma) or the register-
+// staged one: out = {stages, carry, bytes}.  Returns 0, or 1 when nothing
+// fits.
+int knn_plan(int k, int sym, int tma, int* out) {
+  const regtile::Plan pl = regtile::list_words(k) == 0
+                               ? knn_wide::scan_plan(tma != 0)
+                               : block_plan(k, sym != 0, tma != 0);
+  out[0] = pl.stages;
+  out[1] = pl.carry;
+  out[2] = pl.bytes;
+  return pl.stages == 0;
 }
 
 const char* knn_error_string(int err) {

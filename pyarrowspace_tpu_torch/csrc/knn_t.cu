@@ -24,14 +24,14 @@
 // What bounds it on the H100: the products, as K1 (2 R N F fp32
 // multiply-adds).  The design is K1's product: one block of 256 threads per
 // 128 rows walks the 128-column tiles with ffma_tile.cuh's register-tiled
-// product (8 x 8 a thread, the two-stage ring), so every distance is
-// bitwise K1's, and writes the masked distances into the ring candidates
-// major, Ds[column][row] (a column stride of 132 floats: the epilogue's
-// stores and the owners' reads are both conflict-free).  Then every thread
-// merges:
+// product (8 x 8 a thread, its ring and loaders), so every distance is
+// bitwise K1's, and writes the masked distances into the epilogue region
+// candidates major, Ds[column][row] (a column stride of 132 floats: the
+// epilogue's stores and the owners' reads are both conflict-free).  Then
+// every thread merges:
 //   - k <= 64: two threads a row, each owning a partial list over one half
 //     of every tile's columns (256 x k x 8 bytes, 128 KB at k 64, beside the
-//     72 KB ring); the two lists of a row are merged once at the end by
+//     ring and Ds); the two lists of a row are merged once at the end by
 //     (distance, id), their ids being distinct;
 //   - k 65 to 128: one thread a row over all 128 columns (the two partial
 //     lists would pass the 227 KB a block may have); the other 128 threads
@@ -40,6 +40,8 @@
 //     slot-major output.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "ffma_tile.cuh"
 #include "knn_wide.cuh"
@@ -50,22 +52,28 @@ namespace {
 constexpr float INF_DIST = 2.0f;
 constexpr int T_LD = regtile::TILE + 4;   // column stride of Ds
 constexpr int HALVES_MAX_K = 64;          // two owners a row up to here
-static_assert(regtile::TILE * T_LD <= regtile::RING_FLOATS,
-              "the transposed tile lives in the ring");
+constexpr int EPI_BYTES = regtile::TILE * T_LD * 4;   // Ds
 
-// OWNERS list owners: 2 TILE (two a row) or TILE (one a row).
-template <int OWNERS>
+// The shared memory of a block with OWNERS owners' lists of k.
+inline regtile::Plan block_plan(int owners, int k, bool tma) {
+  return regtile::plan(EPI_BYTES, (size_t)owners * k * 8, tma);
+}
+
+// OWNERS list owners: 2 TILE (two a row) or TILE (one a row).  ops: the
+// rows from row_start and all n columns; Ring: the product's loader over
+// the shared memory laid out by pl.
+template <class Ring, int OWNERS>
 __global__ void __launch_bounds__(regtile::THREADS, 1)
-    knn_t_kernel(const float* __restrict__ xu, int n, int f, int vec,
-                 int row_start, int row_count, float eps, int k,
-                 float* out_d, int* out_i) {
+    knn_t_kernel(const __grid_constant__ regtile::Operands<float> ops,
+                 const regtile::Plan pl, int n, int row_start, int row_count,
+                 float eps, int k, float* out_d, int* out_i) {
   using namespace regtile;
   constexpr int COLS = TILE * TILE / OWNERS;   // an owner's columns a tile
-  extern __shared__ __align__(16) float ffma_smem[];
-  float* ring = ffma_smem;
-  float* Ds = ffma_smem;   // Ds[column * T_LD + row], in the ring
+  extern __shared__ __align__(1024) char ffma_smem[];
+  // Ds[column * T_LD + row], in the epilogue region.
+  float* Ds = reinterpret_cast<float*>(ffma_smem + pl.epi);
   // Slot s of owner t lives at list[s * OWNERS + t].
-  float* list_d = ffma_smem + RING_FLOATS;
+  float* list_d = reinterpret_cast<float*>(ffma_smem + pl.rest);
   int* list_i = reinterpret_cast<int*>(list_d + (size_t)OWNERS * k);
 
   const int tid = threadIdx.x;
@@ -78,8 +86,8 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     list_d[e] = INF_DIST;
     list_i[e] = -1;
   }
-  // The first barrier inside regtile::product orders these writes before
-  // the merge reads them.
+  Ring ring(ffma_smem, pl, ops, r0 - row_start);
+  ring.start();   // its barrier orders these writes before the merge
 
   const int rr = tid % TILE;              // the owner's row
   const int cb = (tid / TILE) * COLS;     // and its first column of a tile
@@ -87,7 +95,7 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   float kth = INF_DIST;   // the owner's kth distance
   for (int c0 = 0; c0 < n; c0 += TILE) {
     float acc[MICRO][MICRO];
-    product(xu, r0, r_end, xu, c0, n, f, vec != 0, ring, acc);
+    ring.product(c0, c0 + TILE < n ? c0 + TILE : -1, acc);
 #pragma unroll
     for (int i = 0; i < MICRO; ++i) {
       const int row = ty + 16 * i;
@@ -153,23 +161,28 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
 template <int OWNERS>
 int launch_narrow(const float* xu, int n, int f, int row_start,
                   int row_count, float eps, int k, float* out_d, int* out_i,
-                  int device, cudaStream_t st) {
-  const size_t smem = (size_t)regtile::RING_FLOATS * sizeof(float) +
-                      (size_t)OWNERS * k * (sizeof(float) + sizeof(int));
+                  int tma, int device, cudaStream_t st) {
+  const regtile::Plan pl = block_plan(OWNERS, k, tma != 0);
   int smem_max = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(knn_t_kernel<OWNERS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vec = regtile::can_vectorize<float>(xu, f);
+  if (pl.stages == 0 || pl.bytes > smem_max) return (int)cudaErrorInvalidValue;
+  regtile::Operands<float> ops;
+  const int e = regtile::make_operands<float>(
+      &ops, xu + (size_t)row_start * f, row_count, xu, n, f, tma != 0);
+  if (e != 0) return e;
   const int blocks = (row_count + regtile::TILE - 1) / regtile::TILE;
-  knn_t_kernel<OWNERS><<<blocks, regtile::THREADS, smem, st>>>(
-      xu, n, f, vec, row_start, row_count, eps, k, out_d, out_i);
-  return (int)cudaGetLastError();
+  return regtile::with_ring<float>(pl, tma != 0, [&](auto* ring) {
+    using Ring = std::remove_pointer_t<decltype(ring)>;
+    auto kernel = &knn_t_kernel<Ring, OWNERS>;
+    cudaError_t r = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+    if (r != cudaSuccess) return (int)r;
+    kernel<<<blocks, regtile::THREADS, pl.bytes, st>>>(
+        ops, pl, n, row_start, row_count, eps, k, out_d, out_i);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -181,11 +194,12 @@ extern "C" {
 // r at s * out_ld + r, on the given device and stream.  Lists of k > 128
 // (K1's wide route) read out as it is, (2.0, -1) entries, and take `splits`
 // column splits with part as scratch of [splits, row_count, k] entries of 8
-// bytes (k <= 128: splits 1, part unused).  Returns the CUDA error code of
-// the launch (0 on success).
+// bytes (k <= 128: splits 1, part unused).  tma: the product's loader, as
+// K1's (knn.cu).  Returns the CUDA error code of the launch (0 on
+// success).
 int knn_t_launch(const float* xu, int n, int f, int row_start, int row_count,
                  float eps, int k, int splits, void* part, float* out_d,
-                 int* out_i, int out_ld, int device, void* stream) {
+                 int* out_i, int out_ld, int tma, int device, void* stream) {
   if (n <= 0 || f <= 0 || row_count <= 0 || k < 1 || row_start < 0 ||
       row_start + row_count > n || out_ld < row_count ||
       (k <= regtile::MAX_NARROW && splits != 1))
@@ -196,15 +210,30 @@ int knn_t_launch(const float* xu, int n, int f, int row_start, int row_count,
   if (k > regtile::MAX_NARROW)
     return knn_wide::launch(xu, n, f, row_start, row_count, eps, k, 0, 0,
                             nullptr, splits, part, out_d, out_i, 1,
-                            (size_t)out_ld, device, st);
+                            (size_t)out_ld, tma, device, st);
   if (row_count != out_ld) return (int)cudaErrorInvalidValue;
   return k <= HALVES_MAX_K
              ? launch_narrow<2 * regtile::TILE>(xu, n, f, row_start,
                                                 row_count, eps, k, out_d,
-                                                out_i, device, st)
+                                                out_i, tma, device, st)
              : launch_narrow<regtile::TILE>(xu, n, f, row_start, row_count,
-                                            eps, k, out_d, out_i, device,
-                                            st);
+                                            eps, k, out_d, out_i, tma,
+                                            device, st);
+}
+
+// The shared memory of a launch with lists of k with the TMA loader (tma)
+// or the register-staged one: out = {stages, carry, bytes}.  Returns 0, or
+// 1 when nothing fits.
+int knn_t_plan(int k, int tma, int* out) {
+  const regtile::Plan pl =
+      k > regtile::MAX_NARROW
+          ? knn_wide::scan_plan(tma != 0)
+          : block_plan(k <= HALVES_MAX_K ? 2 * regtile::TILE : regtile::TILE,
+                       k, tma != 0);
+  out[0] = pl.stages;
+  out[1] = pl.carry;
+  out[2] = pl.bytes;
+  return pl.stages == 0;
 }
 
 const char* knn_t_error_string(int err) {

@@ -26,8 +26,8 @@
 // 64-bit keys, to the row's buffer of 128 in shared memory.  A buffer that
 // cannot take them spills, unsorted, to the row's staging row in device
 // memory (about k keys, 128 to 896); a staging row that could not take
-// another spill is merged at the end of the tile, when the ring is free:
-// staged and buffered keys sorted there by the row's warp and merged into
+// another spill is merged at the end of the tile, when the epilogue's region
+// is free: staged and buffered keys sorted there by the row's warp and merged into
 // the row's sorted partial list in device memory in one pass (merge_into),
 // which gives the new kth.  What is left is merged at the end of the split.
 //
@@ -75,6 +75,7 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "ffma_tile.cuh"
 #include "select.cuh"
@@ -84,11 +85,14 @@ namespace knn_wide {
 
 constexpr int BUF = 128;      // survivors a row buffers in shared memory
 constexpr int STAGE = 896;    // and then stages in device memory, at most
-constexpr int SCRATCH = 1024; // keys of a warp's merge source in the ring
-static_assert(STAGE + BUF <= SCRATCH &&
-                  regtile::WARPS * SCRATCH * 8 <=
-                      regtile::RING_FLOATS * sizeof(float),
-              "a row's sorted keys fit its warp's part of the ring");
+constexpr int SCRATCH = 1024; // keys of a warp's merge source, sorted
+// The epilogue region of launch 1: the tile's values, then the warps'
+// sorted keys.
+constexpr int EPI_BYTES = regtile::RES_BYTES > regtile::WARPS * SCRATCH * 8
+                              ? regtile::RES_BYTES
+                              : regtile::WARPS * SCRATCH * 8;
+static_assert(STAGE + BUF <= SCRATCH,
+              "a row's sorted keys fit its warp's part of the region");
 constexpr int MERGE_WARPS = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -469,31 +473,33 @@ struct KnnEpi {
 // part: [splits, row_count, k] partial lists; bound (null for one split):
 // row_count keys, each the least kth key any split of the row has reached
 // (all ones at the start); stage: [splits, row_count, STAGE] keys, of which
-// a row fills stage_keys before they are merged.
+// a row fills stage_keys before they are merged.  ops: the row view of a
+// from row_start and the column view of b from col_start; Ring: the
+// product's loader over the shared memory laid out by pl.
 // Any split's kth bounds the row's final kth, and an entry of the final
 // list beats every such kth when it is offered (its key differs from every
 // listed one), so a split may filter against the best: each partial list
 // still holds every final entry of its columns, and the merge gives the
 // same list whatever the order in which the splits ran.
-template <class T, class Epi>
+template <class Ring, class Epi>
 __global__ void __launch_bounds__(regtile::THREADS, 1)
-    scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                const Epi epi, int n, int f, int vec, int row_start,
+    scan_kernel(const __grid_constant__ regtile::Operands<
+                    typename Ring::Elem> ops,
+                const Epi epi, const regtile::Plan pl, int n, int row_start,
                 int row_count, int k, int col_start, int diag_start,
                 const int* __restrict__ perm, int tiles_per_split, Ent* part,
                 unsigned long long* bound, uint64_t* stage, int stage_keys) {
   using namespace regtile;
   using O = typename Epi::Order;
-  extern __shared__ __align__(16) float ffma_smem[];
-  float* ring = ffma_smem;
-  float* Vs = ffma_smem;   // the tile's values [128][RES_LD], in the ring
-  uint64_t* bufs = reinterpret_cast<uint64_t*>(ffma_smem + RING_FLOATS);
-  // A warp's sorted keys, in the ring between a tile's merge and the next
-  // tile's product.
-  uint64_t* scratch = reinterpret_cast<uint64_t*>(ring) +
+  extern __shared__ __align__(1024) char ffma_smem[];
+  // The tile's values [128][RES_LD] in the epilogue region; a warp's sorted
+  // keys there too, between a tile's merge and the next tile's epilogue.
+  float* Vs = reinterpret_cast<float*>(ffma_smem + pl.epi);
+  uint64_t* scratch = reinterpret_cast<uint64_t*>(ffma_smem + pl.epi) +
                       (threadIdx.x >> 5) * SCRATCH;
-  __shared__ int col_ids[TILE];    // the ids offered for the tile (perm)
-  __shared__ Rows rows;
+  uint64_t* bufs = reinterpret_cast<uint64_t*>(ffma_smem + pl.rest);
+  Rows& rows = *reinterpret_cast<Rows*>(bufs + TILE * BUF);
+  int* col_ids = reinterpret_cast<int*>(&rows + 1);   // the ids offered (perm)
 
   const int tid = threadIdx.x;
   const int tx = thread_x(), ty = thread_y();
@@ -513,8 +519,8 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     rows.thr_i[tid] = -1;
   }
   if (tid == 0) rows.any_due = 0;
-  // The first barrier inside regtile::product orders these writes before
-  // any merge reads them.
+  Ring ring(ffma_smem, pl, ops, r0 - row_start);
+  ring.start();   // its barrier orders these writes before any merge
   // Lanes 0..15 of warp w refresh the filters of its rows w + 8 lane.
   const int own = warp + WARPS * lane;
   const bool refresh = bound && lane < TILE / WARPS && own < n_rows;
@@ -522,17 +528,22 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   const int n_tiles = (n - col_start + TILE - 1) / TILE;
   int t0 = 0;
   if (diag_start && r0 >= col_start) t0 = ((r0 - col_start) / TILE) % n_tiles;
+  // The first column of the s-th tile of the walk.
+  auto tile_c0 = [&](int s) {
+    const int t = t0 + s < n_tiles ? t0 + s : t0 + s - n_tiles;
+    return col_start + t * TILE;
+  };
   const int s_begin = blockIdx.y * tiles_per_split;
   const int s_end = min(n_tiles, s_begin + tiles_per_split);
   for (int s = s_begin; s < s_end; ++s) {
-    const int t = t0 + s < n_tiles ? t0 + s : t0 + s - n_tiles;
-    const int c0 = col_start + t * TILE;
+    const int c0 = tile_c0(s);
+    const int nb = s + 1 < s_end ? tile_c0(s + 1) - col_start : -1;
     if (perm && tid < TILE)
       col_ids[tid] = c0 + tid < n ? perm[c0 + tid] : INT_MAX;
     // The other splits' bounds, read under the product (from L2).
     const unsigned long long shared_kth = refresh ? __ldcg(bound + own) : 0;
     float acc[MICRO][MICRO];
-    product(a, r0, r_end, b, c0, n, f, vec != 0, ring, acc);
+    ring.product(c0 - col_start, nb, acc);
     // The values into Vs; a row whose thread holds a candidate that beats
     // the row's filter is flagged (the filters do not change before the
     // merge).  Rows past the end are flagged at most, never merged.
@@ -603,7 +614,7 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
       if (lane == 0) rows.fill[rr] = cnt + m;
     }
     __syncthreads();
-    if (rows.any_due) {   // the ring is free until the next product
+    if (rows.any_due) {   // the region is free until the next epilogue
       for (int rr = warp; rr < n_rows; rr += WARPS)
         if (rows.due[rr])
           flush<O>(stage + (size_t)rr * STAGE, bufs + rr * BUF, scratch,
@@ -677,14 +688,20 @@ inline int stage_cap(int k) {
   return k < BUF ? BUF : k / BUF * BUF < STAGE ? k / BUF * BUF : STAGE;
 }
 
-// Dynamic shared memory of launch 1: the ring and the row buffers.
-inline size_t smem_bytes() {
-  return (size_t)regtile::RING_FLOATS * sizeof(float) +
-         (size_t)regtile::TILE * BUF * sizeof(uint64_t);
+// Launch 1's other shared memory: the row buffers, the rows' state and
+// the tile's ids.
+constexpr size_t REST_BYTES = (size_t)regtile::TILE * BUF * sizeof(uint64_t) +
+                              sizeof(Rows) + regtile::TILE * sizeof(int);
+
+// Launch 1's shared memory with the TMA loader (tma) or the register-staged
+// one.
+inline regtile::Plan scan_plan(bool tma) {
+  return regtile::plan(EPI_BYTES, REST_BYTES, tma);
 }
 
 // Both launches for rows [row_start, row_start + row_count) of a against
-// the columns [col_start, n) of b, split into `splits` ranges of the walk.
+// the columns [col_start, n) of b, split into `splits` ranges of the walk,
+// the product's operands staged by TMA (tma) or the register-staged loader.
 // part holds, in 8-byte words, the partial lists [splits, row_count, k],
 // row_count bounds and [splits, row_count, STAGE] staging rows.  out holds
 // each row's seed list or empty entries, or (fill) is filled with empty
@@ -694,22 +711,24 @@ inline int launch(const T* a, const T* b, const Epi& epi, int n, int f,
                   int row_start, int row_count, int k, int col_start,
                   int diag_start, const int* perm, int splits, void* part,
                   float* out_v, int* out_i, size_t row_stride,
-                  size_t slot_stride, int fill, int device, cudaStream_t st) {
+                  size_t slot_stride, int fill, int tma, int device,
+                  cudaStream_t st) {
   const int n_tiles = (n - col_start + regtile::TILE - 1) / regtile::TILE;
   if (splits < 1 || part == nullptr) return (int)cudaErrorInvalidValue;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes();
+  const regtile::Plan pl = scan_plan(tma != 0);
   int smem_max = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  auto scan = &scan_kernel<T, Epi>;
-  err = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (pl.stages == 0 || pl.bytes > smem_max) return (int)cudaErrorInvalidValue;
+  regtile::Operands<T> ops;
+  int e = regtile::make_operands(&ops, a + (size_t)row_start * f, row_count,
+                                 b + (size_t)col_start * f, n - col_start, f,
+                                 tma != 0);
+  if (e != 0) return e;
   // part: the lists, then (several splits) the rows' shared bounds, then
   // the staging rows.
   Ent* lists = static_cast<Ent*>(part);
@@ -723,14 +742,18 @@ inline int launch(const T* a, const T* b, const Epi& epi, int n, int f,
   } else {
     bound = nullptr;   // one split needs none
   }
-  const int vec = regtile::can_vectorize<T>(a, f) &&
-                  regtile::can_vectorize<T>(b, f);
   const dim3 grid((row_count + regtile::TILE - 1) / regtile::TILE, splits);
-  scan<<<grid, regtile::THREADS, smem, st>>>(
-      a, b, epi, n, f, vec, row_start, row_count, k, col_start, diag_start,
-      perm, tiles_per_split, lists, bound, stage, stage_cap(k));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  e = regtile::with_ring<T>(pl, tma != 0, [&](auto* ring) {
+    auto scan = &scan_kernel<std::remove_pointer_t<decltype(ring)>, Epi>;
+    cudaError_t r = cudaFuncSetAttribute(
+        scan, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+    if (r != cudaSuccess) return (int)r;
+    scan<<<grid, regtile::THREADS, pl.bytes, st>>>(
+        ops, epi, pl, n, row_start, row_count, k, col_start, diag_start,
+        perm, tiles_per_split, lists, bound, stage, stage_cap(k));
+    return (int)cudaGetLastError();
+  });
+  if (e != 0) return e;
   return merge<typename Epi::Order>(lists, row_start, row_count, k, splits,
                                     perm, out_v, out_i, row_stride,
                                     slot_stride, fill, st);
@@ -746,10 +769,10 @@ inline int launch(const float* xu, int n, int f, int row_start,
                   int row_count, float eps, int k, int col_start,
                   int diag_start, const int* perm, int splits, void* part,
                   float* out_d, int* out_i, size_t row_stride,
-                  size_t slot_stride, int device, cudaStream_t st) {
+                  size_t slot_stride, int tma, int device, cudaStream_t st) {
   return launch<float>(xu, xu, Epi{eps}, n, f, row_start, row_count, k,
                        col_start, diag_start, perm, splits, part, out_d,
-                       out_i, row_stride, slot_stride, 0, device, st);
+                       out_i, row_stride, slot_stride, 0, tma, device, st);
 }
 
 }  // namespace knn_wide

@@ -24,8 +24,11 @@
 // block an SM runs at a time; at Q 4,096 on 132 SMs, 4 splits: one wave of
 // 128 blocks, where two blocks an SM would take three waves).  A block runs
 // the register-tiled fp32 product of ffma_tile.cuh over its split's tiles
-// in ascending order and blends (tile::blend), masking ids >= n.  Then, by
-// the length of the lists:
+// in ascending order (a TMA-fed ring, the next tile loading during this
+// one's epilogue at k 15; bf16 rows staged as bf16 and converted when
+// read; the register-staged loader where F or alignment rules TMA out) and
+// blends (tile::blend), masking ids >= n.  Then, by the length of the
+// lists:
 //   - k <= 128 (narrow): running lists in shared memory (2 or 4 words a
 //     lane; 200 KB a block with the ring at k 128), merged 64 columns at a
 //     time, written to the partial lists [S, Q, k]; launch 2
@@ -48,23 +51,27 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "ffma_tile.cuh"
 #include "knn_wide.cuh"
 #include "tile_common.cuh"
 
 namespace {
 
-template <class T, int W>
+// ops: the queries (A) and the corpus (B); Ring: the product's loader over
+// the shared memory laid out by pl.
+template <class Ring, int W>
 __global__ void __launch_bounds__(regtile::THREADS, 1)
-    scan_kernel(const T* __restrict__ xu, const float* __restrict__ lam,
-                int n, int f, const T* __restrict__ qn,
-                const float* __restrict__ lamq, int q, int vec, float tau,
-                int k, int tiles_per_split, float* part_s, int* part_i) {
+    scan_kernel(const __grid_constant__ regtile::Operands<
+                    typename Ring::Elem> ops,
+                const regtile::Plan pl, const float* __restrict__ lam, int n,
+                const float* __restrict__ lamq, int q, float tau, int k,
+                int tiles_per_split, float* part_s, int* part_i) {
   using namespace regtile;
-  extern __shared__ __align__(16) float ffma_smem[];
-  float* ring = ffma_smem;
-  float* Ss = ffma_smem;   // the tile's scores [128][RES_LD], in the ring
-  __shared__ int row_hit[TILE];          // rows with a candidate to offer
+  extern __shared__ __align__(1024) char ffma_smem[];
+  // The tile's scores [128][RES_LD], in the epilogue region.
+  float* Ss = reinterpret_cast<float*>(ffma_smem + pl.epi);
 
   const int tid = threadIdx.x;
   const int tx = thread_x(), ty = thread_y();
@@ -75,9 +82,11 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
   const int c_stop = min(n, c_begin + tiles_per_split * TILE);
   const int n_rows = min(TILE, q - q0);
 
-  // The block's lists [n_rows][k] in shared memory.
-  float* run_s = ffma_smem + RING_FLOATS;
+  // The block's lists [n_rows][k] in shared memory, and the rows with a
+  // candidate to offer.
+  float* run_s = reinterpret_cast<float*>(ffma_smem + pl.rest);
   int* run_i = reinterpret_cast<int*>(run_s + TILE * k);
+  int* row_hit = run_i + TILE * k;
   for (int e = tid; e < n_rows * k; e += THREADS) {
     run_s[e] = tile::NEG_SCORE;
     run_i[e] = -1;
@@ -90,12 +99,12 @@ __global__ void __launch_bounds__(regtile::THREADS, 1)
     lq[i] = qi < q ? lamq[qi] : 0.0f;
   }
   const float one_minus_tau = 1.0f - tau;
-  // The first barrier inside regtile::product orders the list writes before
-  // any merge reads them.
+  Ring ring(ffma_smem, pl, ops, q0);
+  ring.start();   // its barrier orders the list writes before any merge
 
   for (int c0 = c_begin; c0 < c_stop; c0 += TILE) {
     float acc[MICRO][MICRO];
-    product(qn, q0, q, xu, c0, n, f, vec != 0, ring, acc);
+    ring.product(c0, c0 + TILE < c_stop ? c0 + TILE : -1, acc);
     // The blended scores into Ss; a row whose thread holds a score above
     // the row's kth is flagged for the merge (the lists do not change
     // before it).
@@ -171,45 +180,58 @@ struct BlendEpi {
   }
 };
 
+// The narrow kernel's shared memory: its lists and flags beside the ring
+// and the scores tile.
+inline regtile::Plan narrow_plan(int k, bool tma) {
+  return regtile::plan(regtile::RES_BYTES,
+                       (size_t)regtile::TILE * k * 8 +
+                           regtile::TILE * sizeof(int),
+                       tma);
+}
+
 template <class T>
 int launch(const void* xu, const float* lam, int n, int f, const void* qn,
            const float* lamq, int q, float tau, int k, int splits,
-           void* part, float* out_s, int* out_i, int device,
+           void* part, float* out_s, int* out_i, int tma, int device,
            cudaStream_t st) {
   const T* x = static_cast<const T*>(xu);
   const T* qs = static_cast<const T*>(qn);
   if (regtile::list_words(k) == 0)
     return knn_wide::launch<T>(qs, x, BlendEpi{lam, lamq, tau, 1.0f - tau},
                                n, f, 0, q, k, 0, 0, nullptr, splits, part,
-                               out_s, out_i, (size_t)k, 1, 1, device, st);
+                               out_s, out_i, (size_t)k, 1, 1, tma, device,
+                               st);
   const int n_tiles = (n + regtile::TILE - 1) / regtile::TILE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
     return (int)cudaErrorInvalidValue;
-  // The ring takes 72 KB and the lists up to 128 KB more: above the 48 KB
-  // a launch gets without opting in.
-  const size_t smem = regtile::smem_bytes(k);
+  // The ring and the lists take more than the 48 KB a launch gets without
+  // opting in.
+  const regtile::Plan pl = narrow_plan(k, tma != 0);
   int smem_max = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  auto scan = regtile::list_words(k) == 2 ? &scan_kernel<T, 2>
-                                          : &scan_kernel<T, 4>;
-  err = cudaFuncSetAttribute(
-      scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vec =
-      regtile::can_vectorize<T>(xu, f) && regtile::can_vectorize<T>(qn, f);
+  if (pl.stages == 0 || pl.bytes > smem_max) return (int)cudaErrorInvalidValue;
+  regtile::Operands<T> ops;
+  int e = regtile::make_operands<T>(&ops, qs, q, x, n, f, tma != 0);
+  if (e != 0) return e;
   // The partial lists: [splits, q, k] scores, then as many ids.
   float* part_s = static_cast<float*>(part);
   int* part_i = reinterpret_cast<int*>(part_s + (size_t)splits * q * k);
   const dim3 grid((q + regtile::TILE - 1) / regtile::TILE, splits);
-  scan<<<grid, regtile::THREADS, smem, st>>>(x, lam, n, f, qs, lamq, q, vec,
-                                             tau, k, tiles_per_split, part_s,
-                                             part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  e = regtile::with_ring<T>(pl, tma != 0, [&](auto* ring) {
+    using Ring = std::remove_pointer_t<decltype(ring)>;
+    auto scan = regtile::list_words(k) == 2 ? &scan_kernel<Ring, 2>
+                                            : &scan_kernel<Ring, 4>;
+    cudaError_t r = cudaFuncSetAttribute(
+        scan, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+    if (r != cudaSuccess) return (int)r;
+    scan<<<grid, regtile::THREADS, pl.bytes, st>>>(
+        ops, pl, lam, n, lamq, q, tau, k, tiles_per_split, part_s, part_i);
+    return (int)cudaGetLastError();
+  });
+  if (e != 0) return e;
   // The merge keeps tile_common.cuh's narrow list layouts.
   const int words = tile::list_words(k);
   auto merge = words == 2 ? &tile::merge_splits<2> : &tile::merge_splits<4>;
@@ -227,12 +249,15 @@ extern "C" {
 // xu [n, f] with lambdas lam [n] -> out_s / out_i [q, k].  xu and qn are
 // both float (dtype 0) or both bf16 (dtype 1).  part is scratch of 8-byte
 // words: [splits, q, k] for a narrow list (k <= 128); for a wide one
-// [splits, q, k + knn_wide::STAGE] and q more.  Runs on the given device
-// and stream.  Returns the CUDA error code (0 on success).
+// [splits, q, k + knn_wide::STAGE] and q more.  With tma != 0 the
+// product's operands reach shared memory by TMA (rows of a multiple of 16
+// bytes, 16-byte-aligned bases), else by the register-staged loader.  Runs
+// on the given device and stream.  Returns the CUDA error code (0 on
+// success).
 int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
                      int f, const void* qn, const float* lamq, int q,
                      float tau, int k, int splits, void* part, float* out_s,
-                     int* out_i, int device, void* stream) {
+                     int* out_i, int tma, int device, void* stream) {
   if (n <= 0 || f <= 0 || q <= 0 || regtile::list_words(k) < 0 || k > n ||
       splits <= 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
@@ -241,7 +266,20 @@ int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
   cudaStream_t st = (cudaStream_t)stream;
   auto fn = dtype == 1 ? &launch<__nv_bfloat16> : &launch<float>;
   return fn(xu, lam, n, f, qn, lamq, q, tau, k, splits, part, out_s, out_i,
-            device, st);
+            tma, device, st);
+}
+
+// The shared memory of a launch with lists of k (narrow, or the wide
+// route) with the TMA loader (tma) or the register-staged one: out =
+// {stages, carry, bytes}.  Returns 0, or 1 when nothing fits.
+int scan_topk_plan(int k, int tma, int* out) {
+  const regtile::Plan pl = regtile::list_words(k) == 0
+                               ? knn_wide::scan_plan(tma != 0)
+                               : narrow_plan(k, tma != 0);
+  out[0] = pl.stages;
+  out[1] = pl.carry;
+  out[2] = pl.bytes;
+  return pl.stages == 0;
 }
 
 const char* scan_topk_error_string(int err) {

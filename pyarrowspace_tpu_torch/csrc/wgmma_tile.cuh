@@ -300,24 +300,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of the matrix [rows, f] of E (row-major, f * sizeof(E) a
-// multiple of 16, base 16-byte aligned) read in boxes of box_rows rows x
-// one 128-byte stage, 128-byte swizzled, zeros past the ends.  Returns
-// false on failure.
-template <class E>
-inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows,
-                     uint64_t f, uint32_t box_rows) {
+// A tensor map of the matrix [rows, f] of elements of `type` (elem bytes
+// each; row-major, f * elem a multiple of 16, base 16-byte aligned) read in
+// boxes of box_rows rows x box_cols elements (128 bytes: one stage),
+// 128-byte swizzled, zeros past the ends.  Returns false on failure.
+inline bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                        size_t elem, const void* base, uint64_t rows,
+                        uint64_t f, uint32_t box_cols, uint32_t box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {f, rows};
-  const cuuint64_t strides[1] = {f * sizeof(E)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(Mma<E>::KSTAGE),
-                             box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, Mma<E>::MAP_TYPE, 2, const_cast<void*>(base), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint64_t strides[1] = {f * elem};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t el[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, el,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// make_map_2d for the operands of Mma<E>: boxes of one stage.
+template <class E>
+inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows,
+                     uint64_t f, uint32_t box_rows) {
+  return make_map_2d(map, Mma<E>::MAP_TYPE, sizeof(E), base, rows, f,
+                     static_cast<uint32_t>(Mma<E>::KSTAGE), box_rows);
 }
 
 // The route's conditions on the host: rows of f values of E a multiple of

@@ -13,18 +13,25 @@ scan's result bit for bit.  Lists past ``WIDE_K`` entries take the
 kernel's wide route (csrc/knn_wide.cuh); ``plan_splits`` splits the column
 walk across blocks when the row blocks leave SMs idle.  The self-join of a
 whole corpus takes the symmetric route, which computes each d(i, j) once
-(``route_name`` decides, the one place that does).
+(``route_name`` decides, the one place that does).  The kernel's product
+(csrc/ffma_tile.cuh) stages its operands by TMA or by its register-staged
+loader, as ``ffma_tile.loader_name`` picks from F and alignment; the route
+names it ("sym/tma", "narrow/S1/regs").
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 
 from ... import _build
+from .ffma_tile import loader_name
 from .scan_topk import (SCRATCH_BYTES, fit_scratch, scratch_words, sm_count,
                         wave_splits)
+
+_log = logging.getLogger(__name__)
 
 INF_DIST = 2.0
 # The kernel's running lists: up to WIDE_K entries in shared memory; longer
@@ -40,13 +47,21 @@ _STAGE = 896
 
 # Kernel launches since import (or since the caller last reset it), the
 # launches among them that used each option, the launches whose column
-# walk was split, and those on the symmetric route.
+# walk was split, those on the symmetric route, and those whose product
+# staged its operands by TMA.  SYM_FALLBACKS: self-joins of a whole corpus
+# that took the full walk because the symmetric route's scratch
+# (``sym_words``) passed SCRATCH_BYTES (logged the first time).
 LAUNCHES = 0
 SEEDED_LAUNCHES = 0
 DIAG_START_LAUNCHES = 0
 PERM_LAUNCHES = 0
 SPLIT_LAUNCHES = 0
 SYM_LAUNCHES = 0
+TMA_LAUNCHES = 0
+SYM_FALLBACKS = 0
+_SYM_FALLBACK_LOGGED = False
+# The route of the last launch, its loader included ("sym/tma").
+LAST_ROUTE = None
 
 # The plain version's products: every distance comes from a product
 # [_ROW_BLOCK, F] x [F, W], zero padded, with W = N rounded up to a multiple
@@ -174,24 +189,60 @@ def sym_words(n: int, k: int) -> int:
     return n * k + -(-tiles // 2)
 
 
+def _self_join(row_count: int, n_cols: int, k: int, narrow: bool,
+               row_start: int, col_start: int, seeded: bool,
+               diag_start: bool, perm: bool, symmetric: bool) -> bool:
+    """The launch is K1's (``narrow``) self-join of a whole corpus (every
+    row against every column) at k <= WIDE_K without a seed, diag_start or
+    perm, and ``symmetric`` does not ask for the full walk."""
+    return (narrow and symmetric and k <= WIDE_K and row_start == 0
+            and col_start == 0 and row_count == n_cols
+            and not (seeded or diag_start or perm))
+
+
 def route_name(row_count: int, n_cols: int, k: int, device,
                narrow: bool = True, *, row_start: int = 0,
                col_start: int = 0, seeded: bool = False,
                diag_start: bool = False, perm: bool = False,
-               symmetric: bool = True) -> str:
+               symmetric: bool = True, loader: str | None = None) -> str:
     """The route of a launch over row_count rows from row_start against the
-    n_cols columns from col_start: "sym", the symmetric route, for K1's
-    (``narrow``) self-join of a whole corpus (every row against every
-    column) at k <= WIDE_K without a seed, diag_start or perm, when its
-    scratch (``sym_words``) fits SCRATCH_BYTES and ``symmetric`` does not
-    ask for the full walk; else "narrow" or "wide", and "/S<splits>"."""
-    if (narrow and symmetric and k <= WIDE_K and row_start == 0
-            and col_start == 0 and row_count == n_cols
-            and not (seeded or diag_start or perm)
+    n_cols columns from col_start: "sym", the symmetric route, for a
+    self-join of a whole corpus (``_self_join``) whose scratch
+    (``sym_words``) fits SCRATCH_BYTES; else "narrow" or "wide", and
+    "/S<splits>"; then "/<loader>" when ``loader`` is given."""
+    if (_self_join(row_count, n_cols, k, narrow, row_start, col_start,
+                   seeded, diag_start, perm, symmetric)
             and 8 * sym_words(n_cols, k) <= SCRATCH_BYTES):
-        return "sym"
-    splits = plan_splits(row_count, n_cols, k, device, narrow)[0]
-    return f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
+        route = "sym"
+    else:
+        splits = plan_splits(row_count, n_cols, k, device, narrow)[0]
+        route = f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
+    return route if loader is None else f"{route}/{loader}"
+
+
+def walk_route(row_count: int, n_cols: int, k: int, device, *,
+               row_start: int = 0, col_start: int = 0, seeded: bool = False,
+               diag_start: bool = False, perm: bool = False,
+               symmetric: bool = True) -> str:
+    """``route_name`` of a K1 launch, counting in SYM_FALLBACKS (and
+    logging the first time) a self-join that the scratch cap sends to the
+    full walk."""
+    global SYM_FALLBACKS, _SYM_FALLBACK_LOGGED
+    route = route_name(row_count, n_cols, k, device, row_start=row_start,
+                       col_start=col_start, seeded=seeded,
+                       diag_start=diag_start, perm=perm, symmetric=symmetric)
+    if route != "sym" and _self_join(row_count, n_cols, k, True, row_start,
+                                     col_start, seeded, diag_start, perm,
+                                     symmetric):
+        SYM_FALLBACKS += 1
+        if not _SYM_FALLBACK_LOGGED:
+            _SYM_FALLBACK_LOGGED = True
+            _log.warning(
+                "K1: the symmetric route's scratch for %d rows at k %d "
+                "(%d bytes) passes SCRATCH_BYTES (%d): the full walk "
+                "computes every d(i, j) twice", n_cols, k,
+                8 * sym_words(n_cols, k), SCRATCH_BYTES)
+    return route
 
 
 def scratch(row_count: int, n_cols: int, k: int, device,
@@ -217,8 +268,19 @@ def _lib():
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.knn_plan.restype = ctypes.c_int
+    lib.knn_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def kernel_plan(k: int, sym: bool, tma: bool) -> dict:
+    """The C launcher's shared-memory plan for lists of k (card only):
+    {"stages", "carry", "bytes"}, as ``ffma_tile.route_plan`` mirrors it."""
+    out = (ctypes.c_int * 3)()
+    _lib().knn_plan(k, int(sym), int(tma), out)
+    return {"stages": out[0], "carry": out[1], "bytes": out[2]}
 
 
 def check_corpus(xu: torch.Tensor, k: int, row_start: int,
@@ -302,14 +364,16 @@ def _launch(base: int, n: int, f: int, row_start: int, row_count: int,
             device: torch.device, symmetric: bool = True) -> None:
     """K1's launches for rows [row_start, row_start + row_count) of the
     float32 rows at address ``base`` ([n, f]) against the columns
-    [col_start, n), on ``route_name``'s route, in row chunks when the
-    scratch asks for them."""
+    [col_start, n), on ``walk_route``'s route, in row chunks when the
+    scratch asks for them, with ``loader_name``'s loader."""
     global LAUNCHES, SEEDED_LAUNCHES, DIAG_START_LAUNCHES, PERM_LAUNCHES
-    global SPLIT_LAUNCHES, SYM_LAUNCHES
-    sym = route_name(row_count, n - col_start, k, device,
-                     row_start=row_start, col_start=col_start,
-                     seeded=seeded, diag_start=diag_start,
-                     perm=perm32 is not None, symmetric=symmetric) == "sym"
+    global SPLIT_LAUNCHES, SYM_LAUNCHES, TMA_LAUNCHES, LAST_ROUTE
+    route = walk_route(row_count, n - col_start, k, device,
+                       row_start=row_start, col_start=col_start,
+                       seeded=seeded, diag_start=diag_start,
+                       perm=perm32 is not None, symmetric=symmetric)
+    sym = route == "sym"
+    loader = loader_name(f, 4, base)
     if sym:
         splits, chunk = 1, row_count
         part = torch.empty((sym_words(n, k), 2), dtype=torch.int32,
@@ -328,8 +392,10 @@ def _launch(base: int, n: int, f: int, row_start: int, row_count: int,
             int(seeded), splits, int(sym),
             part.data_ptr() if part is not None else None,
             out_d[at:].data_ptr(), out_i[at:].data_ptr(),
-            device.index or 0, stream)
+            int(loader == "tma"), device.index or 0, stream)
         _build.check(lib, "knn", err)
+        LAST_ROUTE = f"{route}/{loader}"
+        TMA_LAUNCHES += loader == "tma"
         LAUNCHES += 1
         SEEDED_LAUNCHES += seeded
         DIAG_START_LAUNCHES += bool(diag_start)

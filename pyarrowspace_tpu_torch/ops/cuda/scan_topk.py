@@ -9,7 +9,8 @@ Both return, per query, the k largest
 ties to the smallest id.  Lists past ``WIDE_K`` entries take the kernel's
 wide route (``csrc/knn_wide.cuh``, K1's: survivors staged, sorted and
 merged into partial lists in device memory); ``route_name`` names the
-route and its corpus splits.
+route and its corpus splits, and the product's loader
+(``ffma_tile.loader_name``: "narrow/S4/tma").
 
 A bfloat16 corpus (the ``as_serving`` view) is scanned with the queries
 rounded to bfloat16 first and the products summed in float32, as the JAX
@@ -25,6 +26,7 @@ import functools
 import torch
 
 from ... import _build
+from .ffma_tile import loader_name
 
 # Queries per block and corpus items per tile of the kernel.
 _TILE = 128
@@ -39,10 +41,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # there.
 SCRATCH_BYTES = 1 << 30
 
-# Kernel launches since import (or since the caller last reset it), and
-# those among them on the wide route.
+# Kernel launches since import (or since the caller last reset it), those
+# among them on the wide route, and those whose product staged its operands
+# by TMA; the route of the last launch, its loader included.
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
+TMA_LAUNCHES = 0
+LAST_ROUTE = None
 # The kernel's unfilled slot (tile::NEG_SCORE), rounded to float32.
 NEG_SCORE = -3.0e38
 
@@ -131,11 +136,14 @@ def plan_splits(n: int, q: int, k: int, device) -> tuple[int, int]:
     return fit_scratch(n_tiles, want, q, k + (_STAGE if k > WIDE_K else 0))
 
 
-def route_name(n: int, q: int, k: int, device) -> str:
+def route_name(n: int, q: int, k: int, device,
+               loader: str | None = None) -> str:
     """The route of a launch over n items for q queries with lists of k:
-    "narrow" or "wide", and "/S<splits>"."""
+    "narrow" or "wide", and "/S<splits>"; then "/<loader>" when ``loader``
+    is given."""
     splits = plan_splits(n, q, k, device)[0]
-    return f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
+    route = f"{'narrow' if k <= WIDE_K else 'wide'}/S{splits}"
+    return route if loader is None else f"{route}/{loader}"
 
 
 def scratch_words(splits: int, rows: int, k: int, wide: int) -> int:
@@ -154,8 +162,19 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.scan_topk_plan.restype = ctypes.c_int
+    lib.scan_topk_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def kernel_plan(k: int, tma: bool) -> dict:
+    """The C launcher's shared-memory plan for lists of k (card only)."""
+    out = (ctypes.c_int * 3)()
+    _lib().scan_topk_plan(k, int(tma), out)
+    return {"stages": out[0], "carry": out[1], "bytes": out[2]}
 
 
 def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
@@ -163,7 +182,7 @@ def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     """Batched lambda-aware top-k: xu [N, F] unit rows (float32 or
     bfloat16), lam [N], qn [Q, F] unit queries, lam_q [Q] -> (idx [Q, k]
     int32, scores [Q, k]) with k = min(topk, N)."""
-    global LAUNCHES, WIDE_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, TMA_LAUNCHES, LAST_ROUTE
     if xu.dim() != 2 or qn.dim() != 2 or qn.shape[1] != xu.shape[1]:
         raise ValueError(f"shapes xu {tuple(xu.shape)} / qn "
                          f"{tuple(qn.shape)} do not match")
@@ -204,6 +223,8 @@ def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
                                       _STAGE if wide else 0), 2),
                        dtype=torch.int32, device=device)
     lib = _lib()
+    loader = loader_name(f, xu.element_size(), xu.data_ptr(), qs.data_ptr())
+    route = f"{'wide' if wide else 'narrow'}/S{splits}/{loader}"
     stream = torch.cuda.current_stream(device).cuda_stream
     for s in range(0, q, q_chunk):
         qc = min(q_chunk, q - s)
@@ -211,8 +232,11 @@ def lambda_search(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
             xu.data_ptr(), _DTYPE_CODES[xu.dtype], lam.data_ptr(), n, f,
             qs[s:].data_ptr(), lam_q[s:].data_ptr(), qc, float(tau), k,
             splits, part.data_ptr(), out_s[s:].data_ptr(),
-            out_i[s:].data_ptr(), device.index or 0, stream)
+            out_i[s:].data_ptr(), int(loader == "tma"), device.index or 0,
+            stream)
         _build.check(lib, "scan_topk", err)
         LAUNCHES += 1
         WIDE_LAUNCHES += wide
+        TMA_LAUNCHES += loader == "tma"
+        LAST_ROUTE = route
     return out_i, out_s

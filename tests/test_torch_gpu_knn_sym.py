@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from pyarrowspace_tpu_torch.ops.cuda import knn
+from pyarrowspace_tpu_torch.ops.cuda import ffma_tile, knn
 from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
 
 pytestmark = pytest.mark.gpu
@@ -160,13 +160,14 @@ def test_launcher_refuses_sym_outside_the_self_join(dev):
                        device=dev)
     lib = knn._lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tma = ffma_tile.loader_of(xu) == "tma"
 
     def launch(row_start=0, rows=n, kk=k, col_start=0, diag=0, seeded=0,
                splits=1):
         return lib.knn_launch(xu.data_ptr(), n, f, row_start, rows, 1.0, kk,
                               col_start, diag, None, seeded, splits, 1,
                               part.data_ptr(), out_d.data_ptr(),
-                              out_i.data_ptr(), 0, stream)
+                              out_i.data_ptr(), int(tma), 0, stream)
 
     assert launch() == 0
     for bad in (dict(row_start=1, rows=n - 1), dict(rows=n - 1),

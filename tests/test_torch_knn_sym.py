@@ -7,6 +7,8 @@ package's XLA scan; and ``route_name``, the one place that picks the
 route.  Inputs are made with numpy from a seed and handed to both
 packages."""
 
+import logging
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,6 +211,42 @@ def test_route_name_full_walk_when_the_scratch_does_not_fit(sms,
     assert knn.route_name(n, n, k, DEV) == "narrow/S1"
     monkeypatch.setattr(knn, "SCRATCH_BYTES", 8 * knn.sym_words(n, k))
     assert knn.route_name(n, n, k, DEV) == "sym"
+
+
+def test_sym_fallback_past_the_scratch_cap_is_counted(sms, monkeypatch,
+                                                      caplog):
+    """A self-join whose transposed lists pass SCRATCH_BYTES (1,100,000 rows
+    at k 128: 1.13 GB) keeps the full walk; walk_route counts it in
+    SYM_FALLBACKS and logs it once.  Within the cap, or on any other walk,
+    it counts nothing."""
+    n, k = 1_100_000, 128
+    assert 8 * knn.sym_words(n, k) > scan_topk.SCRATCH_BYTES
+    monkeypatch.setattr(knn, "SYM_FALLBACKS", 0)
+    monkeypatch.setattr(knn, "_SYM_FALLBACK_LOGGED", False)
+    full = f"narrow/S{knn.plan_splits(n, n, k, DEV)[0]}"
+    with caplog.at_level(logging.WARNING, logger=knn.__name__):
+        assert knn.walk_route(n, n, k, DEV) == full
+        assert knn.walk_route(n, n, k, DEV) == full
+    assert knn.SYM_FALLBACKS == 2
+    logged = [r for r in caplog.records if "SCRATCH_BYTES" in r.getMessage()]
+    assert len(logged) == 1
+    assert knn.walk_route(313_841, 313_841, 25, DEV) == "sym"
+    assert knn.walk_route(16_384, 313_841, 25, DEV).startswith("narrow/")
+    assert knn.walk_route(n, n, k, DEV, symmetric=False) == full
+    assert knn.walk_route(n, n, k, DEV, seeded=True) == full
+    assert knn.SYM_FALLBACKS == 2
+
+
+def test_route_name_names_the_loader(sms, monkeypatch):
+    monkeypatch.setattr(scan_topk, "sm_count", lambda index: SMS)
+    assert knn.route_name(313_841, 313_841, 25, DEV, loader="tma") == \
+        "sym/tma"
+    assert knn.route_name(16_384, 313_841, 25, DEV, loader="regs") == \
+        knn.route_name(16_384, 313_841, 25, DEV) + "/regs"
+    assert knn_t.route_name(313_841, 313_841, 25, DEV, "tma") == \
+        "owners2/tma"
+    assert scan_topk.route_name(313_841, 4096, 15, DEV, "tma") == \
+        scan_topk.route_name(313_841, 4096, 15, DEV) + "/tma"
 
 
 def test_k1t_keeps_its_walk(sms):
