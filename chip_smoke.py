@@ -8,9 +8,10 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
      all started together); ptxas's registers and spills of
-     K1, K2, K3, K5, K7 and K6 (K1's also by walk, symmetric and full; K6's
-     also by route, narrow and wide, with its resident blocks an SM at k 15
-     and 260);
+     K1, K2, K3, K5, K7 and K6 (K1's also by walk, symmetric and full; K2's
+     and K7's also by route, csrc/tc_scan.cuh's tensor-core block with its
+     queries resident or streamed, or SIMT; K6's also by route, narrow and
+     wide, with its resident blocks an SM at k 15 and 260);
   1. K1 (csrc/knn.cu) against its plain version on a 313,841 x 384 unit
      corpus (eps 1.31, k 25): its one launch over the whole corpus, on the
      symmetric route (each of the N (N + 1) / 2 distinct pairs' products
@@ -50,7 +51,11 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      the plain version there), each in turns with its plain version,
      beside its bound, its route (wide and the corpus splits), its wide
      launches in one call (at least one) and K2 at k 15 on the same
-     queries;
+     queries; K2 over the index's rows rounded to bf16 (the as_serving
+     view's) at k 200 on the 4,096 queries and at k 1,024 on 1,024, on its
+     tensor-core route, each in turns with its plain version (within
+     1e-5), its scores bit for bit k5_blend's on the route K2 took, beside
+     its bf16 bound and its route;
   5. subtile serving on that index: search_batch(mode="subtile"), then
      mode="auto", over the same 8 batches, each after a warm-up, with the
      counts reset before each: K3, K4b, K5 and K4a must all have run, K3
@@ -137,11 +142,13 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      the served ids equal phase 3's exact ids outside near-ties of 1e-5 on
      every query whose exact top-15 lies in K7's pool of 60;
   11. the bfloat16 serving view (as_serving) of that index: exact search
-     over its 8 batches (K2 over bf16 rows must have run), K2-bf16 against
-     its plain version on the first batch, timed in turns, and its scores
-     bit for bit K5's blended (k5_blend: the rows upcast to float32, the
-     queries rounded to bf16 and upcast); the overlap with float32 exact
-     (no rescore: at least 0.9);
+     over its 8 batches (K2 over bf16 rows must have run, every launch on
+     its tensor-core route: csrc/tc_scan.cuh, the route printed), K2-bf16
+     against its plain version on the first batch, timed in turns, with
+     one torch.mm of the bf16 operands (float32 output) as a yardstick, and
+     its scores bit for bit K5's blended on the route K2 took (k5_blend:
+     K5's tensor-core route, whose sums K2's tensor-core route equals); the
+     overlap with float32 exact (no rescore: at least 0.9);
   12. hybrid search and gather IVF (n_probe 8) over 2 batches, QPS and
      overlap with exact; build_energy on the same 313,841 rows
      (optical_tokens 40, the CVE graph params) with its phase seconds and
@@ -252,8 +259,11 @@ after a reset: phase 8's ivf_block topk 300 at 313k (lists of 300, the
 pools' route; no 313k run scans 260 or 1,040), phase 9's certified runs
 at 1M by list length (topk 65 over bfloat16 for 260 and 1,040, topk 15
 over each slab type for the rest; a length that no such run reaches gets
-0), with launches_run naming the run).  K1 and K2 also carry product_ms:
-one torch.mm of their fp32 product (TF32 off), a yardstick of the card's
+0), with launches_run naming the run).  K2 over bf16 rows carries its
+route (kernel_route) and its wide lists (k 200 and 1,024, each with its
+route and launches).  K1 and K2 also carry product_ms:
+one torch.mm of their fp32 product (TF32 off; K2 over bf16 rows: of the
+bf16 operands, float32 output), a yardstick of the card's
 library matmul on the same operands that the port never calls (it is not
 the same function: no mask, blend or top-k, and another summation order),
 and K1 its whole-corpus launches (full_ms on full_route, the symmetric
@@ -278,10 +288,12 @@ this tree, the others reversed), and each turn prints what those phases
 measured: K1 over the whole corpus, over 16,384 rows, over the last 9,416
 rows and at k 100, 200 and 1,024, K1t at k 25 over 16,384 rows, K2 at Q
 4,096 over float32 and bfloat16 rows and at k 200 and
-1,024, the build seconds with the knn phase, exact QPS, K3 and K5 at
+1,024 (both over float32 and bfloat16 rows), the build seconds with the knn phase, exact QPS, K3 and K5 at
 phase 6's shapes, K3 over a 1,000,000 x 768 bf16 corpus made from a
 seeded generator with 16,384 queries (each K3 held against its plain
-version on 1,024 queries, not against this tree's bits), K4b and K4a at
+version on 1,024 queries, not against this tree's bits) and K2 over those
+bf16 rows at k 15 in turns with K3 (its ids held against its plain
+version on the first 1,024 queries), the bf16 view's QPS, K4b and K4a at
 phase 6's shapes and on that corpus's maxima and phase b (each in turns
 with torch.topk) and at m 1,024 (in turns with their plain versions), K7
 on phase 10's first batch (pools 60, 200 and 400) and over a
@@ -292,7 +304,9 @@ bfloat16 slabs at k 15 and at pools 260 and 1,040 (and 60 over bfloat16;
 each held against its plain version).  Then every run's
 k-NN lists (phase 3's, and phase 1's K1t lists at k 25 and K1's over the
 last 9,416 rows and at k 200 and 1,024), lambdas, exact top-k ids, K2's
-lists at k 200 and 1,024, K4b and K4a ids and K6 and K7 outputs (ids and
+lists over float32 rows at k 200 and 1,024 (its lists over bf16 rows are
+held to its plain version and to k5_blend in each turn, not across trees:
+the routes sum in other orders), K4b and K4a ids and K6 and K7 outputs (ids and
 scores) must equal this tree's bit for bit.
 """
 
@@ -425,6 +439,32 @@ def _product_ms(torch, a, b) -> float:
     return ms
 
 
+def _product_bf16_ms(torch, a, b) -> tuple[float, str]:
+    """(ms, output dtype) of one torch.mm(a, b.T) of bf16 operands with
+    float32 output (bf16 output where this torch's mm takes no out_dtype)
+    (warm): the yardstick of K2's product over bf16 rows, never called by
+    the port."""
+    try:
+        fn = lambda: torch.mm(a, b.T, out_dtype=torch.float32)  # noqa: E731
+        out = fn()
+    except (TypeError, RuntimeError):
+        fn = lambda: torch.mm(a, b.T)  # noqa: E731
+        out = fn()
+    kind = str(out.dtype).split(".")[-1]
+    del out
+    return _events_ms(fn, torch), kind
+
+
+def _k2_route(scan_topk, xu, qn, k, dev):
+    """K2's route for a launch over the corpus xu for queries qn with lists
+    of k (route_of where the package has one; else route_name and the
+    product's loader)."""
+    qs = qn.to(xu.dtype).contiguous()
+    if hasattr(scan_topk, "route_of"):
+        return scan_topk.route_of(xu, qs, k)
+    return _route(scan_topk, xu.shape[0], qn.shape[0], k, dev, xu, qs)
+
+
 def _bits_equal(torch, a, b) -> bool:
     """Two float32 (or int32) tensors equal in every bit."""
     view = (lambda t: t.view(torch.int32)
@@ -483,7 +523,8 @@ def _ring_of(entry: str):
     """The ring of a K1, K1t or K2 kernel: "tma<S> <type>" or "regs
     <type>" (None for other entries)."""
     import re
-    if not re.search(r"knn_kernel|knn_t_kernel|scan_kernel", entry):
+    if "tcscan" in entry or not re.search(
+            r"knn_kernel|knn_t_kernel|scan_kernel", entry):
         return None
     m = re.search(r"(TmaRing|RegRing)I(f|13__nv_bfloat16)(?:Li(\d)E)?",
                   entry)
@@ -523,6 +564,8 @@ def _reset_launches() -> None:
     for mod in (knn, knn_t, scan_topk):
         if hasattr(mod, "TMA_LAUNCHES"):
             mod.TMA_LAUNCHES = 0
+    if hasattr(scan_topk, "TC_LAUNCHES"):
+        scan_topk.TC_LAUNCHES = 0
 
 
 def _launches() -> dict:
@@ -541,6 +584,7 @@ def _launches() -> dict:
             "scan_topk_tma": getattr(scan_topk, "TMA_LAUNCHES", 0),
             "knn_t_split": getattr(knn_t, "SPLIT_LAUNCHES", 0),
             "scan_topk": scan_topk.LAUNCHES,
+            "scan_topk_tc": getattr(scan_topk, "TC_LAUNCHES", 0),
             "subtile_max": subtile_max.LAUNCHES,
             "subtile_max_tc": getattr(subtile_max, "TC_LAUNCHES", 0),
             "extract_ids": extract.IDS_LAUNCHES,
@@ -924,6 +968,29 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
         .cpu().numpy(),
         subtile_max.subtile_max_plain(x1, lam1, qc, lc, TAU, N1M)[:, :real1]
         .cpu().numpy())
+    # K2 over the same bf16 rows at Q 16,384, k 15 (exact serving at the
+    # north-star shape), in turns with K3 over them, its ids held against
+    # the plain version on the first 1,024 queries.
+    from pyarrowspace_tpu_torch.ops.cuda import scan_topk
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    topk = GP["topk"]
+    x1r, lam1r, q1f = x1[:N1M], lam1[:N1M], q1.float()
+    scan_topk.lambda_search(x1r, lam1r, q1f, lq1, TAU, topk)         # warm
+    k2_1m_route = _last_route(scan_topk) or _k2_route(scan_topk, x1r, q1f,
+                                                       topk, dev)
+    k2_1m_ms, k3_1m_turns_ms = _in_turns(
+        lambda: subtile_max.subtile_max(x1, lam1, q1, lq1, TAU, N1M),
+        lambda: scan_topk.lambda_search(x1r, lam1r, q1f, lq1, TAU, topk),
+        torch)
+    q1c = q1f[:Q1M_CHECK].contiguous()
+    i2, s2 = scan_topk.lambda_search(x1r, lam1r, q1c, lc, TAU, topk)
+    i2p, s2p = scan_topk.scan_plain(x1r, lam1r, q1c, lc, TAU, topk)
+    bad2 = topk_disagreements(s2.cpu().numpy(), i2.cpu().numpy(),
+                              s2p.cpu().numpy(), i2p.cpu().numpy(), TOL)
+    del i2, s2, i2p, s2p, q1f, q1c
+    k2_1m_bound = _bound(2.0 * Q1M * N1M * F1M, "bf16",
+                         N1M * (2 * F1M + 4)
+                         + Q1M * ((F1M + 1) * 4 + topk * 8))
     # The selects at the 1M shape, on this corpus's K3 maxima and phase b.
     sub1 = subtile_max.subtile_max(x1, lam1, q1, lq1, TAU, N1M)
     s1 = subtile_scan.subtiles_kept(GP["topk"], sub1.shape[1])
@@ -938,7 +1005,8 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
              lambda: extract.extract_pool_plain(score1, cand1, m_pool))
     del x1, q1, sub1, score1, cand1
     results["subtile_ab"] = dict(k3_ms=k3_ms, k5_ms=k5_ms, k3_1m_ms=k3_1m_ms,
-                                 **k4)
+                                 k2_bf16_1m_ms=k2_1m_ms,
+                                 k3_1m_turns_ms=k3_1m_turns_ms, **k4)
     results.setdefault("ab_dump", {}).update(dump)
     for name in ("k4b", "k4a", "k4b_1m", "k4a_1m"):
         print(f"phase 6b: {name} {k4[name + '_ms']:.4f} ms, torch.topk "
@@ -952,9 +1020,16 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
           f"N_pad={xs.shape[0]} F={xs.shape[1]} (max_abs_err {err3:.3e} / "
           f"{err5:.3e}); K3 {N1M}x{F1M} bf16, Q={Q1M}: {k3_1m_ms:.3f} ms "
           f"(max_abs_err {err1m:.3e} on {Q1M_CHECK} queries) {card}")
-    if max(err3, err5, err1m) > TOL or not all(same.values()):
+    print(f"phase 6b: K2 over bf16 rows {N1M}x{F1M}, Q={Q1M}, k={topk} "
+          f"(route {k2_1m_route}): {k2_1m_ms:.3f} ms in turns with K3's "
+          f"{k3_1m_turns_ms:.3f} ms over the same rows; bound "
+          f"{k2_1m_bound['bound_ms']:.3f} ms ({k2_1m_bound['bound_by']}); "
+          f"disagreeing queries with the plain version on {Q1M_CHECK}: "
+          f"{len(bad2)} {card}")
+    if max(err3, err5, err1m) > TOL or not all(same.values()) or bad2:
         raise AssertionError(f"K3 / K5 disagree with their plain versions: "
-                             f"{err3} {err5} {err1m}, or K4: {same}")
+                             f"{err3} {err5} {err1m}, or K4: {same}, or K2 "
+                             f"at 1M: {bad2[:10]}")
 
 
 def _twice_ms(torch, fn) -> float:
@@ -2260,7 +2335,9 @@ def _phase_int8(torch, aspace, gl, batches, outs_exact, card,
 def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
                      results) -> None:
     """Phase 11: exact search over the bfloat16 serving view (as_serving):
-    K2 over bf16 rows against its plain version, QPS and the overlap with
+    K2 over bf16 rows (on its tensor-core route where the package has one:
+    every launch of the 8 batches) against its plain version and, bit for
+    bit, K5's blended cosine on the route K2 took; QPS and the overlap with
     phase 3's float32 exact results."""
     from pyarrowspace_tpu_torch.ops.cuda import scan_topk
     from pyarrowspace_tpu_torch.ops.cuda.compare import (max_abs_err,
@@ -2283,8 +2360,10 @@ def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
     lamq = _query_lambdas32(torch, aspace, qb)
     qn = unit_normalize(qb).contiguous()
     i_k, s_k = scan_topk.lambda_search(xb, lam, qn, lamq, TAU, topk)
+    route = _last_route(scan_topk) or _k2_route(scan_topk, xb, qn, topk,
+                                                 xb.device)
     witness = _bits_equal(torch, s_k, _own_compare().k5_blend(
-        xb, lam, qn, lamq, TAU, i_k))
+        xb, lam, qn, lamq, TAU, i_k, tensor_core=route.startswith("tc/")))
     i_p, s_p = scan_topk.scan_plain(xb, lam, qn, lamq, TAU, topk)
     s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
     bad = topk_disagreements(s_k, i_k, s_p, i_p, TOL)
@@ -2292,24 +2371,27 @@ def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
     k_ms, p_ms = _in_turns(
         lambda: scan_topk.scan_plain(xb, lam, qn, lamq, TAU, topk),
         lambda: scan_topk.lambda_search(xb, lam, qn, lamq, TAU, topk), torch)
+    mm_ms, mm_out = _product_bf16_ms(torch, qn.to(xb.dtype), xb)
     bound = _bound(2.0 * Q_BATCH * N * F, "bf16",
                    N * (2 * F + 4) + Q_BATCH * ((F + 1) * 4 + topk * 8))
-    route = _route(scan_topk, N, Q_BATCH, topk, xb.device, xb,
-                   qn.to(xb.dtype))
     results["scan_topk_bf16"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                      library_ms=None, kernel_route=route,
-                                     **bound)
+                                     product_ms=mm_ms, **bound)
     results["bf16_313k"] = dict(qps=qps, overlap=overlap)
     print(f"phase 11: as_serving bf16 exact: {qps:.1f} QPS over {N_BATCHES} "
           f"x {Q_BATCH} queries (float32 exact {results['exact_qps']:.1f}); "
           f"top-{topk} overlap with float32 exact {overlap:.6f}; launches "
           f"{launches} {card}")
-    print(f"phase 11: K2 over bf16 rows ({route}) vs plain: max_abs_err "
-          f"{err:.3e}, disagreeing queries {len(bad)}; kernel {k_ms:.3f} ms, plain "
-          f"{p_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-          f"({bound['bound_by']}) {card}")
+    print(f"phase 11: K2 over bf16 rows (route {route}) vs plain: "
+          f"max_abs_err {err:.3e}, disagreeing queries {len(bad)}; kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), K2 / bound "
+          f"{k_ms / bound['bound_ms']:.3f}; yardstick torch.mm "
+          f"[{Q_BATCH},{F}]x[{F},{N}] bf16, {mm_out} output (not called "
+          f"by the port) {mm_ms:.3f} ms {card}")
     print(f"phase 11: K2 over bf16 rows == K5 + blend bit for bit on "
-          f"{Q_BATCH} queries x {topk}: {witness}")
+          f"{Q_BATCH} queries x {topk}, K5 on the route K2 took "
+          f"({route}): {witness}")
     checks = {"K2 launched on the bf16 path": launches["scan_topk"] > 0,
               "K2 bf16 == plain": not bad and err <= TOL,
               "K2 bf16 == K5 + blend bitwise": witness,
@@ -2317,6 +2399,10 @@ def _phase_bf16_view(torch, aspace, gl, batches, outs_exact, card,
               "result shapes": all(o[0].shape == (Q_BATCH, topk)
                                    and np.all(np.isfinite(o[1]))
                                    for o in got)}
+    if hasattr(scan_topk, "TC_LAUNCHES"):
+        checks["every bf16 launch on the tensor-core route"] = (
+            launches["scan_topk_tc"] == launches["scan_topk"] == N_BATCHES
+            and route.startswith("tc/"))
     del view
     if not all(checks.values()):
         raise AssertionError(f"bf16 view checks failed: "
@@ -3336,6 +3422,17 @@ def _k6_route_of(entry: str):
     return ("wide" if w.group(1) == "0" else "narrow") if w else None
 
 
+def _tc_route_of(entry: str):
+    """The scans of K2 and K7 by route: csrc/tc_scan.cuh's tensor-core
+    block (its queries resident or streamed), or the SIMT kernels."""
+    import re
+    if "tcscan" in entry:
+        stream = re.search(r"ELi\d+ELb([01])E", entry)
+        return "tc/stream" if stream and stream.group(1) == "1" else "tc"
+    return "simt" if re.search(r"scan_kernel|scan_int8_kernel",
+                               entry) else None
+
+
 def _k1_route_of(entry: str):
     """K1's narrow kernels by walk: the symmetric route (SYM true) or the
     full walk."""
@@ -3359,17 +3456,22 @@ def _measures(results: dict) -> dict:
             "k2_k200_ms": wide["scan_topk_k200"]["ms"],
             "k2_k1024_ms": wide["scan_topk"]["ms"],
             "k2_bf16_ms": results["scan_topk_bf16"]["ms"],
+            "k2_bf16_k200_ms": wide["scan_topk_bf16_k200"]["ms"],
+            "k2_bf16_k1024_ms": wide["scan_topk_bf16_k1024"]["ms"],
             "build_s": results["build_s"],
             "knn_phase_s": results["knn_phase_s"],
             "exact_qps": results["exact_qps"],
+            "bf16_qps": results["bf16_313k"]["qps"],
             **results["subtile_ab"], **results["scans_ab"]}
 
 
 def _turn_line(line: str) -> bool:
     """The lines of a --measure run that --against prints for its turn:
-    ptxas's reports, and the phases' launches with their routes (and the
-    product's loader, where the tree has two)."""
-    return "ptxas" in line or (
+    the kernels' build seconds (a tree's first turn builds, its second
+    finds the libraries), ptxas's reports, and the phases' launches with
+    their routes (and the product's loader, where the tree has two)."""
+    return "ptxas" in line or line.startswith(
+        ("phase 6b: K2", "phase 0: built", "phase 0: all kernels")) or (
         line.startswith(("phase 1:", "phase 2:", "phase 11:"))
         and ("route" in line or "(narrow/" in line or "(wide/" in line))
 
@@ -3469,6 +3571,10 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name in ("knn", "knn_t", "scan_topk"):
         print(f"phase 0: ptxas csrc/{name}.cu's product kernels by ring: "
               f"{_ptxas_routes(_build, name, _ring_of)}")
+    for name in ("scan_topk", "scan_int8"):
+        print(f"phase 0: ptxas csrc/{name}.cu's scans by route (tc_scan.cuh"
+              f"'s block, its queries resident or streamed, or SIMT): "
+              f"{_ptxas_routes(_build, name, _tc_route_of)}")
     from pyarrowspace_tpu_torch.ops.cuda import ivf_scan as k6
     if hasattr(k6, "blocks_per_sm"):
         occ = {(k, str(dt).split(".")[-1]): k6.blocks_per_sm(k, 16, dt, dev)
@@ -3864,10 +3970,54 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
         results["scan_topk"]["max_abs_err"] = max(err, err_w, err_x)
         no_wide = hasattr(scan_topk, "WIDE_LAUNCHES") and not all(
             wide[key]["launches"] for key in ("scan_topk_k200", "scan_topk"))
+        # K2 over bf16 rows (the as_serving view's) at k 200 over the batch
+        # and k 1,024 over 1,024 queries, on its tensor-core route where the
+        # package has one: each held to its plain version and, bit for bit,
+        # to K5 on the route K2 took, and timed in turns with the plain
+        # version (its lists are not compared across trees: the routes sum
+        # in other orders).
+        xb = xs.to(torch.bfloat16)
+        bf16_bad = []
+        for key, k_w, qv, lv in (("scan_topk_bf16_k200", K2_WIDE, qn, lam_q),
+                                 ("scan_topk_bf16_k1024", K_WIDEST, qw, lw)):
+            before = getattr(scan_topk, "WIDE_LAUNCHES", 0)
+            i_b, s_b = scan_topk.lambda_search(xb, lams, qv, lv, TAU, k_w)
+            launches_w = getattr(scan_topk, "WIDE_LAUNCHES", 0) - before
+            route_b = _last_route(scan_topk) or _k2_route(
+                scan_topk, xb, qv, k_w, dev)
+            wit_b = _bits_equal(torch, s_b, _own_compare().k5_blend(
+                xb, lams, qv, lv, TAU, i_b,
+                tensor_core=route_b.startswith("tc/")))
+            i_bp, s_bp = scan_topk.scan_plain(xb, lams, qv, lv, TAU, k_w)
+            s_b, i_b = s_b.cpu().numpy(), i_b.cpu().numpy()
+            s_bp, i_bp = s_bp.cpu().numpy(), i_bp.cpu().numpy()
+            bad_b = topk_disagreements(s_b, i_b, s_bp, i_bp, TOL)
+            err_b = max_abs_err(s_b, s_bp)
+            ms_b, plain_b = _in_turns(
+                lambda: scan_topk.scan_plain(xb, lams, qv, lv, TAU, k_w),
+                lambda: scan_topk.lambda_search(xb, lams, qv, lv, TAU, k_w),
+                torch)
+            q_w = qv.shape[0]
+            wide[key] = dict(
+                k=k_w, queries=q_w, ms=ms_b, plain_ms=plain_b,
+                library_ms=None, launches=launches_w, lists=route_b,
+                max_abs_err=err_b,
+                **_bound(2.0 * q_w * N * F, "bf16",
+                         N * (2 * F + 4) + q_w * ((F + 1) * 4 + k_w * 8)))
+            print(f"phase 2: K2 over bf16 rows at k={k_w} Q={q_w} (route "
+                  f"{route_b}, {launches_w} wide launch): kernel {ms_b:.3f} "
+                  f"ms, plain {plain_b:.3f} ms in turns; bound "
+                  f"{wide[key]['bound_ms']:.3f} ms; vs plain max_abs_err "
+                  f"{err_b:.3e}, disagreeing queries {len(bad_b)}; == K5 + "
+                  f"blend bit for bit: {wit_b} {card}")
+            if bad_b or err_b > TOL or not wit_b:
+                bf16_bad.append(key)
+        del xb
         if bad or err > TOL or bad_w or err_w > TOL or bad_x or err_x > TOL \
-                or not (witness and witness_w) or no_wide:
+                or not (witness and witness_w) or no_wide or bf16_bad:
             raise AssertionError(f"K2 check failed: queries {bad[:10]}, "
                                  f"err {err}, K5 {witness} / {witness_w}, "
+                                 f"bf16 {bf16_bad}, "
                                  f"k={K2_WIDE} queries "
                                  f"{bad_w[:10]} err {err_w}, k={K_WIDEST} "
                                  f"queries {bad_x[:10]} err {err_x}")
@@ -4018,6 +4168,9 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
              wide_src),
             ("scan_topk", (results["wide"]["scan_topk_k200"],
                            results["wide"]["scan_topk"]), wide_src),
+            ("scan_topk_bf16", (results["wide"]["scan_topk_bf16_k200"],
+                                results["wide"]["scan_topk_bf16_k1024"]),
+             "pyarrowspace_tpu_torch/csrc/tc_scan.cuh"),
             ("scan_int8", (*results["wide_int8"].values(),
                            results["wide_int8_1m"]),
              by_name["scan_int8"]["source"])):

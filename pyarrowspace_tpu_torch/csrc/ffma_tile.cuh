@@ -28,9 +28,9 @@
 // ~2,290 instructions a slab (89%), a tile visit at 384 features ~71,500
 // cycles against the 49,152 of the pipe (PERF.md).
 //
-//   - The ring (TmaRing): S stages (a template parameter, 2 to 4) of one
-//     slab each, a slab being 128 bytes of features (32 float32 or 64 bf16)
-//     of the 128 A rows, then of the 128 B rows: 16 KB + 16 KB.  Thread 0
+//   - The ring (TmaRing, float32 rows): S stages (a template parameter, 2
+//     to 4) of one slab each, a slab being 128 bytes of features (32
+//     float32) of the 128 A rows, then of the 128 B rows: 16 KB + 16 KB.  Thread 0
 //     fills a stage with two cp.async.bulk.tensor.2d copies (the tensor
 //     maps of wgmma_tile.cuh, over each operand's row view, so rows past
 //     the view and features past F arrive as zeros) counted on the stage's
@@ -53,8 +53,9 @@
 //     swizzle is one XOR a step for all its rows.
 //   - The fragments: the rows and columns of features kq + 4 are loaded
 //     while those of kq are multiplied (two register sets; 0 spills).
-//     bf16 rows stay bf16 in the stage (64 features a 128-byte row) and are
-//     converted when read (bits << 16: exact).
+//     bf16 rows (K2's over ragged or unaligned bf16 rows, on RegRing) stay
+//     bf16 in the stage (64 features a 128-byte row) and are converted
+//     when read (bits << 16: exact).
 //   - The tiles: a block walks many tiles.  Where shared memory holds the
 //     epilogue's region (the 128 x 136 result tile, 68 KB) beside the ring
 //     ("carry"), the stages of the walk's next tile are issued while this
@@ -75,8 +76,10 @@
 //     tests/test_torch_product_layout.py mirrors the plan for every route
 //     and k.
 //   - The second loader (RegRing): TMA needs 16-byte row strides and
-//     aligned bases (F % 4 == 0 for float32, F % 8 == 0 for bf16).  Other
-//     shapes keep the register-staged loader: a two-stage ring in the same
+//     aligned bases (F % 4 == 0 for float32).  Other shapes, and bf16 rows
+//     (which take tc_scan.cuh's tensor-core route wherever TMA could read
+//     them, so only ragged or unaligned ones reach this product), keep the
+//     register-staged loader: a two-stage ring in the same
 //     swizzled layout, filled by 16-byte chunks loaded into registers
 //     during the multiply and stored after it, one block barrier a slab.
 //     The wrappers pick the loader from F and alignment alone
@@ -184,23 +187,11 @@ struct Operands {
   int a_rows, b_rows, f, vec;
 };
 
-template <class T>
-struct MapType;
-template <>
-struct MapType<float> {
-  static constexpr CUtensorMapDataType value =
-      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-};
-template <>
-struct MapType<__nv_bfloat16> {
-  static constexpr CUtensorMapDataType value =
-      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-};
-
 // The operands of a launch; with tma, their tensor maps, encoded once on
 // the host.  Returns 0, or a CUDA error code when tma is asked for on a
-// shape TMA cannot describe or a map fails to encode (the caller raises:
-// no other loader is taken).
+// shape TMA cannot describe, on bf16 rows (where TMA can read them they
+// take tc_scan.cuh's tensor-core route) or a map fails to encode (the
+// caller raises: no other loader is taken).
 template <class T>
 inline int make_operands(Operands<T>* o, const T* a, int a_rows, const T* b,
                          int b_rows, int f, bool tma) {
@@ -212,11 +203,12 @@ inline int make_operands(Operands<T>* o, const T* a, int a_rows, const T* b,
   o->f = f;
   o->vec = can_vectorize<T>(a, f) && can_vectorize<T>(b, f);
   if (!tma) return 0;
-  if (!wg::route_ok<T>(a, b, f)) return (int)cudaErrorInvalidValue;
-  if (!wg::make_map_2d(&o->map_a, MapType<T>::value, sizeof(T), a,
-                       (uint64_t)a_rows, (uint64_t)f, slab<T>(), TILE) ||
-      !wg::make_map_2d(&o->map_b, MapType<T>::value, sizeof(T), b,
-                       (uint64_t)b_rows, (uint64_t)f, slab<T>(), TILE))
+  if (sizeof(T) != 4 || !wg::route_ok<T>(a, b, f))
+    return (int)cudaErrorInvalidValue;
+  if (!wg::make_map_2d(&o->map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(T),
+                       a, (uint64_t)a_rows, (uint64_t)f, slab<T>(), TILE) ||
+      !wg::make_map_2d(&o->map_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(T),
+                       b, (uint64_t)b_rows, (uint64_t)f, slab<T>(), TILE))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -558,19 +550,24 @@ struct RegRing {
 };
 
 // Launch `fn` with the ring type of a plan: TmaRing<T, S> for the TMA
-// loader's S stages, RegRing<T> for the register-staged loader.
+// loader's S stages (float32 rows only), RegRing<T> for the
+// register-staged loader.
 template <class T, class Fn>
 inline int with_ring(const Plan& pl, bool tma, Fn&& fn) {
   if (!tma) return fn((RegRing<T>*)nullptr);
-  switch (pl.stages) {
-    case 2:
-      return fn((TmaRing<T, 2>*)nullptr);
-    case 3:
-      return fn((TmaRing<T, 3>*)nullptr);
-    case 4:
-      return fn((TmaRing<T, 4>*)nullptr);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) != 4) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    switch (pl.stages) {
+      case 2:
+        return fn((TmaRing<T, 2>*)nullptr);
+      case 3:
+        return fn((TmaRing<T, 3>*)nullptr);
+      case 4:
+        return fn((TmaRing<T, 4>*)nullptr);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -1,11 +1,12 @@
 // The tensor-core products of the port on Hopper's warpgroup MMA, generic
-// over the operand type: bf16 (K3, subtile_max.cu; K5, gather_score.cu:
-// m64n256k16, fp32 sums) and int8 (K7's tensor-core route, scan_int8.cu:
-// m64n128k32, int32 sums).  Both keep the same shared-memory stages: one
-// 128-byte row a stage (64 bf16 or 128 int8 features), four 32-byte k
-// steps over ascending features, the same descriptors, TMA tensor maps,
-// swizzle and mbarrier ring; only the instruction, the descriptors'
-// element type and the accumulators' type differ (Mma<E> below).
+// over the operand type and the width of B: bf16 (K3, subtile_max.cu; K5,
+// gather_score.cu: m64n256k16, fp32 sums; K2 over bf16 rows, scan_topk.cu:
+// m64n128k16) and int8 (K7's tensor-core route, scan_int8.cu: m64n128k32,
+// int32 sums).  All keep the same shared-memory stages: one 128-byte row
+// a stage (64 bf16 or 128 int8 features), four 32-byte k steps over
+// ascending features, the same descriptors, TMA tensor maps, swizzle and
+// mbarrier ring; only the instruction, the descriptors' element type, the
+// width N and the accumulators' type differ (Mma<E, N> below).
 //
 // The block-max guarantee of subtile serving needs K3's maximum of a
 // subtile to equal, bit for bit, the best score K5 + the blend give inside
@@ -20,8 +21,11 @@
 //     ascending features, the very first step with scale-d 0.
 // An element's sum depends only on its A row and its B column, not on the
 // column's position in B (K3 and K5 place a query at different columns):
-// the tensor core computes each output element on its own.  K7's int32
-// sums are exact, so its products are the plain version's in any order.
+// the tensor core computes each output element on its own.  K2 over bf16
+// rows runs the same k steps with the roles swapped (queries as A, corpus
+// rows as B, m64n128k16); compare.py::k5_blend holds its scores to K5's bit
+// for bit on the card.  K7's int32 sums are exact, so its products are the
+// plain version's in any order.
 //
 // Shared-memory operand layout: rows of 128 bytes with the 128-byte
 // swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8)), 8-row
@@ -82,15 +86,16 @@ __device__ __forceinline__ void wait() {
                : "memory");
 }
 
-// The product of one operand type E: its accumulators (Acc, ACC a
-// thread), the width N of B, the features a stage (KSTAGE), the bytes of a
-// B stage, the tensor maps' element type, and one 32-byte k step
-// d (+)= A[64 x k] * B[k x N]^T (scale_d 0 overwrites d).
-template <class E>
+// The product of one operand type E and B width N (by default 256 for
+// bf16, 128 for int8): its accumulators (Acc, ACC a thread), the features
+// a stage (KSTAGE), the bytes of a B stage, the tensor maps' element type,
+// and one 32-byte k step d (+)= A[64 x k] * B[k x N]^T (scale_d 0
+// overwrites d).
+template <class E, int N = sizeof(E) == 1 ? 128 : 256>
 struct Mma;
 
 template <>
-struct Mma<__nv_bfloat16> {
+struct Mma<__nv_bfloat16, 256> {
   using Acc = float;
   static constexpr int N = 256;
   static constexpr int ACC = N / 2;
@@ -158,7 +163,51 @@ struct Mma<__nv_bfloat16> {
 };
 
 template <>
-struct Mma<int8_t> {
+struct Mma<__nv_bfloat16, 128> {
+  using Acc = float;
+  static constexpr int N = 128;
+  static constexpr int ACC = N / 2;
+  static constexpr int KSTAGE = ROW_BYTES / 2;
+  static constexpr int B_BYTES = N * ROW_BYTES;   // 16 KB
+  static constexpr CUtensorMapDataType MAP_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+  static __device__ __forceinline__ void step(float (&d)[ACC], uint64_t da,
+                                              uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<int8_t, 128> {
   using Acc = int;
   static constexpr int N = 128;
   static constexpr int ACC = N / 2;
@@ -208,15 +257,15 @@ struct Mma<int8_t> {
 // The four 32-byte k steps go in ascending feature order; the first step
 // of the first stage (first_stage) starts the sums from zero.  Issues and
 // commits one group; the caller waits for it.
-template <class E>
+template <class E, int N = Mma<E>::N>
 __device__ __forceinline__ void mma_stage(
-    typename Mma<E>::Acc (&d)[Mma<E>::ACC], uint32_t a, uint32_t b,
+    typename Mma<E, N>::Acc (&d)[Mma<E, N>::ACC], uint32_t a, uint32_t b,
     bool first_stage) {
   fence();
 #pragma unroll
   for (int k = 0; k < ROW_BYTES / 32; ++k)
-    Mma<E>::step(d, descriptor(a + 32 * k), descriptor(b + 32 * k),
-                 (first_stage && k == 0) ? 0 : 1);
+    Mma<E, N>::step(d, descriptor(a + 32 * k), descriptor(b + 32 * k),
+                    (first_stage && k == 0) ? 0 : 1);
   commit();
 }
 

@@ -7,8 +7,9 @@ values are within ``tol``, every id both hold has values within ``tol``,
 and an id only one holds sits within ``tol`` of the other's last value.
 
 ``k5_blend`` and ``k5_distance`` are the bit-for-bit witnesses of K2's
-scores and K1's distances on the card: K5's SIMT route, which keeps their
-fmaf chain.
+scores and K1's distances on the card: K5 on the route K2 takes for the
+same operands (its tensor-core route over bf16 rows, else its SIMT route,
+which keeps the fmaf chain of K2's and K1's SIMT product).
 """
 
 from __future__ import annotations
@@ -48,30 +49,39 @@ def max_abs_err(vals_a, vals_b) -> float:
     return float(diff.max()) if diff.size else 0.0
 
 
-def k5_blend(xu, lam, qn, lam_q, tau, ids):
+def k5_blend(xu, lam, qn, lam_q, tau, ids, tensor_core=None):
     """K2's scores as another kernel computes them: K5's cosine of each
     query of qn [Q, F] with each id of its list ids [Q, k], xu padded to
     K5's 64-row subtiles, blended as tile::blend does:
     ``tau * cos + (1 - tau) * (1 / (1 + |lam_i - lam_q|))``, op by op in
     float32.  Every score K2 returns must equal it bit for bit.
 
-    K5 runs on float32 operands, so it takes its SIMT route
-    (csrc/gather_score.cu), tile_common.cuh's one fmaf chain over
-    ascending features, and not the bf16 tensor-core route: the rows are
-    xu upcast to float32 and the queries rounded to xu's type, then upcast.
-    Both upcasts are exact, so these are the values K2 multiplies (K2 over
-    bf16 rows rounds the queries to bf16 too).  CUDA tensors; the package
+    K5 takes the route the shared predicate (subtile_max.tensor_core_route)
+    gives K2 on the same operands, the queries rounded to xu's type as K2
+    rounds them: on bf16 rows with F % 8 == 0 and aligned bases, the bf16
+    tensor-core route (wgmma_tile.cuh's k steps, whose sums K2's
+    tensor-core route must equal); otherwise (float32 rows, ragged or
+    unaligned bf16 rows) the SIMT route, tile_common.cuh's one fmaf chain
+    over ascending features, on the rows and queries upcast to float32
+    (exactly), the chain K2's SIMT route keeps.  ``tensor_core`` names the
+    route K2 took where the caller knows it (another checkout's K2 may
+    have only the SIMT route).  CUDA tensors; the package
     is imported by name, so a checkout's own copy of this file also checks
     another checkout's kernels."""
     import torch
 
-    from pyarrowspace_tpu_torch.ops.cuda import gather_score
+    from pyarrowspace_tpu_torch.ops.cuda import gather_score, subtile_max
     sub = gather_score.SUBTILE
     f32 = torch.float32
-    xp = torch.nn.functional.pad(xu.to(f32), (0, 0, 0, (-xu.shape[0]) % sub))
+    qs = qn.to(xu.dtype).contiguous()
+    if tensor_core is None:
+        tensor_core = subtile_max.tensor_core_route(xu, qs)
+    if not tensor_core:
+        xu, qs = xu.to(f32), qs.to(f32)
+    xp = torch.nn.functional.pad(xu, (0, 0, 0, (-xu.shape[0]) % sub))
     ids64 = ids.to(torch.int64)
     cos = gather_score.gather_score(
-        xp.contiguous(), qn.to(xu.dtype).to(f32).contiguous(),
+        xp.contiguous(), qs.contiguous(),
         (ids64 // sub).to(torch.int32).contiguous())
     del xp
     cols = torch.arange(ids.shape[1], device=ids.device) * sub + ids64 % sub

@@ -3,9 +3,12 @@ shared-memory plan, its swizzle and the choice of its loader, mirrored in
 Python for the wrappers and the CPU tests.
 
 ``loader_name`` is the one place that picks the loader: ``"tma"`` (the
-operands staged by TMA into a ring on mbarriers) where every row is a
-multiple of 16 bytes and every base 16-byte aligned, else ``"regs"`` (the
-register-staged loader).  The wrappers pass the choice to the C launchers,
+operands staged by TMA into a ring on mbarriers) for float32 rows where
+every row is a multiple of 16 bytes and every base 16-byte aligned, else
+``"regs"`` (the register-staged loader).  bf16 rows have no TMA ring here:
+where TMA could read them, K2 takes its tensor-core route
+(``csrc/tc_scan.cuh``), so only ragged or unaligned bf16 rows reach this
+product.  The wrappers pass the choice to the C launchers,
 which raise when a tensor map fails to encode; nothing falls back.
 ``plan`` mirrors ``regtile::plan``, and ``route_plan`` the shared memory of
 each kernel that takes the product, so that a test can hold every route
@@ -42,10 +45,10 @@ HALVES_MAX_K = 64
 
 
 def loader_name(f: int, itemsize: int, *addresses: int) -> str:
-    """"tma" when rows of ``f`` elements of ``itemsize`` bytes are a
+    """"tma" when rows of ``f`` float32 elements (``itemsize`` 4) are a
     multiple of 16 bytes and every base address is 16-byte aligned (TMA's
     rules), else "regs"."""
-    if f > 0 and (f * itemsize) % 16 == 0 and all(
+    if itemsize == 4 and f > 0 and (f * itemsize) % 16 == 0 and all(
             int(a) % 16 == 0 for a in addresses):
         return "tma"
     return "regs"

@@ -20,7 +20,8 @@ the same order, so kernel and plain version agree bit for bit.
 
 Two routes on the card, chosen by ``tensor_core_route`` from dtype, shape
 and alignment alone: the int8 tensor-core kernel (``wgmma`` s8, on
-``csrc/wgmma_tile.cuh``) for contiguous int8 rows with F % 16 == 0, F <=
+``csrc/wgmma_tile.cuh``, on ``csrc/tc_scan.cuh``'s block, shared with K2
+over bf16 rows) for contiguous int8 rows with F % 16 == 0, F <=
 1,024 and 16-byte-aligned bases, else the SIMT kernel (``__dp4a``), which
 stays as the witness of the int32 sums.  On either, a list is narrow (in
 shared memory) or, past what shared memory holds (``wide_lists``), wide:
@@ -39,6 +40,7 @@ import torch.nn.functional as nnf
 
 from ... import _build
 from ..quantize import quantize_rows
+from . import tc_scan
 from .scan_topk import fit_scratch, scratch_words, sm_count
 
 # Queries per block and corpus items per tile: of the SIMT kernel, and of
@@ -47,14 +49,9 @@ _TILE = 64
 _TC_TILE = 128
 # The tensor-core kernel keeps its block's 128 query rows in shared memory.
 TC_MAX_F = 1024
-# A narrow list holds up to 256 entries.  The tensor-core kernel keeps its
-# 128 narrow lists in shared memory beside the queries' stages (16 KB a
-# 128 features), two ring stages (16 KB each), the warps' survivor buffers
-# (16 KB) and its barriers, within a block's 232,448 bytes; a wide list's
-# query stages _SROW keys (csrc/scan_int8.cu SROW).
+# A narrow list holds up to 256 entries; a wide list's query stages _SROW
+# keys (csrc/knn_wide.cuh SROW).
 _NARROW_MAX = 256
-_TC_STAGE_BYTES = 16_384
-_TC_SMEM = 232_448
 _SROW = 512
 
 # Kernel launches since import (or since the caller last reset it): all
@@ -74,15 +71,12 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 def wide_lists(k: int, f: int, tensor_core: bool) -> bool:
     """Whether K7 keeps lists of k wide: past 256 entries, or, on the
     tensor-core route at F features, when 128 narrow lists do not fit its
-    shared memory beside two ring stages (F 384: past 130; F 768: past
-    82).  csrc/scan_int8.cu decides so too (scan_int8_tc_wide)."""
+    shared memory beside the resident queries, two ring stages and the
+    warps' buffers (F 384: past 130; F 768: past 82): ``tc_scan.plan``,
+    which csrc/tc_scan.cuh computes too (scan_int8_tc_wide)."""
     if k > _NARROW_MAX:
         return True
-    if not tensor_core:
-        return False
-    nk = -(-f // 128)
-    used = (nk + 3) * _TC_STAGE_BYTES + 128 * k * 8 + 5 * 8
-    return used > _TC_SMEM
+    return tensor_core and tc_scan.plan(f, k, 1, False)["wide"]
 
 
 def plan_splits(n: int, q: int, k: int, device, tensor_core: bool = False,

@@ -17,7 +17,7 @@ import torch
 from pyarrowspace_tpu_torch import ArrowSpaceBuilder, GraphParams
 from pyarrowspace_tpu_torch.io import state_from_numpy
 from pyarrowspace_tpu_torch.ops.cuda import (extract, ivf_scan, knn,
-                                             scan_int8, scan_topk)
+                                             scan_int8, scan_topk, tc_scan)
 from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
 from pyarrowspace_tpu_torch.ops.quantize import quantize_rows
 
@@ -329,16 +329,23 @@ def test_scan_kernel_k5000(dev, monkeypatch, k, dtype, splits):
                             .astype(np.float32)).to(dev)
     lam[::5] = float("inf")
     lamq[3] = float("inf")
+    # bf16 rows of 16 features take the tensor-core route, whose lists are
+    # wide past what fits beside its ring (narrow at k 129 here) and whose
+    # wide lists stage tc_scan.SROW keys a query.
+    tc = dtype == "bfloat16"
+    is_wide = tc_scan.plan(16, k, 2, True)["wide"] if tc else True
+    staged = (tc_scan.SROW if is_wide else 0) if tc else scan_topk._STAGE
     if splits == "one":
-        monkeypatch.setattr(scan_topk, "SCRATCH_BYTES",
-                            q * 8 * (k + scan_topk._STAGE))
-    want = scan_topk.plan_splits(n, q, k, dev)
+        monkeypatch.setattr(scan_topk, "SCRATCH_BYTES", q * 8 * (k + staged))
+    want = scan_topk.plan_splits(n, q, k, dev, staged)
     assert (want[0] == 1) == (splits == "one") and want[1] == q
-    assert scan_topk.route_name(n, q, k, dev) == f"wide/S{want[0]}"
+    lists = f"{'wide' if is_wide else 'narrow'}/S{want[0]}"
+    assert scan_topk.route_of(xu, qn.to(xu.dtype), k).startswith(
+        ("tc/" if tc else "") + lists)
     wide = scan_topk.WIDE_LAUNCHES
     i, s = scan_topk.lambda_search(xu, lam, qn, lamq, TAU, k)
     torch.cuda.synchronize()
-    assert scan_topk.WIDE_LAUNCHES == wide + 1
+    assert scan_topk.WIDE_LAUNCHES == wide + is_wide
     ip, sp = scan_topk.scan_plain(xu, lam, qn, lamq, TAU, k)
     assert torch.equal(i, ip)
     assert torch.equal(s.view(torch.int32), sp.view(torch.int32))

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from pyarrowspace_tpu_torch.ops.cuda import ffma_tile as ft
+from pyarrowspace_tpu_torch.ops.cuda import tc_scan
+from pyarrowspace_tpu_torch.ops.cuda.subtile_max import tensor_core_route
 
 CSRC = Path(ft.__file__).resolve().parents[2] / "csrc"
 HEADER = (CSRC / "ffma_tile.cuh").read_text()
@@ -121,7 +123,8 @@ def test_mirror_plan_equals_the_header(tmp_path):
 @pytest.mark.parametrize("tma", [True, False])
 def test_every_route_fits_at_every_k(route, tma):
     """Every route (K1 narrow at 2 and 4 words, sym, wide, K1t, K2 over f32
-    and bf16: one plan, the stage's bytes are the type's 128-byte rows)
+    rows, and over ragged bf16 rows on the register-staged loader: one
+    plan, the stage's bytes are the type's 128-byte rows)
     fits a block's 232,448 bytes at every k <= 128, with at least 2
     stages, at least 3 when the next tile loads during the epilogue."""
     for k in range(1, 129):
@@ -206,19 +209,32 @@ def test_register_loader_stores_are_conflict_free():
 @pytest.mark.parametrize("f", [1, 3, 4, 31, 32, 33, 384, 768, 1000])
 @pytest.mark.parametrize("itemsize", [4, 2])
 def test_loader_from_f_and_alignment_alone(f, itemsize):
-    want = "tma" if (f * itemsize) % 16 == 0 else "regs"
+    """float32 rows TMA can read take the TMA ring; bf16 rows always the
+    register-staged loader, since the bf16 rows TMA could read (F % 8 ==
+    0) take K2's tensor-core route instead, whose plan fits at that F."""
+    tma_ok = (f * itemsize) % 16 == 0
+    want = "tma" if tma_ok and itemsize == 4 else "regs"
     assert ft.loader_name(f, itemsize, 0, 4096) == want
     assert ft.loader_name(f, itemsize, 8) == "regs"       # unaligned base
     assert ft.loader_name(f, itemsize, 16, 8) == "regs"
+    if itemsize == 2 and tma_ok:
+        assert tc_scan.plan(f, 15, 2, True)["bytes"] <= tc_scan.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_loader_of_tensors(dtype):
+    """The same shapes: float32 rows on TMA where aligned; bf16 rows on
+    the register-staged loader, the aligned ones being the tensor-core
+    route's (subtile_max.tensor_core_route)."""
     x = torch.zeros((64, 768), dtype=dtype)
-    assert ft.loader_of(x) == "tma"
-    assert ft.loader_of(x, x[3:]) == "tma"          # rows of 16-byte multiples
+    aligned = "tma" if dtype == torch.float32 else "regs"
+    assert ft.loader_of(x) == aligned
+    assert ft.loader_of(x, x[3:]) == aligned        # rows of 16-byte multiples
+    assert tensor_core_route(x, x[3:]) is (dtype == torch.bfloat16)
     odd = torch.zeros((64, 33), dtype=dtype)
     assert ft.loader_of(odd) == "regs"
+    assert not tensor_core_route(odd, odd)
     view = torch.zeros(64 * 8 + 1, dtype=dtype)[1:].view(64, 8)
     assert ft.loader_of(view) == "regs"             # an unaligned base
+    assert not tensor_core_route(view, view)
     assert np.all([ft.loader_name(8, 4, 32 * i) == "tma" for i in range(4)])
