@@ -32,7 +32,7 @@ from ..ops.ivf import IVFIndex, build_ivf, ivf_lambda_search
 from ..ops.quantize import quantize_rows
 from ..ops.rayleigh import rayleigh_batch
 from ..ops.subtile_scan import build_subtile_state
-from ..utils.debug import dbg_println
+from ..utils.debug import dbg_println, span
 from ..utils.logging import get_logger
 
 log = get_logger("serving")
@@ -55,6 +55,14 @@ _SLAB_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                 "f32": torch.float32, "float32": torch.float32}
 _MODES = ("auto", "exact", "int8", "subtile", "ivf", "ivf_block",
           "certified")
+
+
+def _to_host(*tensors) -> tuple:
+    """A search's results on the host as numpy arrays.  The copy of the
+    first waits for the work the call queued on its device, so the
+    ``search.to_host`` range holds that wait too."""
+    with span("search.to_host"):
+        return tuple(t.cpu().numpy() for t in tensors)
 
 
 class ArrowItem:
@@ -499,15 +507,15 @@ class ArrowSpace:
                               n_probe << n_widen)
             idx, vals, cert = ivf_ops.widen_refusals(
                 idx, vals, cert,
-                lambda sel, np2: self.search_batch(
+                lambda sel, np2: self._search_batch(
                     take(sel), gl, tau, topk=topk_eff, mode="ivf_block",
                     n_probe=np2, certify=True,
                     m_pool=base_m * max(1, np2 // n_probe), q_block=q_block),
                 topk_eff, n_probe, n_probe_max)
         idx, vals = ivf_ops.escalate_uncertified(
             idx, vals, cert,
-            lambda sel: self.search_batch(take(sel), gl, tau, topk=topk_eff,
-                                          mode="exact"),
+            lambda sel: self._search_batch(take(sel), gl, tau,
+                                           topk=topk_eff, mode="exact"),
             topk_eff)
         return idx, vals, rate0
 
@@ -646,7 +654,25 @@ class ArrowSpace:
         ivf_block with certificates, refusals re-probed at doubled n_probe
         (up to n_widen rounds, m_pool doubling with it over reduced-
         precision slabs) and the rest escalated to mode "exact".
-        enable_ivf() runs on demand for the ivf modes."""
+        enable_ivf() runs on demand for the ivf modes.
+
+        Under ``torch.profiler`` a call is one ``arrowspace:search`` range
+        holding, in order, ``search.query_lambda`` (query lambdas and unit
+        queries), ``search.scan``, ``search.rescore`` (the float32 rescore
+        of a pool: modes int8 and subtile) and ``search.to_host``;
+        certified serving's inner calls nest in its one range."""
+        with span("search"):
+            return self._search_batch(queries, gl, tau, topk=topk, mode=mode,
+                                      n_probe=n_probe, certify=certify,
+                                      n_widen=n_widen, m_pool=m_pool,
+                                      q_block=q_block)
+
+    def _search_batch(self, queries, gl: GraphLaplacian, tau: float,
+                      topk: Optional[int] = None, mode: str = "exact",
+                      n_probe: int = 8, certify: bool = False,
+                      n_widen: int = 2, m_pool: Optional[int] = None,
+                      q_block: Optional[int] = None):
+        """search_batch without its ``search`` range."""
         if certify and mode != "ivf_block":
             raise ValueError("certify=True requires mode='ivf_block'")
         if mode not in _MODES:
@@ -660,10 +686,10 @@ class ArrowSpace:
                            self.nitems)
             base_m = (m_pool if m_pool is not None
                       else max(4 * topk_eff, topk_eff + 6))
-            out = self.search_batch(q, gl, tau, topk=topk_eff,
-                                    mode="ivf_block", n_probe=n_probe,
-                                    certify=True, m_pool=base_m,
-                                    q_block=q_block)
+            out = self._search_batch(q, gl, tau, topk=topk_eff,
+                                     mode="ivf_block", n_probe=n_probe,
+                                     certify=True, m_pool=base_m,
+                                     q_block=q_block)
             idx, vals, _ = self._certified_finalize(
                 q, out, gl, tau, topk_eff, n_probe, n_widen, base_m,
                 q_block=q_block)
@@ -686,17 +712,20 @@ class ArrowSpace:
                 rescore_m=min(4 * topk, self.nitems),
                 rayleigh_normalized=self._rayleigh_normalized,
                 tau_mix=self._tau_mix)
-            return idx.cpu().numpy(), vals.cpu().numpy()
+            return _to_host(idx, vals)
         if mode == "ivf":
             if self._ivf is None:
                 self.enable_ivf()
-            idx, vals = ivf_lambda_search(
-                self._data_unit, self._lambdas, self._ivf, unit_normalize(q),
-                self._query_lambdas(q),
-                torch.as_tensor(tau, dtype=self._data.dtype,
-                                device=self.device),
-                n_probe=n_probe, topk=topk)
-            return idx.cpu().numpy(), vals.cpu().numpy()
+            with span("search.query_lambda"):
+                qn = unit_normalize(q)
+                lam_q = self._query_lambdas(q)
+            with span("search.scan"):
+                idx, vals = ivf_lambda_search(
+                    self._data_unit, self._lambdas, self._ivf, qn, lam_q,
+                    torch.as_tensor(tau, dtype=self._data.dtype,
+                                    device=self.device),
+                    n_probe=n_probe, topk=topk)
+            return _to_host(idx, vals)
         if mode == "subtile":
             if self._subtile is None:
                 self._subtile = build_subtile_state(
@@ -708,14 +737,14 @@ class ArrowSpace:
                 self._tau_star.to(f32), q.to(f32), float(tau), topk=topk,
                 rayleigh_normalized=self._rayleigh_normalized,
                 tau_mix=self._tau_mix)
-            return idx.cpu().numpy(), vals.cpu().numpy()
+            return _to_host(idx, vals)
         if mode == "ivf_block":
             out = self._ivf_block_dispatch(q, float(tau), topk, n_probe,
                                            certify, m_pool, q_block=q_block,
                                            pack_out=certify)
             if certify:
-                return ivf_ops.unpack_certified(out, topk)
-            return out[0].cpu().numpy(), out[1].cpu().numpy()
+                return ivf_ops.unpack_certified(_to_host(out)[0], topk)
+            return _to_host(out[0], out[1])
         tau_arg = (float(tau) if self.device.type == "cuda"
                    else torch.as_tensor(tau, dtype=self._data.dtype))
         idx, vals = search_ops.fused_query_pipeline(
@@ -723,7 +752,7 @@ class ArrowSpace:
             self._tau_star, q, tau_arg, topk=topk,
             rayleigh_normalized=self._rayleigh_normalized,
             tau_mix=self._tau_mix)
-        return idx.cpu().numpy(), vals.cpu().numpy()
+        return _to_host(idx, vals)
 
     def as_serving(self, dtype=None) -> "ArrowSpace":
         """A serving view: the scanned unit rows cast to ``dtype`` (default

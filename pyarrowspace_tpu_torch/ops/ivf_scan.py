@@ -38,6 +38,7 @@ import torch
 from .cuda.ivf_scan import NEG_INF, ivf_scan, slab_tiles
 from .distance import unit_normalize
 from .search import query_lambdas
+from ..utils.debug import span
 
 _F32 = torch.float32
 # Absolute slack of both certificates: absorbs the float32 summation-order
@@ -585,18 +586,22 @@ def blocked_ivf_search_fused(ivf: BlockedIVF, queries, lap_f, w_f, tau_star,
     returns one packed [Q, 2k + 1] tensor (pack_certified)."""
     from ..spectral.taumode import TAU_MIX
 
-    q32 = queries.to(_F32)
-    lam_q = query_lambdas(q32, lap_f.to(_F32), w_f.to(_F32),
-                          tau_star.to(_F32),
-                          rayleigh_normalized=rayleigh_normalized,
-                          tau_mix=TAU_MIX if tau_mix is None
-                          else float(tau_mix))
-    out = blocked_ivf_search(ivf, unit_normalize(q32), lam_q, tau, topk,
-                             n_probe=n_probe, q_block=q_block,
-                             certify=certify, margin=margin,
-                             rescore_corpus=rescore_corpus,
-                             rescore_lambdas=rescore_lambdas, m_pool=m_pool)
-    return pack_certified(*out) if (pack_out and certify) else out
+    with span("search.query_lambda"):
+        q32 = queries.to(_F32)
+        lam_q = query_lambdas(q32, lap_f.to(_F32), w_f.to(_F32),
+                              tau_star.to(_F32),
+                              rayleigh_normalized=rayleigh_normalized,
+                              tau_mix=TAU_MIX if tau_mix is None
+                              else float(tau_mix))
+        qn = unit_normalize(q32)
+    with span("search.scan"):
+        out = blocked_ivf_search(ivf, qn, lam_q, tau, topk,
+                                 n_probe=n_probe, q_block=q_block,
+                                 certify=certify, margin=margin,
+                                 rescore_corpus=rescore_corpus,
+                                 rescore_lambdas=rescore_lambdas,
+                                 m_pool=m_pool)
+        return pack_certified(*out) if (pack_out and certify) else out
 
 
 def widen_refusals(idx, vals, cert, run_certified, topk: int, n_probe: int,

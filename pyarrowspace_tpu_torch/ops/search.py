@@ -20,6 +20,7 @@ from .distance import unit_normalize
 from .rayleigh import dispersion_batch, rayleigh_batch
 from .subtile_scan import subtile_search
 from ..spectral.taumode import synthesize
+from ..utils.debug import span
 
 # Gathers of [queries, pool, F] rows (the int8 rescore, gather IVF, the
 # routed energy search) are chunked by queries to about this many bytes,
@@ -70,11 +71,13 @@ def fused_query_pipeline(xu: torch.Tensor, lambdas: torch.Tensor,
     """The serving step: query lambda synthesis, then the blended scan with
     a running top-k — kernel K2 on CUDA, its plain version on CPU.
     Returns (idx [Q, k] int32, vals [Q, k]) with k = min(topk, N)."""
-    lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
-                          rayleigh_normalized=rayleigh_normalized,
-                          tau_mix=tau_mix)
-    return scan_topk.lambda_search(xu, lambdas, unit_normalize(q_batch),
-                                   lam_q, tau, topk)
+    with span("search.query_lambda"):
+        lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
+                              rayleigh_normalized=rayleigh_normalized,
+                              tau_mix=tau_mix)
+        qn = unit_normalize(q_batch)
+    with span("search.scan"):
+        return scan_topk.lambda_search(xu, lambdas, qn, lam_q, tau, topk)
 
 
 def fused_query_pipeline_subtile(xu_scan: torch.Tensor, xu_f32: torch.Tensor,
@@ -89,10 +92,11 @@ def fused_query_pipeline_subtile(xu_scan: torch.Tensor, xu_f32: torch.Tensor,
     exact in the scan dtype by the block-max bound, and a pool of 2 x topk
     is rescored in float32, so the rescore can promote items past
     scan-dtype near-ties.  Returns (idx [Q, topk] int32, vals [Q, topk])."""
-    lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
-                          rayleigh_normalized=rayleigh_normalized,
-                          tau_mix=tau_mix)
-    qn = unit_normalize(q_batch.to(torch.float32))
+    with span("search.query_lambda"):
+        lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
+                              rayleigh_normalized=rayleigh_normalized,
+                              tau_mix=tau_mix)
+        qn = unit_normalize(q_batch.to(torch.float32))
     return subtile_search(xu_scan, xu_f32, lambdas_pad, qn,
                           lam_q.to(torch.float32), tau, n_real, topk=topk,
                           pool_m=2 * topk)
@@ -141,14 +145,17 @@ def fused_query_pipeline_quantized(
     """The int8 serving step: query lambda synthesis, the int8 candidate
     scan of a rescore_m pool (kernel K7 on CUDA, its plain version on CPU),
     and the exact float32 rescore of the pool."""
-    lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
-                          rayleigh_normalized=rayleigh_normalized,
-                          tau_mix=tau_mix)
-    qn = unit_normalize(q_batch.to(torch.float32))
-    cand_idx, _ = scan_int8.lambda_search_quantized(xq, scales, lambdas, qn,
-                                                    lam_q, tau, rescore_m)
-    return rescore_candidates(xu, lambdas, qn, lam_q, tau, cand_idx,
-                              topk=topk)
+    with span("search.query_lambda"):
+        lam_q = query_lambdas(q_batch, lap_f, w_f, tau_star,
+                              rayleigh_normalized=rayleigh_normalized,
+                              tau_mix=tau_mix)
+        qn = unit_normalize(q_batch.to(torch.float32))
+    with span("search.scan"):
+        cand_idx, _ = scan_int8.lambda_search_quantized(
+            xq, scales, lambdas, qn, lam_q, tau, rescore_m)
+    with span("search.rescore"):
+        return rescore_candidates(xu, lambdas, qn, lam_q, tau, cand_idx,
+                                  topk=topk)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:

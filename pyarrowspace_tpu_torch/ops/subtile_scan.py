@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from .cuda import extract, gather_score, subtile_max
+from ..utils.debug import span
 
 # Items per subtile (block-max granularity).
 SUBTILE = 64
@@ -148,43 +149,48 @@ def subtile_search(xu_scan: torch.Tensor, xu_f32: torch.Tensor,
         raise ValueError("corpus must be padded with build_subtile_state "
                          f"(N_pad={n_pad})")
     n_real = int(n_real)
-    # tau as a float32 scalar on the host: no device sync to read it back.
-    tau32 = torch.as_tensor(tau, dtype=torch.float32).cpu()
-    tau_f = float(tau32)
-    qn_scan = qn.to(xu_scan.dtype).contiguous()
-    lam32 = lambdas.to(torch.float32).contiguous()
-    lamq32 = lam_q.to(torch.float32).contiguous()
+    with span("search.scan"):
+        # tau as a float32 scalar on the host: no device sync to read it
+        # back.
+        tau32 = torch.as_tensor(tau, dtype=torch.float32).cpu()
+        tau_f = float(tau32)
+        qn_scan = qn.to(xu_scan.dtype).contiguous()
+        lam32 = lambdas.to(torch.float32).contiguous()
+        lamq32 = lam_q.to(torch.float32).contiguous()
 
-    # Phase a: routing maxima [Q, n_sub], partial and padded subtiles
-    # already handled.
-    sub = subtile_max.subtile_max(xu_scan, lam32, qn_scan, lamq32, tau_f,
-                                  n_real)
+        # Phase a: routing maxima [Q, n_sub], partial and padded subtiles
+        # already handled.
+        sub = subtile_max.subtile_max(xu_scan, lam32, qn_scan, lamq32,
+                                      tau_f, n_real)
 
-    s_keep = subtiles_kept(topk, n_pad // SUBTILE, n_subtiles_keep)
-    sub_sel = _select_subtiles(sub, n_real, s_keep)
+        s_keep = subtiles_kept(topk, n_pad // SUBTILE, n_subtiles_keep)
+        sub_sel = _select_subtiles(sub, n_real, s_keep)
 
-    m_pool = min(pool_m if pool_m is not None else topk, s_keep * SUBTILE)
-    m_pool = max(m_pool, min(topk, s_keep * SUBTILE))
+        m_pool = min(pool_m if pool_m is not None else topk,
+                     s_keep * SUBTILE)
+        m_pool = max(m_pool, min(topk, s_keep * SUBTILE))
 
-    # Phase b: each query's dot with its selected subtiles' rows, blended
-    # with the op order of K3.
-    cos_b = gather_score.gather_score(xu_scan, qn_scan, sub_sel)
-    score_b, cand = phase_b_scores(cos_b, sub_sel, lam32, lamq32, tau32,
-                                   n_real)
+        # Phase b: each query's dot with its selected subtiles' rows,
+        # blended with the op order of K3.
+        cos_b = gather_score.gather_score(xu_scan, qn_scan, sub_sel)
+        score_b, cand = phase_b_scores(cos_b, sub_sel, lam32, lamq32, tau32,
+                                       n_real)
 
-    # Pool cut.
-    if m_pool <= _EXTRACT_POOL_MAX:
-        pool_idx = extract.extract_pool(score_b, cand, m_pool)
-    else:
-        pos = torch.sort(score_b, dim=1, descending=True, stable=True).indices
-        pool_idx = torch.gather(cand, 1, pos[:, :m_pool])
+        # Pool cut.
+        if m_pool <= _EXTRACT_POOL_MAX:
+            pool_idx = extract.extract_pool(score_b, cand, m_pool)
+        else:
+            pos = torch.sort(score_b, dim=1, descending=True,
+                             stable=True).indices
+            pool_idx = torch.gather(cand, 1, pos[:, :m_pool])
 
     # Phase c: exact float32 rescore of the pool.
-    pool = pool_idx.to(torch.int64)
-    xc = xu_f32[pool]                                    # [Q, m, F]
-    cos = torch.bmm(xc, qn.to(torch.float32)[:, :, None])[:, :, 0]
-    proxp = 1.0 / (1.0 + torch.abs(lam32[pool] - lamq32[:, None]))
-    s = tau32 * cos + (1.0 - tau32) * proxp
-    s = s.masked_fill(pool_idx >= n_real, _NEG_INF)
-    vals, posk = torch.sort(s, dim=1, descending=True, stable=True)
-    return torch.gather(pool_idx, 1, posk[:, :topk]), vals[:, :topk]
+    with span("search.rescore"):
+        pool = pool_idx.to(torch.int64)
+        xc = xu_f32[pool]                                # [Q, m, F]
+        cos = torch.bmm(xc, qn.to(torch.float32)[:, :, None])[:, :, 0]
+        proxp = 1.0 / (1.0 + torch.abs(lam32[pool] - lamq32[:, None]))
+        s = tau32 * cos + (1.0 - tau32) * proxp
+        s = s.masked_fill(pool_idx >= n_real, _NEG_INF)
+        vals, posk = torch.sort(s, dim=1, descending=True, stable=True)
+        return torch.gather(pool_idx, 1, posk[:, :topk]), vals[:, :topk]

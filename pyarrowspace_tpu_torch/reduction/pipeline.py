@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..utils import prng
-from ..utils.debug import dbg_println
+from ..utils.debug import dbg_println, span
 from ..utils.logging import get_logger
 from ..utils.stats import median, segment_sum
 
@@ -382,7 +382,9 @@ def reduce_corpus(x: torch.Tensor, seed: int = 42,
     assignments for the FULL corpus.  reseed_empty=True clusters with
     lloyd_reseed (the serving clustering of enable_ivf) instead of plain
     Lloyd.  At keep_rate=1.0 the sample is the whole corpus and is not
-    gathered (a second copy of a 1M x 768 corpus is 3 GB)."""
+    gathered (a second copy of a 1M x 768 corpus is 3 GB).  Its steps are
+    the ranges ``reduction.twonn``, ``.select_k``, ``.lloyd`` and
+    ``.assign`` of a ``torch.profiler`` trace (utils/debug.py::span)."""
     n = x.shape[0]
     rng = np.random.default_rng(seed)
     n_keep = max(2, int(round(n * keep_rate)))
@@ -394,24 +396,28 @@ def reduce_corpus(x: torch.Tensor, seed: int = 42,
     dbg_println(msg)
     log_sampling.debug(msg)
 
-    idim, mlm = twonn_intrinsic_dim(xs, seed=seed)
+    with span("reduction.twonn"):
+        idim, mlm = twonn_intrinsic_dim(xs, seed=seed)
     msg = f"reduction: TwoNN mean-log-ratio={mlm:.4f} -> ID={idim}"
     dbg_println(msg)
     log_clustering.debug(msg)
 
-    k = (k_clusters if k_clusters is not None
-         else select_k_searched(xs, n_keep, idim, eps_hint, seed=seed))
+    with span("reduction.select_k"):
+        k = (k_clusters if k_clusters is not None
+             else select_k_searched(xs, n_keep, idim, eps_hint, seed=seed))
     k = min(k, n_keep)
     msg = f"reduction: clustering K={k}"
     dbg_println(msg)
     log_clustering.debug(msg)
 
-    init_sel = rng.choice(n_keep, size=k, replace=False)
-    if reseed_empty:
-        centroids, _ = lloyd_reseed(xs, _index(xs, init_sel), n_iters,
-                                    seed=seed)
-    else:
-        centroids, _ = _lloyd(xs, _index(xs, init_sel), n_iters)
-    assignments = _assign_argmin(x, centroids)
+    with span("reduction.lloyd"):
+        init_sel = rng.choice(n_keep, size=k, replace=False)
+        if reseed_empty:
+            centroids, _ = lloyd_reseed(xs, _index(xs, init_sel), n_iters,
+                                        seed=seed)
+        else:
+            centroids, _ = _lloyd(xs, _index(xs, init_sel), n_iters)
+    with span("reduction.assign"):
+        assignments = _assign_argmin(x, centroids)
     return ReductionResult(centroids=centroids, assignments=assignments,
                            intrinsic_dim=idim, n_sampled=n_keep, k_clusters=k)

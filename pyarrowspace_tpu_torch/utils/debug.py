@@ -2,11 +2,12 @@
 
 Same user-facing contract as the reference binding's debug facility
 (reference src/helpers.rs:8-21): ``set_debug(bool)`` toggles
-``[pyarrowspace] ...`` lines on stderr.  ``phase`` times a named pipeline
-stage; on a CUDA device it ends with ``torch.cuda.synchronize()`` so each
-timing covers the work its stage enqueued (kernel launches return before
-the device finishes), and it labels the stage in ``torch.profiler`` traces
-(``arrowspace:<name>``); ``profile_trace`` records such a trace.
+``[pyarrowspace] ...`` lines on stderr.  ``span`` labels a region
+``arrowspace:<name>`` in a ``torch.profiler`` trace while one records, and
+costs a flag read otherwise.  ``phase`` times a named pipeline stage inside
+such a span; on a CUDA device it ends with ``torch.cuda.synchronize()`` so
+each timing covers the work its stage enqueued (kernel launches return
+before the device finishes).  ``profile_trace`` records such a trace.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import threading
 import time
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 _DEBUG = threading.Event()
 
@@ -46,6 +48,22 @@ def dbg_println(msg: str) -> None:
         print(f"[pyarrowspace] {msg}", file=sys.stderr, flush=True)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context labelling its region ``arrowspace:<name>`` in a
+    ``torch.profiler`` trace (a ``record_function`` range) while a profiler
+    records, and doing nothing otherwise.  It never synchronises, reads no
+    tensor and allocates nothing on the device, so it may sit on the
+    serving path; the profiler holds the range beside the operations the
+    region launches.  Names separate levels with ``.``
+    (``search.to_host``)."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(f"arrowspace:{name}")
+
+
 @contextlib.contextmanager
 def phase(name: str, device: torch.device | str | None = None):
     """Time a named pipeline phase into the phase-timing table.  Pass the
@@ -54,7 +72,7 @@ def phase(name: str, device: torch.device | str | None = None):
     t0 = time.perf_counter()
     dbg_println(f"phase:{name} start")
     try:
-        with torch.profiler.record_function(f"arrowspace:{name}"):
+        with span(name):
             yield
         if device is not None and torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
