@@ -8,7 +8,8 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   0. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc time of each kernel library (one nvcc each,
      all started together); ptxas's registers and spills of
-     K1, K2, K3, K5, K7 and K6 (K1's also by walk, symmetric and full; K2's
+     K1, K2, K3, K5, K7 and K6 (K3's also by route, tensor-core or SIMT;
+     K1's also by walk, symmetric and full; K2's
      and K7's also by route, csrc/tc_scan.cuh's tensor-core block with its
      queries resident or streamed, or SIMT; K6's also by route, narrow and
      wide, with its resident blocks an SM at k 15 and 260);
@@ -60,8 +61,8 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      mode="auto", over the same 8 batches, each after a warm-up, with the
      counts reset before each: K3, K4b, K5 and K4a must all have run, K3
      and K5 on their tensor-core route (the bf16 state; the route is
-     printed), each query's source row must rank first and the mean
-     top-15 overlap with
+     printed), every K3 launch in clusters, each query's source row must
+     rank first and the mean top-15 overlap with
      phase 3's exact results must be at least 0.99.  Those modes route in
      bf16, so a query may lose an item whose float32 score makes the top
      15 but whose bf16 score misses the pool; such queries are counted.
@@ -74,7 +75,9 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
      phase 5 (maxima and cosines within 1e-5, ids identical), timed in
      turns (K4b and K4a by device time alone, _device_ms: their calls last
      tens of microseconds, under the host's launch overhead), each with
-     its route and ptxas's registers and spills, K5 with its no-reuse read
+     its route (K3's with its cluster, and its launch counters: all, on
+     the tensor cores, in clusters, in one-block clusters) and ptxas's
+     registers and spills, K5 with its no-reuse read
      (each query reading its subtiles' rows itself, the old design's
      floor) beside its bound; the block-max check: for every query and
      each of its selected subtiles, the best of phase b's blended scores
@@ -291,7 +294,8 @@ rows and at k 100, 200 and 1,024, K1t at k 25 over 16,384 rows, K2 at Q
 1,024 (both over float32 and bfloat16 rows), the build seconds with the knn phase, exact QPS, K3 and K5 at
 phase 6's shapes, K3 over a 1,000,000 x 768 bf16 corpus made from a
 seeded generator with 16,384 queries (each K3 held against its plain
-version on 1,024 queries, not against this tree's bits) and K2 over those
+version on 1,024 queries, and its maxima, at phase 6's shapes and (a
+digest) at 1M, against this tree's bits) and K2 over those
 bf16 rows at k 15 in turns with K3 (its ids held against its plain
 version on the first 1,024 queries), the bf16 view's QPS, K4b and K4a at
 phase 6's shapes and on that corpus's maxima and phase b (each in turns
@@ -307,7 +311,7 @@ last 9,416 rows and at k 200 and 1,024), lambdas, exact top-k ids, K2's
 lists over float32 rows at k 200 and 1,024 (its lists over bf16 rows are
 held to its plain version and to k5_blend in each turn, not across trees:
 the routes sum in other orders), K4b and K4a ids and K6 and K7 outputs (ids and
-scores) must equal this tree's bit for bit.
+scores) and K3's maxima must equal this tree's bit for bit.
 """
 
 from __future__ import annotations
@@ -555,6 +559,8 @@ def _reset_launches() -> None:
         mod.LAUNCHES = 0
     ivf_scan.WIDE_LAUNCHES = 0
     subtile_max.TC_LAUNCHES = gather_score.TC_LAUNCHES = 0
+    if hasattr(subtile_max, "CLUSTER_LAUNCHES"):
+        subtile_max.CLUSTER_LAUNCHES = 0
     scan_int8.TC_LAUNCHES = 0
     extract.IDS_LAUNCHES = extract.POOL_LAUNCHES = 0
     knn.SEEDED_LAUNCHES = knn.DIAG_START_LAUNCHES = knn.PERM_LAUNCHES = 0
@@ -587,6 +593,8 @@ def _launches() -> dict:
             "scan_topk_tc": getattr(scan_topk, "TC_LAUNCHES", 0),
             "subtile_max": subtile_max.LAUNCHES,
             "subtile_max_tc": getattr(subtile_max, "TC_LAUNCHES", 0),
+            "subtile_max_cluster": getattr(subtile_max, "CLUSTER_LAUNCHES",
+                                           0),
             "extract_ids": extract.IDS_LAUNCHES,
             "extract_pool": extract.POOL_LAUNCHES,
             "gather_score": gather_score.LAUNCHES,
@@ -682,6 +690,8 @@ def _phase_subtile_serving(torch, aspace, gl, batches, src, outs_exact,
         for name in ("subtile_max", "gather_score"):
             checks[f"{mode}: {name} on the tensor-core route"] = (
                 launches[f"{name}_tc"] == launches[name] > 0)
+        checks[f"{mode}: subtile_max in clusters"] = (
+            launches["subtile_max_cluster"] == launches["subtile_max"])
         checks[f"{mode}: source row first"] = top1
         checks[f"{mode}: overlap >= {MIN_OVERLAP}"] = overlap >= MIN_OVERLAP
         checks[f"{mode}: result shapes"] = all(
@@ -807,7 +817,7 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
     # K5's old design read each query's subtiles itself: its floor.
     no_reuse_ms = (q * s_keep * 64 * f * elt) / HBM_BYTES_PER_S * 1e3
     route = subtile_max.route_name(xs, qs)
-    routes = {"subtile_max": route, "gather_score": route,
+    routes = {"subtile_max": subtile_max.LAST_ROUTE, "gather_score": route,
               "extract_ids": _select_route(extract, sub, s_keep),
               "extract_pool": _select_route(extract, score_b, m_pool)}
     from pyarrowspace_tpu_torch import _build
@@ -826,6 +836,10 @@ def _phase_subtile_kernels(torch, aspace, batches, card, results) -> None:
           f"reading its {s_keep} subtiles itself would move "
           f"{q * s_keep * 64 * f * elt / 1e9:.3f} GB ({no_reuse_ms:.3f} ms "
           f"at 3.35 TB/s, the old design's floor) {card}")
+    print(f"phase 6: K3 launches {subtile_max.LAUNCHES}, on the tensor "
+          f"cores {subtile_max.TC_LAUNCHES}, in clusters "
+          f"{subtile_max.CLUSTER_LAUNCHES}; last route "
+          f"{subtile_max.LAST_ROUTE}")
     print(f"phase 6: K3 max_abs_err {err3:.3e} over {real} real subtiles, "
           f"sentinels equal {sentinels}; K4b ids identical {sel_same} "
           f"(S={s_keep}); K5 max_abs_err {err5:.3e}; K4a ids identical "
@@ -915,6 +929,8 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
                        .cpu().numpy())
     k3_ms = sum(_events_ms(lambda: subtile_max.subtile_max(
         xs, lam, qs, lamq, TAU, n_real), torch) for _ in range(2)) / 2
+    k3_route = getattr(subtile_max, "LAST_ROUTE",
+                       subtile_max.route_name(xs, qs))
     k5_ms = sum(_events_ms(lambda: gather_score.gather_score(xs, qs, sel),
                            torch) for _ in range(2)) / 2
     # The selects at phase 6's shapes, K4b and K4a each in turns with
@@ -928,7 +944,9 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
     gen.manual_seed(3)
     perm = torch.argsort(torch.rand(sub.shape, generator=gen, device=dev),
                          dim=1).to(torch.int32)
-    k4, dump, same = {}, {}, {}
+    # K3's maxima, kept for the comparison across trees: every tree's
+    # tensor-core K3 gives the same bits.
+    k4, dump, same = {}, {"k3_maxima": sub.cpu().numpy()}, {}
 
     def k4_turns(name, kernel, other, plain):
         out = kernel()
@@ -993,6 +1011,8 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
                          + Q1M * ((F1M + 1) * 4 + topk * 8))
     # The selects at the 1M shape, on this corpus's K3 maxima and phase b.
     sub1 = subtile_max.subtile_max(x1, lam1, q1, lq1, TAU, N1M)
+    dump["k3_maxima_1m_sha256"] = np.frombuffer(hashlib.sha256(
+        sub1.cpu().numpy().tobytes()).digest(), np.uint8)
     s1 = subtile_scan.subtiles_kept(GP["topk"], sub1.shape[1])
     sel1 = extract.extract_ids(sub1, s1)
     score1, cand1 = subtile_scan.phase_b_scores(
@@ -1016,7 +1036,8 @@ def _phase_subtile_ab(torch, aspace, gl, batches, dev, card,
         print(f"phase 6b: {name} {k4[name + '_ms']:.4f} ms, plain "
               f"{k4[name + '_plain_ms']:.4f} ms in turns; ids identical: "
               f"{same[name]} {card}")
-    print(f"phase 6b: K3 {k3_ms:.3f} ms, K5 {k5_ms:.3f} ms at Q={qs.shape[0]} "
+    print(f"phase 6b: K3 ({k3_route} route) {k3_ms:.3f} ms, K5 "
+          f"{k5_ms:.3f} ms at Q={qs.shape[0]} "
           f"N_pad={xs.shape[0]} F={xs.shape[1]} (max_abs_err {err3:.3e} / "
           f"{err5:.3e}); K3 {N1M}x{F1M} bf16, Q={Q1M}: {k3_1m_ms:.3f} ms "
           f"(max_abs_err {err1m:.3e} on {Q1M_CHECK} queries) {card}")
@@ -1233,6 +1254,7 @@ def _phase_north_star(torch, dev, card, results) -> None:
                                   TAU, st["n_real"])
     k3_ms = _events_ms(lambda: subtile_max.subtile_max(
         st["xu_scan"], st["lambdas"], qs, lamq, TAU, st["n_real"]), torch)
+    route = subtile_max.LAST_ROUTE
     k4 = _selects_1m(torch, extract, gather_score, subtile_scan, st, qs,
                      lamq, sub, card)
     del sub
@@ -1276,7 +1298,6 @@ def _phase_north_star(torch, dev, card, results) -> None:
     # The real subtiles' rows only, as in phase 6.
     rows_k3 = -(-st["n_real"] // 64) * 64
     k3_bound = _bound(2.0 * Q1M * rows_k3 * F1M, "bf16", 0.0)
-    route = subtile_max.route_name(st["xu_scan"], qs)
     print(f"phase 7: top-{topk} overlap subtile vs exact on {Q1M_CHECK} "
           f"queries {overlap:.6f}; K3 alone ({route} route) {k3_ms:.3f} ms "
           f"a batch of {Q1M}, bound "
@@ -3433,6 +3454,12 @@ def _tc_route_of(entry: str):
                                entry) else None
 
 
+def _k3_route_of(entry: str):
+    """K3's kernels by route: the tensor-core kernel or the SIMT ones."""
+    return ("tc" if "subtile_max_tc_kernel" in entry else
+            "simt" if "subtile_max_kernel" in entry else None)
+
+
 def _k1_route_of(entry: str):
     """K1's narrow kernels by walk: the symmetric route (SYM true) or the
     full walk."""
@@ -3471,7 +3498,8 @@ def _turn_line(line: str) -> bool:
     finds the libraries), ptxas's reports, and the phases' launches with
     their routes (and the product's loader, where the tree has two)."""
     return "ptxas" in line or line.startswith(
-        ("phase 6b: K2", "phase 0: built", "phase 0: all kernels")) or (
+        ("phase 6b: K2", "phase 6b: K3", "phase 0: built",
+         "phase 0: all kernels")) or (
         line.startswith(("phase 1:", "phase 2:", "phase 11:"))
         and ("route" in line or "(narrow/" in line or "(wide/" in line))
 
@@ -3566,6 +3594,8 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
     for name in ("knn", "knn_t", "scan_topk", "subtile_max", "gather_score",
                  "scan_int8", "ivf_scan"):
         print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
+    print(f"phase 0: ptxas csrc/subtile_max.cu by route: "
+          f"{_ptxas_routes(_build, 'subtile_max', _k3_route_of)}")
     print(f"phase 0: ptxas csrc/knn.cu's narrow kernels by walk: "
           f"{_ptxas_routes(_build, 'knn', _k1_route_of)}")
     for name in ("knn", "knn_t", "scan_topk"):

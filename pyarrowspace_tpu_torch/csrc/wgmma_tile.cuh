@@ -320,6 +320,53 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// -- thread-block clusters -----------------------------------------------
+//
+// A launch with no cluster attribute is a cluster of one block: rank 0 of
+// size 1, and every helper below works there too.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster that has not exited: the writes before it
+// (barrier inits included) are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+// Arrive on the barrier at bar's offset in the shared memory of block cta
+// of the cluster (this block's own when cta is its rank), with bar_arrive's
+// semantics (a release at the scope of the block: one at the cluster's
+// scope, after each stage, stalled K3's products in flight).
+__device__ __forceinline__ void bar_arrive_cluster(uint64_t* bar,
+                                                   uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+// tma_load into dst's offset in the shared memory of every block of the
+// cluster in cta_mask (bit r: rank r), each copy counted against the
+// barrier at bar's offset in its own block.
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int feature,
+                                                   int row,
+                                                   uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+      "r"(feature), "r"(row), "h"(cta_mask)
+      : "memory");
+}
+
 // -- host: tensor maps ---------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -17,11 +17,20 @@ bit for bit: the bf16 tensor-core kernel (``csrc/wgmma_tile.cuh``) for a
 bf16 state with F % 8 == 0 and 16-byte-aligned bases, else the SIMT kernel
 (the fmaf chain of ``csrc/tile_common.cuh``).  A failed build or launch
 raises; nothing falls back to the other route or to the plain version.
+
+The tensor-core kernel runs at every shape in thread-block clusters whose
+blocks scan neighbouring pairs of subtiles against one query block and
+share its loads; ``plan_tensor_core`` sizes the persistent grid from what
+the launch can observe (the real subtiles, the query blocks) and from the
+kernel's shape and the clusters the device holds at once, which the
+library reports (``tc_shape``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,9 +39,13 @@ from ... import _build
 SUBTILE = 64
 
 # Kernel launches since import (or since the caller last reset it): all
-# of them, and those of the tensor-core route.
+# of them, those of the tensor-core route, and those that ran in clusters
+# of more than one block (every tensor-core launch: see tc_shape).
 LAUNCHES = 0
 TC_LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
+# The route of the last launch: "simt", or "tensor-core/cluster<n>".
+LAST_ROUTE = None
 
 # The launcher's route codes.
 _SIMT_F32, _SIMT_BF16, _TENSOR_CORE = 0, 1, 2
@@ -87,14 +100,79 @@ def route_name(xu: torch.Tensor, qn: torch.Tensor) -> str:
     return "tensor-core" if tensor_core_route(xu, qn) else "simt"
 
 
+class TensorCoreShape(NamedTuple):
+    """The tensor-core kernel's shape as ``csrc/subtile_max.cu`` reports
+    it, and the clusters of it that the device holds at once."""
+    pair: int          # subtiles a tile, one a consumer warpgroup
+    cluster: int       # blocks a cluster
+    threads: int       # threads a block
+    query_block: int   # queries a tile
+    active: int        # clusters the device holds at once
+
+
+@functools.lru_cache(maxsize=None)
+def tc_shape(device_index: int) -> TensorCoreShape:
+    """The tensor-core kernel's shape on a device (a property of the device
+    and the kernel)."""
+    lib = _lib()
+    shape = (ctypes.c_int * 5)()
+    _build.check(lib, "subtile_max", lib.subtile_max_tc_shape(device_index,
+                                                               shape))
+    return TensorCoreShape(*shape)
+
+
+def plan_tensor_core(n_real: int, n_sub: int, q: int,
+                     shape: TensorCoreShape) -> int:
+    """Blocks of a tensor-core launch, a whole number of clusters: as many
+    clusters as the device holds, or as there are cluster tiles (a column
+    of ``cluster`` pairs of subtiles against a block of queries) if fewer.
+    With no real subtile the blocks only write the sentinels, as many as
+    that fill wants.  A device that holds no cluster gets one, and the
+    launch fails."""
+    real = -(-n_real // SUBTILE)
+    tiles = (-(-real // (shape.pair * shape.cluster))
+             * -(-q // shape.query_block))
+    if tiles == 0:
+        tiles = -(-q * (n_sub - real) // (shape.threads * shape.cluster))
+    return shape.cluster * max(1, min(shape.active, tiles))
+
+
+def walk_tensor_core(n_real: int, q: int, blocks: int,
+                     shape: TensorCoreShape) -> list:
+    """``csrc/subtile_max.cu``'s ``Walk`` written out, for the tests of the
+    plan (edit the two together): (block, warpgroup, subtile, query block)
+    for each tile a block takes, the subtiles past the real ones of a
+    partial last pair or column too.  Cluster tile t is column t / n_qt
+    and query block t % n_qt; cluster c takes t = c, c + n_clusters, ...;
+    rank r of the cluster takes pair column * cluster + r of each."""
+    real = -(-n_real // SUBTILE)
+    pairs = -(-real // shape.pair)
+    n_qt = -(-q // shape.query_block)
+    n_clusters = blocks // shape.cluster
+    n_ct = -(-pairs // shape.cluster) * n_qt
+    visits = []
+    for b in range(blocks):
+        c, rank = divmod(b, shape.cluster)
+        tiles = (n_ct - 1 - c) // n_clusters + 1 if c < n_ct else 0
+        for i in range(tiles):
+            column, j = divmod(c + i * n_clusters, n_qt)
+            for g in range(shape.pair):
+                s = shape.pair * (column * shape.cluster + rank) + g
+                visits.append((b, g, s, j))
+    return visits
+
+
 def _lib():
     lib = _build.load("subtile_max")
     lib.subtile_max_launch.restype = ctypes.c_int
     lib.subtile_max_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.subtile_max_tc_shape.restype = ctypes.c_int
+    lib.subtile_max_tc_shape.argtypes = [ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -103,7 +181,7 @@ def subtile_max(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     """[Q, N_pad / 64] float32 routing maxima: xu [N_pad, F] (float32 or
     bfloat16, N_pad a multiple of 64) with lambdas lam [N_pad] float32,
     queries qn [Q, F] of xu's dtype with lambdas lam_q [Q] float32."""
-    global LAUNCHES, TC_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, CLUSTER_LAUNCHES, LAST_ROUTE
     if xu.dim() != 2 or qn.dim() != 2 or qn.shape[1] != xu.shape[1]:
         raise ValueError(f"shapes xu {tuple(xu.shape)} / qn "
                          f"{tuple(qn.shape)} do not match")
@@ -144,12 +222,20 @@ def subtile_max(xu: torch.Tensor, lam: torch.Tensor, qn: torch.Tensor,
     route = (_TENSOR_CORE if tc else
              _SIMT_BF16 if xu.dtype == torch.bfloat16 else _SIMT_F32)
     lib = _lib()
+    index = device.index or 0
+    cluster = blocks = 1            # the SIMT routes ignore blocks
+    if tc:
+        shape = tc_shape(index)
+        cluster = shape.cluster
+        blocks = plan_tensor_core(int(n_real), n_sub, q, shape)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.subtile_max_launch(
         xu.data_ptr(), lam.data_ptr(), n_sub, f, int(n_real), qn.data_ptr(),
-        lam_q.data_ptr(), q, float(tau), route, out.data_ptr(),
-        device.index or 0, stream)
+        lam_q.data_ptr(), q, float(tau), route, blocks, out.data_ptr(),
+        index, stream)
     _build.check(lib, "subtile_max", err)
     LAUNCHES += 1
     TC_LAUNCHES += tc
+    CLUSTER_LAUNCHES += tc and cluster > 1
+    LAST_ROUTE = f"tensor-core/cluster{cluster}" if tc else "simt"
     return out

@@ -529,3 +529,118 @@ def test_search_batch_subtile_and_auto_on_card(dev, monkeypatch):
     assert all(b == a_ - 2 for a_, b in zip(after, before))
     assert np.array_equal(sub[0], auto[0]) and np.array_equal(sub[1], auto[1])
     assert topk_disagreements(sub[1], sub[0], exact[1], exact[0], TOL) == []
+
+
+# -- the tensor-core schedule's tails (ping-pong warpgroups, clusters) ----------
+
+def _dyadic_case(dev, seed, n_pad, n_real, q, f):
+    """Entries in {-1, -0.5, 0, 0.5, 1}: exact in bf16, and every product
+    sum exact in float32, so the plain version's matmul gives the tensor
+    cores' bits in any order."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_pad, f), np.float32)
+    x[:n_real] = rng.integers(-2, 3, (n_real, f)) / 2
+    lam = np.full(n_pad, -2.0, np.float32)
+    lam[:n_real] = rng.uniform(0.05, 0.3, n_real)
+    qn = (rng.integers(-2, 3, (q, f)) / 2).astype(np.float32)
+    lamq = rng.uniform(0.05, 0.3, q).astype(np.float32)
+    return (torch.from_numpy(x).to(dev).to(torch.bfloat16),
+            torch.from_numpy(lam).to(dev),
+            torch.from_numpy(qn).to(dev).to(torch.bfloat16),
+            torch.from_numpy(lamq).to(dev))
+
+
+def _launch_counted(xu, lam, qn, lamq, n_real):
+    """K3 on the tensor cores, with the counters its one launch moved."""
+    before = (subtile_max.TC_LAUNCHES, subtile_max.CLUSTER_LAUNCHES)
+    got = subtile_max.subtile_max(xu, lam, qn, lamq, TAU, n_real)
+    torch.cuda.synchronize()
+    moved = (subtile_max.TC_LAUNCHES - before[0],
+             subtile_max.CLUSTER_LAUNCHES - before[1])
+    return got, moved
+
+
+# Real subtiles 1 and 2 (one pair: the cluster's second block takes only
+# subtiles past the real ones), 3 (two pairs, one cluster, the last pair
+# half empty), 5 (the last cluster's second pair empty) and 131 (odd, more
+# tiles than at small Q); n_real never a multiple of 64; two dead subtiles
+# past the real ones.
+@pytest.mark.parametrize("q", [1, 255, 256, 257, 6980])
+@pytest.mark.parametrize("real", [1, 2, 3, 5, 131])
+def test_subtile_max_schedule_tails_bitwise(dev, q, real):
+    """K3's maxima equal the plain version's and phase b's best scores bit
+    for bit, the sentinels too, at each tail of the schedule; the launch
+    runs in clusters at every size."""
+    f = 64
+    n_real = real * 64 - 23
+    n_pad = (real + 2) * 64
+    xu, lam, qn, lamq = _dyadic_case(dev, real * 7 + q, n_pad, n_real, q, f)
+    assert subtile_max.tensor_core_route(xu, qn)
+    got, moved = _launch_counted(xu, lam, qn, lamq, n_real)
+    assert moved == (1, 1)
+    assert subtile_max.LAST_ROUTE == "tensor-core/cluster2"
+    ref = subtile_max.subtile_max_plain(xu, lam, qn, lamq, TAU, n_real)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    sub, best = _block_max(dev, xu, lam, qn, lamq, n_real)
+    assert torch.equal(best.view(torch.int32), sub.view(torch.int32))
+
+
+def test_subtile_max_grid_smaller_than_the_card(dev):
+    """Fewer cluster tiles than the card holds clusters: the grid shrinks
+    to them, and the maxima hold."""
+    real, q, f = 7, 300, 128
+    n_real = real * 64 - 5
+    xu, lam, qn, lamq = _dyadic_case(dev, 77, 1024, n_real, q, f)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = subtile_max.tc_shape(dev.index or 0)
+    assert shape.cluster == 2 and shape.active > 0
+    blocks = subtile_max.plan_tensor_core(n_real, 1024 // 64, q, shape)
+    assert blocks < sms
+    assert blocks == 2 * 2 * 2     # 2 columns of pairs x 2 query blocks
+    got, moved = _launch_counted(xu, lam, qn, lamq, n_real)
+    assert moved == (1, 1)
+    ref = subtile_max.subtile_max_plain(xu, lam, qn, lamq, TAU, n_real)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_subtile_max_one_warpgroup_off_the_fast_path(dev):
+    """600 real subtiles against 2 query blocks, each block taking many
+    tiles: the warpgroup of subtile 101 (a row's lambda 1.5 * 2^62; its
+    pair partner 100 on the other warpgroup), of subtile 350 (partner 351)
+    and both of every tile of query block 1 (a query's 2^100) blend with
+    tile::blend's division, while every other tile, the partners' included,
+    takes the fast path.  K3 equals phase b bit for bit, and the plain
+    version within TOL."""
+    real, q, f = 600, 300, 96
+    n_real = real * 64 - 9
+    rng, xu, lam = _corpus(dev, 12, (real + 1) * 64, f, torch.bfloat16,
+                           n_real)
+    qn = torch.from_numpy(_unit(rng, q, f)).to(dev).to(xu.dtype)
+    lamq = torch.from_numpy(rng.uniform(0.05, 0.3, q).astype(np.float32))
+    lamq = lamq.to(dev)
+    lam[64 * 101 + 3] = 1.5 * 2.0 ** 62
+    lam[64 * 350 + 60] = 1.5 * 2.0 ** 62
+    lamq[290] = 2.0 ** 100
+    tc = subtile_max.CLUSTER_LAUNCHES
+    sub, best = _block_max(dev, xu, lam, qn, lamq, n_real)
+    assert subtile_max.CLUSTER_LAUNCHES == tc + 1
+    assert torch.isfinite(sub).all()
+    assert torch.equal(best.view(torch.int32), sub.view(torch.int32))
+    ref = subtile_max.subtile_max_plain(xu, lam, qn, lamq, TAU, n_real)
+    torch.testing.assert_close(sub, ref[:, :real], rtol=0, atol=TOL)
+
+
+def test_cluster_launches_on_the_main_path(dev):
+    """search_batch(mode="subtile") on a bf16 state of F 24 launches K3
+    once, clustered, on a corpus of many subtiles and on one of a single
+    real subtile."""
+    rng = np.random.default_rng(5)
+    gp = {"eps": 0.9, "k": 8, "topk": 5, "p": 2.0, "sigma": 0.4}
+    for n in (2000, 60):
+        items = rng.standard_normal((n, 24)).astype(np.float32) + 0.2
+        a, gl = ArrowSpaceBuilder.build(gp, items)
+        before = (subtile_max.TC_LAUNCHES, subtile_max.CLUSTER_LAUNCHES)
+        a.search_batch(items[:30] * 1.01, gl, TAU, mode="subtile")
+        assert (subtile_max.TC_LAUNCHES, subtile_max.CLUSTER_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert subtile_max.LAST_ROUTE == "tensor-core/cluster2"

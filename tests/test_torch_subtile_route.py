@@ -148,3 +148,72 @@ def test_bucket_product_matches_plain(dtype):
                                                   sel_t)
     want = gather_score.gather_score(xu.to(dtype), qn.to(dtype), sel_t)
     torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+
+
+# -- the tensor-core kernel's cluster plan and walk -----------------------------
+
+# The shape an H100 reports (subtile_max.tc_shape: 2 subtiles a tile,
+# clusters of 2 blocks of 384 threads, 256 queries a tile, 66 clusters at
+# once), a card that holds a single cluster, and a kernel of other widths:
+# the plan reads every number from the shape it is given.
+H100 = subtile_max.TensorCoreShape(2, 2, 384, 256, 66)
+SHAPES = [H100, H100._replace(active=1),
+          subtile_max.TensorCoreShape(2, 4, 256, 128, 30)]
+
+
+@pytest.mark.parametrize("q", [1, 255, 256, 257, 6980])
+@pytest.mark.parametrize("n_real,n_sub", [
+    (1, 1), (64, 2), (100, 2), (130, 3), (300, 5), (320, 8), (1000, 17),
+    (9000, 200), (1_000_000, 15_744)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plan_visits_every_tile_once(q, n_real, n_sub, shape):
+    """The plan against subtile_max.walk_tensor_core, a transcription of
+    csrc/subtile_max.cu's Walk (the gpu tests check the kernel itself):
+    every (real subtile, query block) once; clusters of the shape's size at
+    every size of corpus, a short one's partner taking only subtiles past
+    the real ones; no more clusters than the device holds or than there are
+    cluster tiles; the blocks of a cluster take the same number of tiles
+    (each stage waits on every partner); dead subtiles only in the last
+    column."""
+    blocks = subtile_max.plan_tensor_core(n_real, n_sub, q, shape)
+    real = -(-n_real // 64)
+    pairs = -(-real // shape.pair)
+    n_qt = -(-q // shape.query_block)
+    assert blocks % shape.cluster == 0
+    assert 1 <= blocks // shape.cluster <= shape.active
+    assert blocks // shape.cluster <= -(-pairs // shape.cluster) * n_qt
+    visits = subtile_max.walk_tensor_core(n_real, q, blocks, shape)
+    live = sorted((s, j) for _, _, s, j in visits if s < real)
+    assert live == [(s, j) for s in range(real) for j in range(n_qt)]
+    span = -(-pairs // shape.cluster) * shape.cluster * shape.pair
+    dead = [(s, j) for _, _, s, j in visits if s >= real]
+    assert len(dead) == (span - real) * n_qt
+    assert all(s < span for s, _ in dead)
+    tiles = [0] * blocks
+    for b, g, s, _ in visits:
+        assert s % shape.pair == g
+        tiles[b] += 1
+    for c in range(blocks // shape.cluster):
+        assert len(set(tiles[c * shape.cluster:(c + 1) * shape.cluster])) == 1
+
+
+def test_plan_of_the_serve_cell():
+    """msmarco1m.serve_auto's batch: 15,625 real subtiles of 15,744 (7,813
+    pairs, the last half empty), 6,980 queries (28 blocks): clusters of 2
+    on every SM of an H100."""
+    blocks = subtile_max.plan_tensor_core(1_000_000, 15_744, 6980, H100)
+    assert blocks == 132
+    visits = subtile_max.walk_tensor_core(1_000_000, 6980, blocks, H100)
+    assert len(visits) == 3907 * 2 * 2 * 28
+    assert sum(1 for *_, s, _ in visits if s >= 15_625) == 3 * 28
+
+
+@pytest.mark.parametrize("n_sub,q,want_blocks", [(1, 1, 2), (16, 3, 2),
+                                                 (1000, 300, 132)])
+def test_plan_with_no_real_subtile_fills_the_sentinels(n_sub, q,
+                                                       want_blocks):
+    """n_real 0: no tile, clusters of 2 all the same, enough of them for
+    the sentinels' grid-stride fill (384 threads a block), at most the
+    clusters the card holds."""
+    assert subtile_max.plan_tensor_core(0, n_sub, q, H100) == want_blocks
+    assert subtile_max.walk_tensor_core(0, q, want_blocks, H100) == []
