@@ -155,8 +155,15 @@ no JAX.  Phases (each one that fails makes the script exit non-zero):
   12. hybrid search and gather IVF (n_probe 8) over 2 batches, QPS and
      overlap with exact; build_energy on the same 313,841 rows
      (optical_tokens 40, the CVE graph params) with its phase seconds and
-     search_energy_batch on 64 queries; a second build_energy, whose graph
-     must equal the first bit for bit;
+     search_energy_batch on 64 queries (K8 launched once, counted from
+     that call); K8 (csrc/scan_energy.cu) at cve313k.serve_energy's shape,
+     10,000 queries at k 20 routed by the index's own bitmaps, over an
+     all-ones bitmap and with no route: the first 512 queries' ids and
+     scores within 2e-5 of the plain version (float32, TF32 off), a bound
+     the plain version in TF32 must break, the all-ones scan bit for bit
+     the exact one, each timed, the routed scan in turns with its plain
+     version, beside the bound of the routed work; a second build_energy,
+     whose graph must equal the first bit for bit;
   13. lists past the old limit of 4,096: search_batch(topk=5000) on 64
      queries in exact (against K2's plain version), subtile (overlap with
      exact at least 0.99) and certified (== exact) modes; K1 at k 5,000 on
@@ -349,10 +356,15 @@ F_WIDE = 4096                                 # K6's query block per slab
 TPU_1M_RECORD = "benchmarks/recorded/1787157379_build_1m/build_1m_results.json"
 N_MIX, N_EXTEND = 65_536, 9_416   # the variants' mixture corpus; a 3% append
 OTHER_BATCHES, ENERGY_QUERIES, ENERGY_TOKENS = 2, 64, 40
+# K8 at cve313k.serve_energy's shape: a batch of 10,000 queries, k 20, the
+# first 512 held to the plain version.  TOL_ENERGY: D = e_q + e_i - 2 qL.x
+# cancels terms of ~1e6, so the fmaf chain against a float32 matmul moves a
+# score by less than it; TF32 moves D' by ~1e-4 (the control must fail).
+ENERGY_BATCH, ENERGY_CHECK, ENERGY_K, TOL_ENERGY = 10_000, 512, 20, 2e-5
 MIN_BF16_OVERLAP = 0.9   # the bf16 view has no float32 rescore
 SPIN_CYCLES = 2_000_000   # _device_ms's spin, ~1 ms: longer than the enqueue
 KERNEL_SOURCES = ("knn", "knn_t", "scan_topk", "subtile_max", "extract_topm",
-                  "gather_score", "ivf_scan", "scan_int8")
+                  "gather_score", "ivf_scan", "scan_int8", "scan_energy")
 # The H100 SXM's published peaks at 700 W (dense): float32 outside the
 # tensor cores, bf16 and int8 tensor cores, and HBM3.
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -549,14 +561,24 @@ def _full_walk(knn) -> dict:
     return {"symmetric": False} if _has_sym(knn) else {}
 
 
+def _scan_energy():
+    """The package's K8 wrapper (None for a package without K8)."""
+    try:
+        from pyarrowspace_tpu_torch.ops.cuda import scan_energy
+    except ImportError:
+        return None
+    return scan_energy
+
+
 def _reset_launches() -> None:
     from pyarrowspace_tpu_torch.ops.cuda import (extract, gather_score,
                                                  ivf_scan, knn, knn_t,
                                                  scan_int8, scan_topk,
                                                  subtile_max)
     for mod in (knn, knn_t, scan_topk, subtile_max, gather_score, ivf_scan,
-                scan_int8):
-        mod.LAUNCHES = 0
+                scan_int8, _scan_energy()):
+        if mod is not None:
+            mod.LAUNCHES = 0
     ivf_scan.WIDE_LAUNCHES = 0
     subtile_max.TC_LAUNCHES = gather_score.TC_LAUNCHES = 0
     if hasattr(subtile_max, "CLUSTER_LAUNCHES"):
@@ -602,7 +624,8 @@ def _launches() -> dict:
             "ivf_scan": ivf_scan.LAUNCHES,
             "ivf_scan_wide": getattr(ivf_scan, "WIDE_LAUNCHES", 0),
             "scan_int8": scan_int8.LAUNCHES,
-            "scan_int8_tc": getattr(scan_int8, "TC_LAUNCHES", 0)}
+            "scan_int8_tc": getattr(scan_int8, "TC_LAUNCHES", 0),
+            "scan_energy": getattr(_scan_energy(), "LAUNCHES", 0)}
 
 
 def _overlap(ids_a: np.ndarray, ids_b: np.ndarray) -> float:
@@ -2469,9 +2492,11 @@ def _phase_other_modes(torch, aspace, gl, items, batches, src, outs_exact,
     qe = batches[0][:ENERGY_QUERIES]
     ea.search_energy_batch(qe, eg, topk)                        # warm-up
     torch.cuda.synchronize()
+    _reset_launches()
     t0 = time.perf_counter()
     ei, ev = ea.search_energy_batch(qe, eg, topk)
     t_search = time.perf_counter() - t0
+    k8_launches = _launches()["scan_energy"]
     routed = ea._search_energy_routed(qe, *ea._energy_query(qe), 1.0, 0.5,
                                       topk)
     routed_full = bool((routed[0] >= 0).all())
@@ -2485,8 +2510,11 @@ def _phase_other_modes(torch, aspace, gl, items, batches, src, outs_exact,
           f"{json.dumps({kk: round(v, 4) for kk, v in phases.items()})} "
           f"{card}")
     print(f"phase 12: search_energy_batch {ENERGY_QUERIES} queries, k "
-          f"{topk}: {t_search:.3f} s (routed pool full: {routed_full}) "
+          f"{topk}: {t_search:.3f} s (routed pool full: {routed_full}; K8 "
+          f"launches {k8_launches}, route {_last_route(_scan_energy())}) "
           f"{card}")
+    checks["energy: K8 launched once"] = k8_launches == 1
+    checks.update(_phase_energy_scan(torch, ea, items, card, results))
     checks["energy: results"] = (ei.shape == (ENERGY_QUERIES, topk)
                                  and ei.min() >= 0 and ei.max() < N
                                  and bool(np.all(np.isfinite(ev))))
@@ -2506,6 +2534,109 @@ def _phase_other_modes(torch, aspace, gl, items, batches, src, outs_exact,
     if not all(checks.values()):
         raise AssertionError(f"other-mode checks failed: "
                              f"{[c for c, ok in checks.items() if not ok]}")
+
+
+def _energy_bad(torch, got, ref) -> tuple[int, float]:
+    """(rows whose lists disagree beyond near-ties of TOL_ENERGY, largest
+    score gap) of two energy top-k results (idx, vals); the empty slots
+    (-1, -inf) must match."""
+    from pyarrowspace_tpu_torch.ops.cuda.compare import topk_disagreements
+    gi, gv = (t.cpu().numpy() for t in got)
+    ri, rv = (t.cpu().numpy() for t in ref)
+    empty = gi < 0
+    if not np.array_equal(empty, ri < 0):
+        return gi.shape[0], float("inf")
+    gv, rv = np.where(empty, 0.0, gv), np.where(empty, 0.0, rv)
+    bad = topk_disagreements(gv, gi, rv, ri, TOL_ENERGY)
+    return len(bad), float(np.abs(gv - rv).max(initial=0.0))
+
+
+def _phase_energy_scan(torch, ea, items, card, results) -> dict:
+    """Phase 12's K8 (csrc/scan_energy.cu) at cve313k.serve_energy's shape:
+    ENERGY_BATCH queries (corpus rows + 3 N(0, 1)) over phase 12's energy
+    index, k 20, the bitmaps of the index's own routing (_energy_route).
+    Routed, over an all-ones bitmap and with no route (the exact scan):
+    ids and scores of the first ENERGY_CHECK queries against the plain
+    version (float32, TF32 off) within TOL_ENERGY, which the plain version
+    in TF32 must break; the all-ones scan bit for bit the exact one on
+    every query; each timed, the routed scan in turns with the plain
+    version over the whole batch, beside the bound of the routed work.
+    Returns the checks."""
+    sc = _scan_energy()
+    dev = items.device
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = torch.randint(0, N, (ENERGY_BATCH,), generator=g, device=dev)
+    qs = items[rows] + 3.0 * torch.randn((ENERGY_BATCH, F), generator=g,
+                                         device=dev)
+    lam_q, e_q, ql = ea._energy_terms(qs)
+    keys, bitmap, pool = ea._energy_route(ql, lam_q, e_q, 1.0, 0.5)
+    ones = torch.full_like(bitmap, 255)
+    terms = (ea._data, ea._lambdas, ea._energies_raw())
+    args = (*terms, ql, lam_q, e_q, ea._tau_star, 1.0, 0.5, ENERGY_K)
+    _reset_launches()
+    got = sc.energy_scan(*args, keys, bitmap)
+    route = _last_route(sc)
+    got_ones = sc.energy_scan(*args, keys, ones)
+    got_exact = sc.energy_scan(*args)
+    launches = _launches()["scan_energy"]
+    ones_exact = (torch.equal(got_ones[0], got_exact[0])
+                  and _bits_equal(torch, got_ones[1], got_exact[1]))
+    c = slice(0, ENERGY_CHECK)
+    chk = (*terms, ql[c], lam_q[c], e_q[c], ea._tau_star, 1.0, 0.5,
+           ENERGY_K)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ref = sc.energy_plain(*chk, keys, bitmap[c])
+    ref_exact = sc.energy_plain(*chk)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = sc.energy_plain(*chk, keys, bitmap[c])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bad, gap = _energy_bad(torch, (got[0][c], got[1][c]), ref)
+    bad_ones, gap_ones = _energy_bad(
+        torch, (got_ones[0][c], got_ones[1][c]), ref_exact)
+    _, gap_tf32 = _energy_bad(torch, tf32, ref)
+    k8_ms, plain_ms = _in_turns(
+        lambda: sc.energy_plain(*args, keys, bitmap),
+        lambda: sc.energy_scan(*args, keys, bitmap), torch)
+    ones_ms = sum(_events_ms(lambda: sc.energy_scan(*args, keys, ones),
+                             torch) for _ in range(2)) / 2
+    exact_ms = sum(_events_ms(lambda: sc.energy_scan(*args), torch)
+                   for _ in range(2)) / 2
+    routed_items = float(pool.double().sum().item())
+    nbytes = (N * F * 4.0 + N * 12.0 + ENERGY_BATCH * (F * 4.0 + 8.0)
+              + bitmap.numel() + ENERGY_BATCH * ENERGY_K * 8.0)
+    bound = _bound(2.0 * F * routed_items, "fp32", nbytes)
+    bound_all = _bound(2.0 * F * N * ENERGY_BATCH, "fp32", nbytes)
+    row = dict(ms=k8_ms, plain_ms=plain_ms, ones_ms=ones_ms,
+               exact_ms=exact_ms, route=route, launches=launches,
+               routed_share=routed_items / (N * ENERGY_BATCH),
+               max_gap=gap, max_gap_ones=gap_ones, tf32_gap=gap_tf32,
+               bad=bad, bad_ones=bad_ones, ones_exact=ones_exact,
+               roofline_pct=100.0 * bound["bound_ms"] / k8_ms,
+               exact_roofline_pct=100.0 * bound_all["bound_ms"] / exact_ms,
+               **bound)
+    results["energy_scan"] = row
+    print(f"phase 12: K8 {N}x{F} Q={ENERGY_BATCH} k={ENERGY_K} (route "
+          f"{route}, {row['routed_share']:.4f} of the items routed): routed "
+          f"{k8_ms:.3f} ms, plain {plain_ms:.3f} ms; all-ones bitmap "
+          f"{ones_ms:.3f} ms, exact (no route) {exact_ms:.3f} ms; bound of "
+          f"the routed work {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}), {row['roofline_pct']:.1f}% of it; the "
+          f"exact scan {row['exact_roofline_pct']:.1f}% of its bound; "
+          f"launches {launches} {card}")
+    print(f"phase 12: K8 vs plain on {ENERGY_CHECK} queries: routed max gap "
+          f"{gap:.3e}, disagreeing rows {bad}; all-ones against the plain "
+          f"exact scan {gap_ones:.3e}, rows {bad_ones}; TF32 control "
+          f"{gap_tf32:.3e} (TOL {TOL_ENERGY:g}); all-ones == exact bit for "
+          f"bit on {ENERGY_BATCH} queries: {ones_exact}")
+    return {"K8: routed against plain": bad == 0 and gap <= TOL_ENERGY,
+            "K8: all-ones against plain exact": (bad_ones == 0
+                                                 and gap_ones <= TOL_ENERGY),
+            "K8: TF32 control refused": gap_tf32 > TOL_ENERGY,
+            "K8: all-ones == exact": ones_exact,
+            "K8: routed narrow": str(route).startswith("routed/narrow/"),
+            "K8: one launch a call": launches == 3}
 
 
 def _phase_long_lists(torch, aspace, gl, xu, batches, card, results) -> None:
@@ -3588,12 +3719,16 @@ def main(tree: str | None = None, dump: str | None = None) -> int:
           f"python {sys.version.split()[0]}, "
           f"devices {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    for name, secs in _build.load_all(KERNEL_SOURCES).items():
+    sources = [name for name in KERNEL_SOURCES
+               if (_build.CSRC / f"{name}.cu").exists()]
+    for name, secs in _build.load_all(sources).items():
         print(f"phase 0: built csrc/{name}.cu in {secs:.3f} s {card}")
     print(f"phase 0: all kernels built in {time.perf_counter() - t0:.3f} s")
     for name in ("knn", "knn_t", "scan_topk", "subtile_max", "gather_score",
-                 "scan_int8", "ivf_scan"):
-        print(f"phase 0: ptxas csrc/{name}.cu: {_ptxas_summary(_build, name)}")
+                 "scan_int8", "ivf_scan", "scan_energy"):
+        if name in sources:
+            print(f"phase 0: ptxas csrc/{name}.cu: "
+                  f"{_ptxas_summary(_build, name)}")
     print(f"phase 0: ptxas csrc/subtile_max.cu by route: "
           f"{_ptxas_routes(_build, 'subtile_max', _k3_route_of)}")
     print(f"phase 0: ptxas csrc/knn.cu's narrow kernels by walk: "

@@ -26,7 +26,7 @@ from .laplacian import GraphLaplacian
 from .params import GraphParams
 from ..ops import ivf_scan as ivf_ops
 from ..ops import search as search_ops
-from ..ops.cuda import scan_topk
+from ..ops.cuda import scan_energy, scan_topk
 from ..ops.distance import unit_normalize
 from ..ops.ivf import IVFIndex, build_ivf, ivf_lambda_search
 from ..ops.quantize import quantize_rows
@@ -262,47 +262,94 @@ class ArrowSpace:
                                         normalized=False)
         return self._e_un
 
+    def _energy_terms(self, q: torch.Tensor):
+        """(lam_q [Q], e_q [Q], ql [Q, F]) of a query batch: the lambda
+        from the items' energy convention, ql = q L_f, and e_q the RAW
+        energy q^T L_f q taken from ql (rayleigh_batch's arithmetic)."""
+        ql = q @ self._lap_f
+        e_q = torch.clamp_min(torch.sum(ql * q, dim=-1), 0.0)
+        return self._query_lambdas(q), e_q, ql
+
     def _energy_query(self, q: torch.Tensor):
-        """(lam_q [Q], e_q [Q]) of a query batch: the lambda from the
-        items' energy convention, e_q the RAW energy."""
-        return (self._query_lambdas(q),
-                rayleigh_batch(q, self._lap_f, normalized=False))
+        """(lam_q [Q], e_q [Q]) of a query batch (_energy_terms)."""
+        return self._energy_terms(q)[:2]
 
     def _energy_routing(self):
-        """The centroid -> member bucket table of the routed energy search
-        (ops/ivf.py's layout at capacity factor 2.0), built at first use."""
+        """(keys [N] int32, counts [K + 1] int64) of the routed energy
+        search, built at first use: ops/ivf.py's bucket layout at capacity
+        factor 2.0, each item keyed to its centroid where the centroid's
+        bucket holds it, else to K, the shared tail; counts[c] the items
+        keyed to c."""
         if self._energy_routing_cache is None:
             ivf = build_ivf(self._centroids, self._assignments, self.nitems,
                             capacity_factor=2.0)
-            self._energy_routing_cache = (ivf.buckets, ivf.tail)
+            n_cent = int(ivf.buckets.shape[0])
+            keys = torch.full((self.nitems,), n_cent, dtype=torch.int32,
+                              device=self.device)
+            held = ivf.buckets >= 0
+            cent = torch.arange(n_cent, dtype=torch.int32,
+                                device=self.device)[:, None]
+            keys[ivf.buckets[held].to(torch.int64)] = cent.expand_as(
+                ivf.buckets)[held]
+            counts = torch.bincount(keys.to(torch.int64),
+                                    minlength=n_cent + 1)
+            self._energy_routing_cache = (keys, counts)
         return self._energy_routing_cache
+
+    def _energy_route(self, ql, lam_q, e_q, w_l: float, w_d: float):
+        """(keys, bitmap [Q, B], pool [Q]) of the candidate-pool routing
+        (reference src/lib.rs:311-323; ops/search.py::energy_route): the
+        candidate_m best energy nodes a query, their centroids' buckets
+        and the tail."""
+        emaps = self._energy_maps
+        keys, counts = self._energy_routing()
+        # candidate_m counts NODES; several may share a centroid.
+        probe = min(emaps.candidate_m, int(emaps.nodes.shape[0]))
+        bitmap, pool = search_ops.energy_route(
+            ql, lam_q, e_q, emaps.nodes, emaps.node_lambda,
+            emaps.node_dirichlet, emaps.node_centroid, self._tau_star,
+            counts, w_l, w_d, probe=probe)
+        return keys, bitmap, pool
+
+    def _routes_energy(self) -> bool:
+        return self._energy_maps is not None and self._assignments is not None
 
     def _search_energy_routed(self, q, lam_q, e_q, w_l: float, w_d: float,
                               k_eff: int):
-        """The candidate-pool routed energy search (reference
-        src/lib.rs:311-323), or None when the space has no energy maps.
-        Queries go in chunks whose [chunk, pool, F] gather stays near
-        search_ops.GATHER_BYTES."""
-        emaps = self._energy_maps
-        if emaps is None or self._assignments is None:
+        """The candidate-pool routed energy search with no fallback:
+        (idx [Q, k], -1 where a pool has no k-th item, vals [Q, k]), or
+        None when the space has no energy maps."""
+        if not self._routes_energy():
             return None
-        buckets, tail = self._energy_routing()
-        # candidate_m counts NODES; the dedup to centroids is inside.
-        probe = min(emaps.candidate_m, int(emaps.nodes.shape[0]))
-        m_pool = probe * int(buckets.shape[1]) + int(tail.shape[0])
-        qc = max(1, search_ops.GATHER_BYTES // max(1, m_pool
-                                                   * self.nfeatures * 4))
-        dt = self._data.dtype
-        outs = [search_ops.energy_routed_topk_batch(
-                    self._data, self._lambdas, self._energies_raw(),
-                    emaps.nodes, emaps.node_lambda, emaps.node_dirichlet,
-                    emaps.node_centroid, self._lap_f, self._tau_star,
-                    buckets, tail, q[s:s + qc], lam_q[s:s + qc],
-                    e_q[s:s + qc], torch.as_tensor(w_l, dtype=dt),
-                    torch.as_tensor(w_d, dtype=dt), probe=probe, topk=k_eff)
-                for s in range(0, q.shape[0], qc)]
-        return (torch.cat([o[0] for o in outs]),
-                torch.cat([o[1] for o in outs]))
+        emaps = self._energy_maps
+        keys, counts = self._energy_routing()
+        return search_ops.energy_routed_topk_batch(
+            self._data, self._lambdas, self._energies_raw(), emaps.nodes,
+            emaps.node_lambda, emaps.node_dirichlet, emaps.node_centroid,
+            self._lap_f, self._tau_star, keys, counts, q, lam_q, e_q, w_l,
+            w_d, probe=min(emaps.candidate_m, int(emaps.nodes.shape[0])),
+            topk=k_eff)
+
+    def _energy_search(self, q: torch.Tensor, w_l: float, w_d: float,
+                       k_eff: int):
+        """(idx [Q, k], vals [Q, k]) on the device, in the caller's
+        ``arrowspace:search`` range: ``search.query_lambda`` (lam_q, e_q,
+        q L_f), ``search.route`` (energy-built spaces: the bitmaps, all
+        ones for the whole batch when any query's pool holds fewer than k
+        items), ``search.scan`` (kernel K8 on CUDA, its plain version on
+        CPU).  Nothing is read back between them."""
+        with span("search.query_lambda"):
+            lam_q, e_q, ql = self._energy_terms(q)
+        keys = bitmap = None
+        if self._routes_energy():
+            with span("search.route"):
+                keys, bitmap, pool = self._energy_route(ql, lam_q, e_q, w_l,
+                                                        w_d)
+                bitmap = search_ops.exact_where_short(bitmap, pool, k_eff)
+        with span("search.scan"):
+            return scan_energy.energy_scan(
+                self._data, self._lambdas, self._energies_raw(), ql, lam_q,
+                e_q, self._tau_star, w_l, w_d, k_eff, keys, bitmap)
 
     def search_energy(self, query, gl: GraphLaplacian, k: int,
                       w_lambda: Optional[float] = None,
@@ -311,55 +358,39 @@ class ArrowSpace:
         """Energy-only search, no cosine (parity: reference
         src/lib.rs:221-262; defaults w_lambda=1.0, w_dirichlet=0.5).  An
         energy-built space routes through its energy maps when the routed
-        pool fills all k results; otherwise the exact energy scan runs."""
+        pool holds k items; otherwise the exact energy scan runs.  Ties go
+        to the smaller id.  One ``arrowspace:search`` range, as
+        search_energy_batch's."""
         v = self._check_query(query)
         w_l = 1.0 if w_lambda is None else float(w_lambda)
         w_d = 0.5 if w_dirichlet is None else float(w_dirichlet)
         dbg_println(
             f"search_energy: qlen={v.shape[0]}, k={k}, w_λ={w_l:.2f}, "
             f"w_D={w_d:.2f}")
-        dt = self._data.dtype
-        q = torch.as_tensor(v, dtype=dt, device=self.device).reshape(1, -1)
-        lam_q, e_q = self._energy_query(q)
-        k_eff = min(int(k), self.nitems)
-        routed = self._search_energy_routed(q, lam_q, e_q, w_l, w_d, k_eff)
-        # The width check first: a routed pool narrower than k gives
-        # fewer results, which the id check alone would accept.
-        if (routed is not None and routed[0].shape[1] >= k_eff
-                and bool(torch.all(routed[0][0, :k_eff] >= 0))):
-            idx, vals = routed[0][0], routed[1][0]
-        else:
-            idx, vals = search_ops.energy_topk(
-                self._data, self._lambdas, self._energies_raw(),
-                self._lap_f, q[0], lam_q[0], e_q[0], self._tau_star,
-                torch.as_tensor(w_l, dtype=dt),
-                torch.as_tensor(w_d, dtype=dt), k_eff)
-        return [(int(i), float(s)) for i, s in zip(idx.tolist(),
-                                                   vals.tolist())]
+        q = torch.as_tensor(v, dtype=self._data.dtype,
+                            device=self.device).reshape(1, -1)
+        with span("search"):
+            idx, vals = _to_host(*self._energy_search(
+                q, w_l, w_d, min(int(k), self.nitems)))
+        return [(int(i), float(s)) for i, s in zip(idx[0].tolist(),
+                                                   vals[0].tolist())]
 
     def search_energy_batch(self, queries, gl: GraphLaplacian, k: int,
                             w_lambda: Optional[float] = None,
                             w_dirichlet: Optional[float] = None):
         """Batched energy-only search: (indices [Q, k] np.int32, scores).
-        The routed search serves the batch when it fills every query's k
-        results; otherwise the exact energy scan serves it."""
+        The routed search serves the batch when every query's routed pool
+        holds k items; otherwise the exact energy scan serves it, decided
+        on the device.  Ties go to the smaller id.  Under
+        ``torch.profiler`` a call is one ``arrowspace:search`` range
+        holding ``search.query_lambda``, ``search.route`` (energy-built
+        spaces), ``search.scan`` and ``search.to_host``."""
         q = self._batch_queries(queries)
         w_l = 1.0 if w_lambda is None else float(w_lambda)
         w_d = 0.5 if w_dirichlet is None else float(w_dirichlet)
-        lam_q, e_q = self._energy_query(q)
-        k_eff = min(int(k), self.nitems)
-        routed = self._search_energy_routed(q, lam_q, e_q, w_l, w_d, k_eff)
-        if (routed is not None and routed[0].shape[1] >= k_eff
-                and bool(torch.all(routed[0][:, :k_eff] >= 0))):
-            idx, vals = routed
-        else:
-            dt = self._data.dtype
-            idx, vals = search_ops.energy_topk_batch(
-                self._data, self._lambdas, self._energies_raw(),
-                self._lap_f, q, lam_q, e_q, self._tau_star,
-                torch.as_tensor(w_l, dtype=dt),
-                torch.as_tensor(w_d, dtype=dt), k_eff)
-        return idx.cpu().numpy(), vals.cpu().numpy()
+        with span("search"):
+            return _to_host(*self._energy_search(
+                q, w_l, w_d, min(int(k), self.nitems)))
 
     # -- blocked IVF and certified serving -------------------------------------
     def enable_ivf(self, n_clusters: Optional[int] = None,

@@ -41,20 +41,20 @@
 // TFLOP/s); beside them each score's epilogue (about 15 SIMT instructions)
 // and the merges.
 //
-// The SIMT route: float32 rows, and bf16 rows the tensor-core route does
-// not take (ragged F, unaligned bases).  What bounds it: the products, Q x
-// N x F x 2 = 0.99 TFLOP a batch of 4,096 queries over 313,841 x 384 in
-// fp32 outside the tensor cores (14.7 ms at 67 TFLOP/s).  Launch 1: one
-// block per (128-query block, corpus split); the splits are contiguous
-// ranges of 128-item tiles, and the caller picks the fewest whose grid
-// fills its last wave of blocks to 90% or more (one block an SM runs at a
-// time; at Q 4,096 on 132 SMs, 4 splits: one wave of 128 blocks).  A block
-// runs the register-tiled fp32 product of ffma_tile.cuh over its split's
-// tiles in ascending order (float32 rows: a TMA-fed ring, the next tile
-// loading during this one's epilogue at k 15; bf16 rows and ragged float32
-// rows: the register-staged loader, bf16 converted exactly when read), so
-// every score is one float32 fmaf chain, and blends (tile::blend), masking
-// ids >= n.  Then, by the length of the lists:
+// The SIMT route: float32 rows, and bf16 rows the tensor-core route does not
+// take (ragged F, unaligned bases); scan_narrow.cuh's kernel, shared with K8
+// (scan_energy.cu), with BlendEpi below.  What bounds it: the products, Q x N x
+// F x 2 = 0.99 TFLOP a batch of 4,096 queries over 313,841 x 384 in fp32
+// outside the tensor cores (14.7 ms at 67 TFLOP/s).  Launch 1: one block per
+// (128-query block, corpus split); the splits are contiguous ranges of 128-item
+// tiles, and the caller picks the fewest whose grid fills its last wave of
+// blocks to 90% or more (one block an SM runs at a time; at Q 4,096 on 132 SMs,
+// 4 splits: one wave of 128 blocks).  A block runs the register-tiled fp32
+// product of ffma_tile.cuh over its split's tiles in ascending order (float32
+// rows: a TMA-fed ring, the next tile loading during this one's epilogue at k
+// 15; bf16 rows and ragged float32 rows: the register-staged loader, bf16
+// converted exactly when read), so every score is one float32 fmaf chain, and
+// blends (tile::blend), masking ids >= n.  Then, by the length of the lists:
 //   - k <= 128 (narrow): running lists in shared memory (2 or 4 words a
 //     lane), merged 64 columns at a time, written to the partial lists [S,
 //     Q, k]; launch 2 (tile::merge_splits) merges them in split order, one
@@ -74,192 +74,61 @@
 
 #include "ffma_tile.cuh"
 #include "knn_wide.cuh"
+#include "scan_narrow.cuh"
 #include "tc_scan.cuh"
 #include "tile_common.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
-// ops: the queries (A) and the corpus (B); Ring: the product's loader over
-// the shared memory laid out by pl.
-template <class Ring, int W>
-__global__ void __launch_bounds__(regtile::THREADS, 1)
-    scan_kernel(const __grid_constant__ regtile::Operands<
-                    typename Ring::Elem> ops,
-                const regtile::Plan pl, const float* __restrict__ lam, int n,
-                const float* __restrict__ lamq, int q, float tau, int k,
-                int tiles_per_split, float* part_s, int* part_i) {
-  using namespace regtile;
-  extern __shared__ __align__(1024) char ffma_smem[];
-  // The tile's scores [128][RES_LD], in the epilogue region.
-  float* Ss = reinterpret_cast<float*>(ffma_smem + pl.epi);
-
-  const int tid = threadIdx.x;
-  const int tx = thread_x(), ty = thread_y();
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * TILE;
-  const int split = blockIdx.y;
-  const int c_begin = split * tiles_per_split * TILE;
-  const int c_stop = min(n, c_begin + tiles_per_split * TILE);
-  const int n_rows = min(TILE, q - q0);
-
-  // The block's lists [n_rows][k] in shared memory, and the rows with a
-  // candidate to offer.
-  float* run_s = reinterpret_cast<float*>(ffma_smem + pl.rest);
-  int* run_i = reinterpret_cast<int*>(run_s + TILE * k);
-  int* row_hit = run_i + TILE * k;
-  for (int e = tid; e < n_rows * k; e += THREADS) {
-    run_s[e] = tile::NEG_SCORE;
-    run_i[e] = -1;
-  }
-  if (tid < TILE) row_hit[tid] = 0;
-  float lq[MICRO];
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    lq[i] = qi < q ? lamq[qi] : 0.0f;
-  }
-  const float one_minus_tau = 1.0f - tau;
-  Ring ring(ffma_smem, pl, ops, q0);
-  ring.start();   // its barrier orders the list writes before any merge
-
-  for (int c0 = c_begin; c0 < c_stop; c0 += TILE) {
-    float acc[MICRO][MICRO];
-    ring.product(c0, c0 + TILE < c_stop ? c0 + TILE : -1, acc);
-    // The blended scores into Ss; a row whose thread holds a score above
-    // the row's kth is flagged for the merge (the lists do not change
-    // before it).
-    float lc[MICRO];
-#pragma unroll
-    for (int j = 0; j < MICRO; ++j) {
-      const int col = c0 + tx + 16 * j;
-      lc[j] = col < n ? lam[col] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < MICRO; ++i) {
-      const int rr = ty + 16 * i;
-      const float kth =
-          rr < n_rows ? run_s[(size_t)rr * k + k - 1] : 3.0e38f;
-      bool hit = false;
-#pragma unroll
-      for (int j = 0; j < MICRO; ++j) {
-        float s = tile::blend(tau, one_minus_tau, acc[i][j], lc[j], lq[i]);
-        if (c0 + tx + 16 * j >= n) s = tile::NEG_SCORE;
-        Ss[rr * RES_LD + tx + 16 * j] = s;
-        hit |= s > kth;
-      }
-      if (hit) row_hit[rr] = 1;
-    }
-    __syncthreads();
-    for (int rr = warp; rr < n_rows; rr += WARPS) {
-      if (!row_hit[rr]) continue;
-      const float* srow = Ss + rr * RES_LD;
-      float* rs = run_s + (size_t)rr * k;
-      int* ri = run_i + (size_t)rr * k;
-      // Two halves of 64 columns, in ascending column order.  Their
-      // ballots order every lane's read of the flag before it is cleared.
-      tile::merge_row<tile::Max, W>(srow, c0, rs, ri, k, lane);
-      tile::merge_row<tile::Max, W>(srow + 64, c0 + 64, rs, ri, k, lane);
-      if (lane == 0) row_hit[rr] = 0;
-    }
-    __syncthreads();
-  }
-
-  float* o_s = part_s + ((size_t)split * q + q0) * k;
-  int* o_i = part_i + ((size_t)split * q + q0) * k;
-  for (int e = tid; e < n_rows * k; e += THREADS) {
-    o_s[e] = run_s[e];
-    o_i[e] = run_i[e];
-  }
-}
-
-// The wide route's epilogue: the blended score, ids >= n masked to -3e38.
+// The SIMT route's epilogue: the blended score, ids >= n masked to -3e38.
+// rows() keeps the thread's query lambdas in registers for the block's
+// tiles; load() is knn_wide.cuh's per-tile entry.
 struct BlendEpi {
   using Order = knn_wide::Desc;
   const float* lam;
   const float* lamq;
   float tau, omt;
   float lq[regtile::MICRO], lc[regtile::MICRO];
-  __device__ __forceinline__ void load(int q0, int q_end, int c0, int n) {
+  size_t row_bytes() const { return 0; }
+  __device__ __forceinline__ void rows(int q0, int q_end, char* = nullptr) {
     using namespace regtile;
-    const int tx = thread_x(), ty = thread_y();
+    const int ty = thread_y();
 #pragma unroll
     for (int i = 0; i < MICRO; ++i) {
       const int qi = q0 + ty + 16 * i;
       lq[i] = qi < q_end ? lamq[qi] : 0.0f;
     }
+  }
+  __device__ __forceinline__ void cols(int c0, int n) {
+    using namespace regtile;
+    const int tx = thread_x();
 #pragma unroll
     for (int j = 0; j < MICRO; ++j) {
       const int col = c0 + tx + 16 * j;
       lc[j] = col < n ? lam[col] : 0.0f;
     }
   }
+  __device__ __forceinline__ void load(int q0, int q_end, int c0, int n) {
+    rows(q0, q_end);
+    cols(c0, n);
+  }
   __device__ __forceinline__ float value(float acc, int i, int j, int,
                                          int col, int n) const {
-    return col >= n ? tile::NEG_SCORE : tile::blend(tau, omt, acc, lc[j],
-                                                      lq[i]);
+    const float s = tile::blend(tau, omt, acc, lc[j], lq[i]);
+    return col >= n ? tile::NEG_SCORE : s;
   }
 };
-
-// The narrow kernel's shared memory: its lists and flags beside the ring
-// and the scores tile.
-inline regtile::Plan narrow_plan(int k, bool tma) {
-  return regtile::plan(regtile::RES_BYTES,
-                       (size_t)regtile::TILE * k * 8 +
-                           regtile::TILE * sizeof(int),
-                       tma);
-}
 
 template <class T>
 int launch(const void* xu, const float* lam, int n, int f, const void* qn,
            const float* lamq, int q, float tau, int k, int splits,
            void* part, float* out_s, int* out_i, int tma, int device,
            cudaStream_t st) {
-  const T* x = static_cast<const T*>(xu);
-  const T* qs = static_cast<const T*>(qn);
-  if (regtile::list_words(k) == 0)
-    return knn_wide::launch<T>(qs, x, BlendEpi{lam, lamq, tau, 1.0f - tau},
-                               n, f, 0, q, k, 0, 0, nullptr, splits, part,
-                               out_s, out_i, (size_t)k, 1, 1, tma, device,
-                               st);
-  const int n_tiles = (n + regtile::TILE - 1) / regtile::TILE;
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  if ((splits - 1) * tiles_per_split >= n_tiles)  // every split non-empty
-    return (int)cudaErrorInvalidValue;
-  // The ring and the lists take more than the 48 KB a launch gets without
-  // opting in.
-  const regtile::Plan pl = narrow_plan(k, tma != 0);
-  int smem_max = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  if (pl.stages == 0 || pl.bytes > smem_max) return (int)cudaErrorInvalidValue;
-  regtile::Operands<T> ops;
-  int e = regtile::make_operands<T>(&ops, qs, q, x, n, f, tma != 0);
-  if (e != 0) return e;
-  // The partial lists: [splits, q, k] scores, then as many ids.
-  float* part_s = static_cast<float*>(part);
-  int* part_i = reinterpret_cast<int*>(part_s + (size_t)splits * q * k);
-  const dim3 grid((q + regtile::TILE - 1) / regtile::TILE, splits);
-  e = regtile::with_ring<T>(pl, tma != 0, [&](auto* ring) {
-    using Ring = std::remove_pointer_t<decltype(ring)>;
-    auto scan = regtile::list_words(k) == 2 ? &scan_kernel<Ring, 2>
-                                            : &scan_kernel<Ring, 4>;
-    cudaError_t r = cudaFuncSetAttribute(
-        scan, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
-    if (r != cudaSuccess) return (int)r;
-    scan<<<grid, regtile::THREADS, pl.bytes, st>>>(
-        ops, pl, lam, n, lamq, q, tau, k, tiles_per_split, part_s, part_i);
-    return (int)cudaGetLastError();
-  });
-  if (e != 0) return e;
-  // The merge keeps tile_common.cuh's narrow list layouts.
-  const int words = tile::list_words(k);
-  auto merge = words == 2 ? &tile::merge_splits<2> : &tile::merge_splits<4>;
-  const size_t smem2 = tile::WARPS * (size_t)k * (sizeof(float) + sizeof(int));
-  merge<<<(q + tile::WARPS - 1) / tile::WARPS, tile::THREADS, smem2, st>>>(
-      part_s, part_i, q, k, splits, out_s, out_i);
-  return (int)cudaGetLastError();
+  return narrow::launch<T>(static_cast<const T*>(qn),
+                           static_cast<const T*>(xu),
+                           BlendEpi{lam, lamq, tau, 1.0f - tau}, n, f, q, k,
+                           splits, part, out_s, out_i, tma, device, st);
 }
 
 // The tensor-core route's epilogue on tc_scan.cuh's block: the float32
@@ -367,7 +236,7 @@ int scan_topk_launch(const void* xu, int dtype, const float* lam, int n,
 int scan_topk_plan(int k, int tma, int* out) {
   const regtile::Plan pl = regtile::list_words(k) == 0
                                ? knn_wide::scan_plan(tma != 0)
-                               : narrow_plan(k, tma != 0);
+                               : narrow::plan(k, tma != 0, 0);
   out[0] = pl.stages;
   out[1] = pl.carry;
   out[2] = pl.bytes;

@@ -27,7 +27,8 @@ def quantize_rows(xu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     safe = torch.where(absmax > 0, absmax, 1.0)
     # XLA compiles the reference's `safe / 127.0` to a multiply by
     # float32(1 / 127), which differs from the division in ~5% of rows.
-    scale = safe * torch.tensor(1.0 / 127.0, dtype=torch.float32,
-                                device=x.device)
+    # The factor stays a CPU scalar: made on the device it would be a copy
+    # from pageable memory, which waits for the stream to drain.
+    scale = safe * torch.tensor(1.0 / 127.0, dtype=torch.float32)
     xq = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return xq, scale[..., 0]

@@ -7,24 +7,25 @@ Lambda-aware ranking (reference TAUMODE.md:33, src/lib.rs:132-174):
 with tau the blend control (tau = 1.0 -> pure cosine ranking); hybrid
 ranking gates the cosine instead, cos * (tau + (1 - tau) * prox); energy
 ranking has no cosine (see energy_topk).  Results are descending, ties to
-the smallest id or pool position (a stable sort: ``lax.top_k``'s rule;
-``torch.topk`` promises no order among ties).
+the smallest id, or for a rescored pool to the pool position (a stable
+sort: ``lax.top_k``'s rule; ``torch.topk`` promises no order among
+ties).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda import scan_int8, scan_topk
+from .cuda import scan_energy, scan_int8, scan_topk
 from .distance import unit_normalize
 from .rayleigh import dispersion_batch, rayleigh_batch
 from .subtile_scan import subtile_search
 from ..spectral.taumode import synthesize
 from ..utils.debug import span
 
-# Gathers of [queries, pool, F] rows (the int8 rescore, gather IVF, the
-# routed energy search) are chunked by queries to about this many bytes,
-# the JAX package's budget for the routed energy search.
+# Gathers of [queries, pool, F] rows (the int8 rescore, gather IVF) are
+# chunked by queries to about this many bytes, the JAX package's budget
+# for its routed energy search.
 GATHER_BYTES = 512 << 20
 
 
@@ -105,36 +106,39 @@ def fused_query_pipeline_subtile(xu_scan: torch.Tensor, xu_f32: torch.Tensor,
 def rescore_candidates(xu: torch.Tensor, lambdas: torch.Tensor,
                        qn: torch.Tensor, lam_q: torch.Tensor, tau,
                        cand_idx: torch.Tensor, *, topk: int,
-                       q_chunk: int = 512):
+                       q_chunk: int | None = None):
     """Exact float32 rescore of a quantized scan's candidate pool
-    cand_idx [Q, M]: gathered corpus rows, one batched product a chunk of
-    at most q_chunk queries (fewer when [q_chunk, M, F] would pass
-    GATHER_BYTES), the blend, ids < 0 masked to -inf, and the top-k over
-    pool positions by a stable sort.  Returns (idx [Q, topk] int32,
-    scores [Q, topk] float32): the exact scan's whenever its top-k is in
-    the pool."""
+    cand_idx [Q, M]: the gathered corpus rows' cosines by batched
+    products, in as few chunks of queries as keep a [chunk, M, F] gather
+    within GATHER_BYTES (and within q_chunk queries, when given), then
+    over all Q at once the blend, ids < 0 masked to -inf, and the top-k
+    over pool positions by a stable sort.  tau stays a 0-dim CPU tensor:
+    one made on the device from a Python number is a copy from pageable
+    memory, which waits for the stream to drain the scan before it, so
+    the launches after it would find the device idle.  Returns (idx [Q,
+    topk] int32, scores [Q, topk] float32): the exact scan's whenever its
+    top-k is in the pool."""
     f32 = torch.float32
-    q_chunk = max(1, min(q_chunk, GATHER_BYTES
-                         // max(1, 4 * cand_idx.shape[1] * xu.shape[1])))
-    xu32, lam32 = xu.to(f32), lambdas.to(f32)
-    tau32 = torch.as_tensor(tau, dtype=f32, device=xu.device)
-    out_i, out_s = [], []
-    for s in range(0, cand_idx.shape[0], q_chunk):
-        idx_c = cand_idx[s:s + q_chunk]
-        safe = torch.clamp_min(idx_c, 0).to(torch.int64)
-        qn_c = qn[s:s + q_chunk].to(f32)
-        cos = torch.bmm(xu32[safe], qn_c[:, :, None])[:, :, 0]
-        prox = 1.0 / (1.0 + torch.abs(lam32[safe]
-                                      - lam_q[s:s + q_chunk].to(f32)[:, None]))
-        sc = tau32 * cos + (1.0 - tau32) * prox
-        sc = torch.where(idx_c >= 0, sc, -torch.inf)
-        vals, pos = torch.sort(sc, dim=1, descending=True, stable=True)
-        out_i.append(torch.gather(idx_c, 1, pos[:, :topk]).to(torch.int32))
-        out_s.append(vals[:, :topk])
-    if not out_i:
+    nq, m = cand_idx.shape
+    if nq == 0:
         return (torch.empty((0, topk), dtype=torch.int32, device=xu.device),
                 torch.empty((0, topk), dtype=f32, device=xu.device))
-    return torch.cat(out_i), torch.cat(out_s)
+    fit = max(1, GATHER_BYTES // max(1, 4 * m * xu.shape[1]))
+    q_chunk = fit if q_chunk is None else max(1, min(q_chunk, fit))
+    xu32, qn32 = xu.to(f32), qn.to(f32)
+    tau32 = torch.as_tensor(tau, dtype=f32)
+    safe = torch.clamp_min(cand_idx, 0).to(torch.int64)
+    cos = torch.cat([
+        torch.bmm(xu32[safe[s:s + q_chunk]],
+                  qn32[s:s + q_chunk, :, None])[:, :, 0]
+        for s in range(0, nq, q_chunk)])
+    prox = 1.0 / (1.0 + torch.abs(lambdas.to(f32)[safe]
+                                  - lam_q.to(f32)[:, None]))
+    sc = tau32 * cos + (1.0 - tau32) * prox
+    sc = torch.where(cand_idx >= 0, sc, -torch.inf)
+    vals, pos = torch.sort(sc, dim=1, descending=True, stable=True)
+    return (torch.gather(cand_idx, 1, pos[:, :topk]).to(torch.int32),
+            vals[:, :topk])
 
 
 def fused_query_pipeline_quantized(
@@ -239,24 +243,58 @@ def energy_topk_batch(x: torch.Tensor, lambdas: torch.Tensor,
                       q_batch: torch.Tensor, lam_q: torch.Tensor,
                       e_q: torch.Tensor, tau_star: torch.Tensor, w_lambda,
                       w_dirichlet, topk: int):
-    """Batched energy_topk: lam_q / e_q [Q] -> (idx [Q, topk] int32,
-    vals [Q, topk]), queries in chunks as scan_plain takes them."""
+    """Batched energy_topk: lam_q / e_q [Q] -> (idx [Q, k] int32,
+    vals [Q, k]) with k = min(topk, N): kernel K8 over every item on CUDA,
+    its plain version (queries in chunks as scan_plain takes them) on
+    CPU."""
+    return scan_energy.energy_scan(x, lambdas, e_raw, q_batch @ lap_f, lam_q,
+                                   e_q, tau_star, w_lambda, w_dirichlet, topk)
+
+
+def energy_route(ql: torch.Tensor, lam_q: torch.Tensor, e_q: torch.Tensor,
+                 nodes: torch.Tensor, node_lambda: torch.Tensor,
+                 node_e: torch.Tensor, node_centroid: torch.Tensor,
+                 tau_star: torch.Tensor, route_counts: torch.Tensor, w_l,
+                 w_d, *, probe: int):
+    """The candidate-pool routing of the energy search (the reference's
+    candidate_m pool routing, src/lib.rs:311-323), on the queries' device
+    with no read back: the best ``probe`` energy nodes per query by
+    w_l |lambda_node - lambda_q| + w_d D'(q, node) (a stable sort: ties to
+    the lower node), their source centroids, and the shared tail.  ql [Q,
+    F] = q L_f; route_counts [K + 1]: the items keyed to each centroid's
+    bucket, then the tail's.  Returns (bitmap [Q, B] uint8: bit c set for
+    each probed centroid c and for the tail, c = K; pool [Q] int64: the
+    items the bitmap admits)."""
+    nq = ql.shape[0]
+    n_keys = route_counts.shape[0]
     ts = torch.clamp_min(tau_star, 1e-10)
-    qL = q_batch @ lap_f
-    step = max(1, scan_topk._PLAIN_CHUNK_ELEMS // max(x.shape[0], 1))
-    out_i, out_s = [], []
-    for s in range(0, qL.shape[0], step):
-        cross = qL[s:s + step] @ x.T
-        d = torch.clamp_min(e_q[s:s + step, None] + e_raw[None, :]
-                            - 2.0 * cross, 0.0)
-        db = d / (d + ts)
-        prox_l = 1.0 / (1.0 + torch.abs(lambdas[None, :]
-                                        - lam_q[s:s + step, None]))
-        score = w_lambda * prox_l + w_dirichlet / (1.0 + db)
-        vals, order = torch.sort(score, dim=1, descending=True, stable=True)
-        out_i.append(order[:, :topk].to(torch.int32))
-        out_s.append(vals[:, :topk])
-    return torch.cat(out_i), torch.cat(out_s)
+    cross = ql @ nodes.T                                        # [Q, M]
+    d_qn = torch.clamp_min(e_q[:, None] + node_e[None, :] - 2.0 * cross,
+                           0.0)
+    d_qn_b = d_qn / (d_qn + ts)
+    d_nodes = (w_l * torch.abs(node_lambda[None, :] - lam_q[:, None])
+               + w_d * d_qn_b)                                  # [Q, M]
+    m_nodes = min(probe, d_nodes.shape[1])
+    node_sel = torch.sort(d_nodes, dim=1, stable=True).indices[:, :m_nodes]
+    hit = torch.zeros((nq, scan_energy.bitmap_bytes(n_keys) * 8),
+                      dtype=torch.bool, device=ql.device)
+    hit.scatter_(1, node_centroid.to(torch.int64)[node_sel], True)
+    hit[:, n_keys - 1] = True
+    pool = (hit[:, :n_keys] * route_counts.to(torch.int64)).sum(dim=1)
+    weights = torch.pow(2, torch.arange(8, dtype=torch.int32,
+                                        device=ql.device))
+    bitmap = (hit.view(nq, -1, 8).to(torch.int32)
+              * weights).sum(dim=2).to(torch.uint8)
+    return bitmap, pool
+
+
+def exact_where_short(bitmap: torch.Tensor, pool: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """The batch's bitmaps, or all ones (the exact energy scan) for every
+    query when any query's pool holds fewer than k items: decided on the
+    device, with no read back."""
+    return torch.where(torch.any(pool < k), torch.full_like(bitmap, 0xFF),
+                       bitmap)
 
 
 def energy_routed_topk_batch(x: torch.Tensor, lambdas: torch.Tensor,
@@ -265,48 +303,21 @@ def energy_routed_topk_batch(x: torch.Tensor, lambdas: torch.Tensor,
                              node_e: torch.Tensor,
                              node_centroid: torch.Tensor,
                              lap_f: torch.Tensor, tau_star: torch.Tensor,
-                             buckets: torch.Tensor, tail: torch.Tensor,
+                             route_keys: torch.Tensor,
+                             route_counts: torch.Tensor,
                              q: torch.Tensor, lam_q: torch.Tensor,
                              e_q: torch.Tensor, w_l, w_d, *, probe: int,
                              topk: int):
-    """Candidate-pool routed energy search (the reference's candidate_m
-    pool routing, src/lib.rs:311-323): the best ``probe`` energy nodes per
-    query by w_l |lambda_node - lambda_q| + w_d D'(q, node), deduplicated
-    to their first occurrence of each source centroid (a strictly lower
-    triangular mask), and those centroids' bucket members plus the shared
-    tail scored with energy_topk's formula.  Returns (idx [Q, k] int32,
-    -1 where a score is not finite, vals [Q, k]) with k = min(topk, pool)."""
-    nq = lam_q.shape[0]
-    ts = torch.clamp_min(tau_star, 1e-10)
-    qL = q.to(lap_f.dtype) @ lap_f                              # [Q, F]
-    cross = qL @ nodes.T                                        # [Q, M]
-    d_qn = torch.clamp_min(e_q[:, None] + node_e[None, :] - 2.0 * cross,
-                           0.0)
-    d_qn_b = d_qn / (d_qn + ts)
-    d_nodes = (w_l * torch.abs(node_lambda[None, :] - lam_q[:, None])
-               + w_d * d_qn_b)                                  # [Q, M]
-    m_nodes = min(probe, d_nodes.shape[1])
-    node_sel = torch.sort(d_nodes, dim=1, stable=True).indices[:, :m_nodes]
-    cent_sel = node_centroid.to(torch.int64)[node_sel]          # [Q, P]
-    earlier = torch.tril(torch.ones((m_nodes, m_nodes), dtype=torch.bool,
-                                    device=q.device), diagonal=-1)
-    dup = torch.any((cent_sel[:, :, None] == cent_sel[:, None, :])
-                    & earlier[None], dim=2)                     # [Q, P]
-    cand = torch.where(dup[:, :, None], -1, buckets[cent_sel].to(torch.int64))
-    cand = torch.cat([cand.reshape(nq, -1),
-                      tail.to(torch.int64)[None, :].expand(nq, -1)], dim=1)
-    valid = cand >= 0
-    safe = torch.clamp_min(cand, 0)
-    xc = x[safe].to(qL.dtype)                                   # [Q, M, F]
-    cross_i = torch.bmm(xc, qL[:, :, None])[:, :, 0]
-    d_qa = torch.clamp_min(e_q[:, None] + e_items[safe] - 2.0 * cross_i, 0.0)
-    d_qa_b = d_qa / (d_qa + ts)
-    prox_l = 1.0 / (1.0 + torch.abs(lambdas[safe] - lam_q[:, None]))
-    score = torch.where(valid, w_l * prox_l + w_d / (1.0 + d_qa_b),
-                        -torch.inf)
-    k = min(topk, score.shape[1])
-    vals, pos = torch.sort(score, dim=1, descending=True, stable=True)
-    vals = vals[:, :k]
-    idx = torch.gather(cand, 1, pos[:, :k])
-    idx = torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
-    return idx, vals
+    """Candidate-pool routed energy search: energy_route's pools scored
+    with energy_topk's formula (kernel K8 on CUDA, its plain version on
+    CPU).  route_keys [N] int32: each item's centroid where its bucket
+    holds it, else K (the tail).  Returns (idx [Q, k] int32, -1 where the
+    pool has no k-th item, vals [Q, k], -inf there) with k = min(topk, N),
+    ties to the smaller id."""
+    ql = q.to(lap_f.dtype) @ lap_f                              # [Q, F]
+    bitmap, _ = energy_route(ql, lam_q, e_q, nodes, node_lambda, node_e,
+                             node_centroid, tau_star, route_counts, w_l,
+                             w_d, probe=probe)
+    return scan_energy.energy_scan(x, lambdas, e_items, ql, lam_q, e_q,
+                                   tau_star, w_l, w_d, topk, route_keys,
+                                   bitmap)
